@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of GLIN on one NVIDIA card, end to end.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA card and exits non-zero without one (or without the
+repository's ``src/`` beside it).
+
+Phases (any failure raises, and the script exits non-zero):
+
+1. the card (``nvidia-smi`` name and power limit), torch and nvcc versions;
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. a 2,000,000-record ``mixed`` store (points, polylines, convex and concave
+   polygons, 64-vertex rings; fp32-representable coordinates), indexed by
+   ``SpatialIndex.build(gs, device="cuda")``;
+4. each kernel against its plain torch version at the main path's shapes
+   (1024 windows at selectivity 1e-4, budget 256), exact equality of every
+   output, with CUDA-event times, the least time the card could take, and
+   the launches that comparison and its timing made;
+5. the main path through the facade: every relation with the default
+   (fused kernel) plan, against the plain reference composition, the staged
+   kernel path and the fp64 host path; an overflow-ladder batch at
+   selectivity 1e-3; ``count_candidates``; an insert + delete and the
+   republish. Launch counters are zeroed just before this phase and read
+   just after: every kernel must have launched;
+6. one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+"""
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+N_RECORDS = 2_000_000
+N_WINDOWS = 1024
+SELECTIVITY = 1e-4         # the main batch: ~200 records per window
+LADDER_SELECTIVITY = 1e-3  # ~2000 per window: past the budget, up the ladder
+BUDGET = 256
+HOST_CHECK = 64            # windows held against the fp64 host path
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
+FP32_OPS_PER_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
+FUSED_RELATIONS = ("intersects", "contains", "covers", "within", "touches",
+                   "crosses", "dwithin:0.0005")
+FACADE_RELATIONS = FUSED_RELATIONS + ("disjoint",)
+CSRC = "src/repro_torch/kernels/csrc/refine.cu"
+REPLACES = {"refine_count": "src/repro/kernels/refine.py:391",
+            "refine_compact": "src/repro/kernels/refine.py:415",
+            "refine_fused": "src/repro/kernels/refine.py:466"}
+
+
+def log(obj):
+    print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        return "nvidia-smi: not found"
+    r = subprocess.run([smi, "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return r.stdout.strip().splitlines()[0] if r.stdout.strip() else (
+        f"nvidia-smi failed: {r.stderr.strip()}")
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def fp32_exact(gs) -> None:
+    """Snap the CSR pool to fp32-representable coordinates in place and
+    recompute every record MBR from its ring (the fp64 host path and the
+    fp32 device path then decide the same configurations) — without the
+    dense (N, maxV, 2) view, which would not fit comfortably at this size."""
+    import numpy as np
+
+    off, nv = gs.offsets, gs.nverts.astype(np.int64)
+    if not (np.all(off[1:] == off[:-1] + nv[:-1])
+            and off[-1] + nv[-1] == gs.pool.shape[0]):
+        raise RuntimeError("pool rings are not contiguous")
+    pool = gs.pool
+    pool[:] = pool.astype(np.float32).astype(np.float64)
+    gs.mbrs = np.concatenate([np.minimum.reduceat(pool, off, axis=0),
+                              np.maximum.reduceat(pool, off, axis=0)], 1)
+
+
+def compare(name, got, want) -> dict:
+    """Exact equality of integer outputs: mismatching elements and the
+    largest absolute difference."""
+    import torch
+
+    got = [got] if isinstance(got, torch.Tensor) else list(got)
+    want = [want] if isinstance(want, torch.Tensor) else list(want)
+    mism, err = 0, 0
+    for g, w in zip(got, want):
+        mism += int((g != w).sum())
+        err = max(err, int((g.long() - w.long()).abs().max()))
+    if mism:
+        raise RuntimeError(f"{name}: {mism} elements differ from the plain "
+                           f"version (max abs err {err})")
+    return {"mismatches": mism, "max_abs_err": err}
+
+
+def covered_slots(bounds, n: int) -> int:
+    """Slots inside at least one query's run: overlapping runs read the same
+    rows, and the bound counts each input byte once."""
+    import torch
+
+    s = bounds[:, 0].clamp(0, n).long()
+    e = bounds[:, 1].clamp(0, n).long()
+    ok = e > s
+    d = torch.zeros(n + 1, dtype=torch.int64, device=bounds.device)
+    d.index_add_(0, s[ok], torch.ones_like(s[ok]))
+    d.index_add_(0, e[ok], -torch.ones_like(e[ok]))
+    return int((d.cumsum(0)[:n] > 0).sum())
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
+            else "operations", "bytes": int(nbytes), "ops": int(ops)}
+
+
+def main() -> int:
+    import torch
+
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    if not torch.cuda.is_available():
+        print("no CUDA device: this script runs on the card only",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.core import device as dev
+    from repro_torch.core.datasets import generate, make_query_windows
+    from repro_torch.core.engine import (EngineConfig, QueryBatch,
+                                         SpatialIndex)
+    from repro_torch.core.relations import get_relation
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import refine as kr
+
+    r = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                       text=True, timeout=60)
+    log("nvcc " + r.stdout.strip().splitlines()[-1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---------------------------------------------------------- 2. build
+    t0 = time.perf_counter()
+    _build.load()
+    log({"build_s": time.perf_counter() - t0,
+         "library": _build.library_path().name,
+         "nvcc_s": _build.build_seconds})
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log("ptxas: " + line.strip())
+
+    # ---------------------------------------------------------- 3. store
+    t0 = time.perf_counter()
+    gs = generate("mixed", N_RECORDS, seed=0)
+    fp32_exact(gs)
+    t1 = time.perf_counter()
+    idx = SpatialIndex.build(gs, device="cuda")
+    snap = idx.snapshot()
+    pods = idx._device_payload()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log({"store": {"records": len(gs), "pool_rows": int(gs.pool.shape[0]),
+                   "leaves": len(idx.glin.leaves),
+                   "nodes": int(snap.node_dlo_hi.shape[0]),
+                   "pieces": int(idx.glin.pw.num_pieces),
+                   "slots_padded": snap.num_slots,
+                   "pod_rows": int(pods.pool.shape[0]),
+                   "max_width": pods.max_width,
+                   "search_steps": snap.search_steps, "depth": snap.depth,
+                   "cuda_memory_allocated": torch.cuda.memory_allocated(),
+                   "generate_s": t1 - t0, "build_and_publish_s": t2 - t1}})
+    t0 = time.perf_counter()
+    wins = make_query_windows(gs, SELECTIVITY, N_WINDOWS, seed=1)
+    # the ladder ends in the dense single-stage path, which needs each
+    # window's candidate run inside max_cap: a window whose Z-interval
+    # straddles a top-level quadrant boundary (lengthened further by the
+    # piecewise augmentation) can exceed it, and is left out and counted
+    cand = make_query_windows(gs, LADDER_SELECTIVITY, 64, seed=2)
+    s_, e_ = dev.batch_query_bounds(
+        snap, torch.from_numpy(cand.astype(np.float32)).cuda(), "intersects")
+    runs = (e_ - s_).cpu().numpy()
+    fit = runs <= EngineConfig().max_cap // 2
+    wins_hi = cand[fit][:32]
+    log({"windows_s": time.perf_counter() - t0,
+         "ladder_windows": len(wins_hi), "ladder_left_out": int((~fit).sum()),
+         "ladder_run_max": int(runs.max())})
+    if len(wins_hi) < 16:
+        raise RuntimeError("too few ladder windows fit max_cap")
+    w = torch.from_numpy(wins.astype(np.float32)).cuda()
+
+    # ------------------------------------------- 4. kernels vs plain versions
+    results = {}
+    lm, rm = snap.slot_lmbr, snap.slot_rmbr
+
+    def probe(rel_name):
+        """The relation's probe windows and slot runs; the summed run
+        length (query-slot pairs tested) and the slots covered (rows that
+        must be read)."""
+        rel = get_relation(rel_name)
+        s, e = dev.batch_query_bounds(snap, w, rel_name)
+        b = torch.stack([s, e], 1)
+        return (rel, rel.probe_window(w).contiguous(), b,
+                int((e - s).clamp(min=0).sum()),
+                covered_slots(b, snap.num_slots))
+
+    def run_max(b) -> int:
+        """The longest run: one block walks it, so it sets the kernel's
+        time once every block is resident."""
+        return int((b[:, 1] - b[:, 0]).max())
+
+    q = N_WINDOWS
+    rel_i, pw_i, b_i, run_i, cov_i = probe("intersects")
+    n0 = kr.refine_count.launches
+    got = kr.refine_count(pw_i, b_i, rm)
+    want = kr.refine_count_plain(pw_i, b_i, rm)
+    line = {"name": "refine_count", "shape": [q, snap.num_slots],
+            **compare("refine_count", got, want),
+            "kernel_ms": cuda_ms(lambda: kr.refine_count(pw_i, b_i, rm), 25),
+            "plain_ms": cuda_ms(lambda: kr.refine_count_plain(pw_i, b_i, rm),
+                                3, 1),
+            "run_slots": run_i, "run_max": run_max(b_i),
+            "covered_slots": cov_i,
+            **bound(cov_i * 16 + q * 28, run_i * 8)}
+    line["launches"] = kr.refine_count.launches - n0
+    count_i = got.cpu().numpy()
+    results["refine_count"] = line
+    log(line)
+
+    for prefilter, rel_name in (("intersects", "intersects"),
+                                ("contains", "within")):
+        rel, pw, b, run, cov = probe(rel_name)
+        args = (pw, b, lm, rm)
+        n0 = kr.refine_compact.launches
+        got = kr.refine_compact(*args, budget=BUDGET, prefilter=prefilter)
+        want = kr.refine_compact_plain(*args, BUDGET, prefilter)
+        line = {"name": f"refine_compact[{prefilter}]",
+                "shape": [q, snap.num_slots, BUDGET],
+                **compare(f"refine_compact[{prefilter}]", got, want),
+                "kernel_ms": cuda_ms(lambda: kr.refine_compact(
+                    *args, budget=BUDGET, prefilter=prefilter), 25),
+                "plain_ms": cuda_ms(lambda: kr.refine_compact_plain(
+                    *args, BUDGET, prefilter), 3, 1),
+                "survivors": int(got[1].sum()), "run_slots": run,
+                "run_max": run_max(b), "covered_slots": cov,
+                **bound(cov * 32 + q * (28 + BUDGET * 4), run * 12)}
+        line["launches"] = kr.refine_compact.launches - n0
+        log(line)
+        results.setdefault("refine_compact", line)
+
+    pod_i = torch.stack([pods.off, pods.nv, pods.kd, pods.bucket], 1)
+    packed = dev._fused_operands(snap)
+    for rel_name in FUSED_RELATIONS:
+        rel, pw, b, run, cov = probe(rel_name)
+        qkeys = torch.stack(dev._raw_query_keys(snap, w, rel), 1)
+        ops = (w, pw, qkeys, *packed, pod_i, pods.pool, lm, rm)
+        kw = dict(budget=BUDGET, prefilter=rel.prefilter_kind, code=rel.code,
+                  dist=rel.dist,
+                  augment=bool(rel.augment) and snap.pw_zmax_hi.shape[0] > 0,
+                  search_steps=snap.search_steps, depth=snap.depth)
+        n0 = kr.refine_fused.launches
+        got = kr.refine_fused(*ops, **kw)
+        want = kr.refine_fused_plain(*ops, **kw)
+        # bytes this run needs, each read once: the covered slots' leaf +
+        # record MBR rows, the survivor slots' record ids, the survivor
+        # records' pod headers and vertices, the probe's table reads, the
+        # windows/keys in and the hits/counts out; operations: 12 per
+        # query-slot pair, ~70 per survivor vertex tested
+        slots, _ = kr.refine_compact(pw, b, lm, rm, budget=BUDGET,
+                                     prefilter=rel.prefilter_kind)
+        taken = slots >= 0
+        recs = snap.recs[slots.clamp(min=0)][taken].long()
+        urec = torch.unique(recs)
+        surv, pair_verts = int(taken.sum()), int(pods.nv[recs].sum())
+        probe_bytes = q * 2 * (snap.depth * 24 + (snap.search_steps + 2) * 8
+                               + 48)
+        nbytes = (cov * 32 + int(torch.unique(slots[taken]).numel()) * 4
+                  + int(urec.numel()) * 16 + int(pods.nv[urec].sum()) * 8
+                  + probe_bytes + q * (52 + BUDGET * 4))
+        line = {"name": f"refine_fused[{rel_name}]",
+                "shape": [q, snap.num_slots, BUDGET],
+                **compare(f"refine_fused[{rel_name}]", got, want),
+                "kernel_ms": cuda_ms(lambda: kr.refine_fused(*ops, **kw), 25),
+                "plain_ms": cuda_ms(lambda: kr.refine_fused_plain(*ops, **kw),
+                                    2, 1),
+                "survivors": surv, "survivor_vertices": pair_verts,
+                "run_slots": run, "run_max": run_max(b),
+                "covered_slots": cov, "hits": int(got[1].clamp(min=0).sum()),
+                "overflow_rows": int((got[1] < 0).sum()),
+                **bound(nbytes, run * 12 + pair_verts * 70)}
+        line["launches"] = kr.refine_fused.launches - n0
+        log(line)
+        results.setdefault("refine_fused", line)
+
+    # -------------------------------------------- 5. the main path, end to end
+    counters = {"refine_count": kr.refine_count,
+                "refine_compact": kr.refine_compact,
+                "refine_fused": kr.refine_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    facades = {"kernel": idx,
+               "reference": SpatialIndex(idx.glin,
+                                         EngineConfig(fusion="reference"),
+                                         device="cuda"),
+               "off": SpatialIndex(idx.glin, EngineConfig(fusion="off"),
+                                   device="cuda")}
+    for f in facades.values():
+        f.snapshot()
+        f._device_payload()
+    torch.cuda.synchronize()
+
+    def run(facade, name, windows, relation, **kw):
+        before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        res = facade.query(QueryBatch.window(windows, relation, **kw))
+        torch.cuda.synchronize()
+        st = res.stages[0]
+        log({"batch": name, "relation": relation, "queries": len(windows),
+             "wall_ms": (time.perf_counter() - t0) * 1e3,
+             "backend": res.plan.backend, "impl": st.impl,
+             "escalations": st.escalations, "dispatches": st.dispatches,
+             "budget": st.budget, "hits": res.total_hits,
+             "launches": {k: fn.launches - before[k]
+                          for k, fn in counters.items()}})
+        return res
+
+    def same(a, b, what):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if not np.array_equal(x, y):
+                raise RuntimeError(f"{what}: window {i} differs "
+                                   f"({len(x)} vs {len(y)} hits)")
+
+    for rel_name in FACADE_RELATIONS:
+        # a complement returns nearly every live record per window: its id
+        # lists are O(N) each, so it runs on the host-checked windows only
+        batch = wins[:HOST_CHECK] if rel_name == "disjoint" else wins
+        n0 = kr.refine_fused.launches
+        main = run(idx, "fused", batch, rel_name)
+        if not (main.plan.backend == "device" and main.plan.fused
+                and main.stages[0].impl == "fused"
+                and kr.refine_fused.launches > n0):
+            raise RuntimeError(f"{rel_name}: main path did not run the fused "
+                               f"kernel ({main.plan})")
+        same(main.ids, run(facades["reference"], "reference", batch,
+                           rel_name).ids, f"{rel_name} fused vs reference")
+        n0 = kr.refine_compact.launches
+        staged = run(facades["off"], "staged", batch, rel_name)
+        if kr.refine_compact.launches <= n0:
+            raise RuntimeError(f"{rel_name}: staged path did not run the "
+                               "compact kernel")
+        same(main.ids, staged.ids, f"{rel_name} fused vs staged")
+        host = run(idx, "host", wins[:HOST_CHECK], rel_name, backend="host")
+        same(main.ids[:HOST_CHECK], host.ids, f"{rel_name} fused vs host")
+
+    ladder = run(idx, "ladder", wins_hi, "intersects")
+    if ladder.stages[0].escalations < 1:
+        raise RuntimeError(f"selectivity {LADDER_SELECTIVITY} batch never "
+                           f"overflowed the budget of {BUDGET}")
+    same(ladder.ids, run(idx, "host", wins_hi, "intersects",
+                         backend="host").ids, "ladder vs host")
+
+    t0 = time.perf_counter()
+    counts = idx.count_candidates(wins, "intersects")
+    log({"batch": "count_candidates", "queries": len(wins),
+         "wall_ms": (time.perf_counter() - t0) * 1e3})
+    if not np.array_equal(counts, count_i):
+        raise RuntimeError("count_candidates differs from refine_count")
+
+    hit0 = run(idx, "fused", wins, "intersects")
+    victim = int(hit0.ids[1][0])
+    c = (wins[0, :2] + wins[0, 2:]) / 2
+    ring = np.asarray([[c[0] - 1e-4, c[1] - 1e-4], [c[0] + 1e-4, c[1] - 1e-4],
+                       [c[0], c[1] + 1e-4]], np.float32).astype(np.float64)
+    new = idx.insert(ring, 3, 0)
+    if not idx.delete(victim):
+        raise RuntimeError(f"delete of record {victim} failed")
+    after = run(idx, "republish", wins, "intersects")
+    if not (after.plan.rebuild_snapshot and after.plan.backend == "device"):
+        raise RuntimeError(f"write did not republish: {after.plan}")
+    if new not in after.ids[0] or victim in after.ids[1]:
+        raise RuntimeError("insert/delete not reflected after republish")
+    same(after.ids[:HOST_CHECK], run(idx, "host", wins[:HOST_CHECK],
+                                     "intersects", backend="host").ids,
+         "republished vs host")
+
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, n in launches.items():
+        if n == 0:
+            raise RuntimeError(f"{k} never launched on the main path")
+
+    # ------------------------------------------------------------- 6. report
+    entries = []
+    for k in counters:
+        r_ = results[k]
+        entries.append({"name": k, "route": "cuda", "source": CSRC,
+                        "replaces": REPLACES[k], "launches": launches[k],
+                        "max_abs_err": r_["max_abs_err"],
+                        "ms": r_["kernel_ms"], "plain_ms": r_["plain_ms"],
+                        "bound_ms": r_["bound_ms"],
+                        "bound_by": r_["bound_by"], "library_ms": None})
+    log(card_line())
+    log({"kernels": entries})
+    log({"ok": True, "device": {"platform": "gpu",
+                                "kind": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,693 @@
+"""`SpatialIndex` — the one public way to build, mutate, snapshot and query.
+
+The paper's mechanism (probe an interval, refine with a predicate) is the same
+whether one window runs on the host or ten thousand run on a GPU. This facade
+owns the plumbing:
+
+* **relations** are first-class (``core.relations``): ``contains``,
+  ``intersects``, ``within``, ``covers``, ``disjoint``, ``touches``,
+  ``crosses`` and ``dwithin:<d>``, all through one entry point,
+  ``SpatialIndex.query``;
+* **snapshots are epoch-invalidated**: every insert/delete bumps a mutation
+  epoch and is applied to the host ``GLIN`` immediately (host queries are
+  always exact); the flattened device snapshot is materialized lazily and
+  republished when stale, so a stale snapshot is never served. A stale
+  snapshot republishes synchronously for a device-sized batch; a small batch
+  runs on the host instead;
+* **execution is planned, then staged**: ``plan(batch)`` picks a backend
+  (host loop for small or stats-collecting batches; the device path for
+  large batches against a fresh or republished snapshot) and
+  ``core.exec.compile_plan`` turns the choice into an
+  :class:`~repro_torch.core.exec.ExecutionPlan` with per-stage telemetry on
+  every result (``QueryResult.stages``, ``stats()["stages"]``,
+  :meth:`SpatialIndex.explain`); ``count_candidates`` routes through the
+  ``refine_count`` kernel;
+* **devices**: an index lives on one torch device, ``"cuda"`` unless the
+  caller asks for ``"cpu"``. On a CUDA index the refine runs through the
+  CUDA kernels (``kernels.refine``); ``fusion="reference"`` is the plain
+  tensor composition of the same stages;
+* **precision**: host execution refines in fp64; device execution refines in
+  fp32 (results can differ at exact window boundaries, by design — the probe
+  interval is quantized conservatively so hits are never missed).
+
+Typical use::
+
+    from repro_torch.core import SpatialIndex, generate, make_query_windows
+
+    index = SpatialIndex.build(generate("cluster", 100_000))   # on the card
+    res = index.query(make_query_windows(index.gs, 1e-3, 256), "intersects")
+    ids0 = res[0]                       # hits of window 0, ascending record id
+    rec = index.insert(verts, nverts=8, kind=0)   # bumps the epoch
+    res = index.query(windows, "contains")        # snapshot auto-rebuilt
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Dict, Iterator, List, Optional, Set
+
+import numpy as np
+import torch
+
+from . import exec as qexec
+from .datasets import GeometrySet
+# batch_query / batch_query_fused are re-exported for the exec stages (and
+# tests), which resolve them through THIS module's namespace so a patched
+# binding is honored
+from .device import batch_query, batch_query_fused  # noqa: F401
+from .device import (GLINSnapshot, HostCapture, VertexPods, _pow2ceil,
+                     batch_query_bounds, pods_from_store, snapshot_capture,
+                     snapshot_from_capture)
+from .index import GLIN, GLINConfig, QueryStats
+from .relations import get_relation
+
+__all__ = ["EngineConfig", "QueryBatch", "QueryPlan", "QueryResult",
+           "SpatialIndex", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``"cuda"`` or ``"cpu"`` as a torch device. Asking for CUDA on a
+    machine without it raises: nothing silently carries on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but CUDA is not "
+                               "available; pass device='cpu' to run on the "
+                               "CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r} (use 'cuda' or "
+                         "'cpu')")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Planner / execution knobs for :class:`SpatialIndex`."""
+
+    device_min_batch: int = 16        # smaller window batches run on host
+    stale_rebuild_min_batch: int = 64  # stale snapshot: republish only for
+                                       # batches this big, else host
+    initial_cap: int = 4096           # device candidate capacity per query
+    max_cap: int = 1 << 20            # give up (OverflowError) past this
+    exact_budget: int = 256           # two-stage refinement budget (0 = off):
+                                      # stage 1 masks + compacts, stage 2
+                                      # exact-checks at most this many
+                                      # candidates per query
+    compaction: Optional[str] = None  # stage-1 impl: "kernel" (the
+                                      # refine_compact wrapper) or "scan"
+                                      # (tensor reference); None = kernel on
+                                      # a CUDA index, scan on the CPU
+    fusion: Optional[str] = None      # one-launch probe+compact+refine:
+                                      # "kernel" (the refine_fused wrapper),
+                                      # "reference" (plain tensor composition
+                                      # of the same stages) or "off"; None =
+                                      # kernel on a CUDA index, off on the
+                                      # CPU. Custom-prefilter relations and
+                                      # budgets outside (0, MAX_COMPACT_
+                                      # BUDGET] fall back to the staged
+                                      # pipeline automatically
+    pad_quantum: int = 4096           # bucket-pad record/slot table lengths
+                                      # so insert-driven growth keeps shapes
+                                      # (0 disables padding)
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryBatch:
+    """One or many window queries against one relation.
+
+    Build with :meth:`window`; ``backend`` forces a specific execution path
+    (benchmarks, tests), otherwise the planner decides.
+    """
+
+    kind: str = "window"
+    windows: Optional[np.ndarray] = None    # (Q, 4) fp64
+    relation: str = "intersects"
+    backend: Optional[str] = None     # force "host" / "device"
+    collect_stats: bool = False       # per-window QueryStats (host path)
+
+    @classmethod
+    def window(cls, windows, relation: str = "intersects",
+               backend: Optional[str] = None,
+               collect_stats: bool = False) -> "QueryBatch":
+        w = np.atleast_2d(np.asarray(windows, np.float64))
+        if w.ndim != 2 or w.shape[1] != 4:
+            raise ValueError(f"windows must be (Q, 4); got {w.shape}")
+        get_relation(relation)  # fail fast on unknown relations
+        return cls(kind="window", windows=w, relation=relation,
+                   backend=backend, collect_stats=collect_stats)
+
+    @classmethod
+    def knn(cls, points, k: int, backend: Optional[str] = None):
+        raise NotImplementedError(
+            "kNN queries are not ported yet: they arrive with the kNN slice "
+            "(device kNN ranking and its top-k kernel)")
+
+    def __len__(self) -> int:
+        return 0 if self.windows is None else int(self.windows.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryPlan:
+    """How a batch will execute (returned by ``plan``, recorded on results)."""
+
+    backend: str                  # "host" | "device"
+    kind: str                     # "window"
+    relation: Optional[str]
+    base_relation: Optional[str]  # probed relation (complements differ)
+    rebuild_snapshot: bool        # device path will republish the snapshot
+    reason: str
+    delta_size: int = 0           # added + tombstoned records vs the snapshot
+    fused: bool = False           # device refine compiles to the one-launch
+                                  # FusedDeviceStage (EngineConfig.fusion)
+
+
+@dataclasses.dataclass
+class QueryResult:
+    """Per-query hit ids (ascending record id) plus execution metadata."""
+
+    ids: List[np.ndarray]
+    plan: QueryPlan
+    epoch: int                                  # index epoch that was served
+    stats: Optional[List[QueryStats]] = None    # host path, when requested
+    stages: Optional[List["qexec.StageStats"]] = None  # per-stage telemetry
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return self.ids[i]
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        return iter(self.ids)
+
+    @property
+    def total_hits(self) -> int:
+        return int(sum(r.shape[0] for r in self.ids))
+
+
+class SpatialIndex:
+    """Facade over the host ``GLIN`` + lazily-materialized device snapshot.
+
+    All mutations MUST go through :meth:`insert` / :meth:`delete` so the
+    mutation epoch tracks the host structure; the device snapshot and device
+    geometry payload are invalidated by epoch and rebuilt on demand.
+
+    Thread-safe for concurrent callers: writes and the query prologue
+    (planning, snapshot publish, freezing) serialize on one internal lock,
+    while the device compute runs OUTSIDE it against frozen immutable
+    tensors. The host path holds the lock for its whole run (it walks the
+    mutable host tree).
+    """
+
+    def __init__(self, glin: GLIN, config: Optional[EngineConfig] = None,
+                 device="cuda"):
+        self.glin = glin
+        self.config = config or EngineConfig()
+        self.device = resolve_device(device)
+        self._lock = threading.RLock()
+        self._epoch = 0
+        self._snapshot: Optional[GLINSnapshot] = None
+        self._snapshot_epoch = -1
+        self._snapshot_recs = 0         # store length at publish time
+        self._publishes = 0             # snapshot (re)publish count
+        # writes since the last publish (what a republish folds in)
+        self._added: Set[int] = set()   # record ids inserted since publish
+        self._tombstones: Set[int] = set()  # published records deleted since
+        self._payload: Optional[VertexPods] = None
+        self._payload_key = None        # (real records, store layout gen.)
+        # adaptive candidate capacity: remembered across queries so the
+        # overflow ladder (cap doubling) is walked once, not per call
+        self._cap = self.config.initial_cap
+        # sticky floors for the snapshot's fixed trip counts: serving the
+        # larger value after a refit is still correct (extra bounded-search
+        # / traversal trips no-op) and keeps republished shapes stable
+        self._steps_floor = 0
+        self._depth_floor = 0
+        # sticky floors for the geometry payload's shapes: the pod pool may
+        # SHRINK at a compacting republish and the width ladder after wide
+        # records die — serving the larger padded shape is still correct
+        self._pool_floor = 0
+        self._width_floor = 1
+        # per-(backend, stage) telemetry aggregates (stats()["stages"])
+        self._stage_totals: Dict[str, Dict[str, Dict[str, float]]] = {}
+
+    # ------------------------------------------------------------------ build
+    @classmethod
+    def build(cls, gs: GeometrySet, glin_cfg: GLINConfig = GLINConfig(),
+              config: Optional[EngineConfig] = None,
+              device="cuda") -> "SpatialIndex":
+        dev = resolve_device(device)    # fail before the host build
+        return cls(GLIN.build(gs, glin_cfg), config, dev)
+
+    @property
+    def gs(self) -> GeometrySet:
+        return self.glin.gs
+
+    def __len__(self) -> int:
+        return self.glin.num_records
+
+    def stats(self) -> dict:
+        with self._lock:
+            st = self.glin.stats()
+            st["device"] = str(self.device)
+            st["epoch"] = self._epoch
+            st["snapshot_epoch"] = self._snapshot_epoch
+            st["snapshot_stale"] = self.snapshot_is_stale()
+            st["delta_size"] = self.delta_size()
+            st["snapshot_publishes"] = self._publishes
+            st["stages"] = {b: {s: dict(v) for s, v in per.items()}
+                            for b, per in self._stage_totals.items()}
+            return st
+
+    def _record_stages(self, backend: str,
+                       stage_stats: List["qexec.StageStats"]) -> None:
+        """Fold one execution's per-stage telemetry into the aggregates
+        surfaced by ``stats()["stages"]`` (keyed backend -> stage label)."""
+        with self._lock:
+            per = self._stage_totals.setdefault(backend, {})
+            for ss in stage_stats:
+                ent = per.setdefault(ss.stage, {
+                    "impl": ss.impl, "calls": 0, "skipped": 0,
+                    "wall_ms": 0.0, "queries": 0, "survivors": 0,
+                    "escalations": 0, "dispatches": 0})
+                ent["calls"] += 1
+                ent["wall_ms"] += ss.wall_ms
+                # the executing impl may differ per call (staged vs fused
+                # refine share the "refine" label): report the latest
+                ent["impl"] = ss.impl
+                if ss.skipped:
+                    ent["skipped"] += 1
+                    continue
+                ent["queries"] += ss.queries
+                ent["survivors"] += max(ss.survivors, 0)
+                ent["escalations"] += ss.escalations
+                ent["dispatches"] += ss.dispatches
+
+    # ------------------------------------------------------------ maintenance
+    def insert(self, verts: np.ndarray, nverts: int, kind: int = 0) -> int:
+        with self._lock:
+            rec = self.glin.insert(verts, nverts, kind)
+            self._epoch += 1
+            self._added.add(rec)
+            return rec
+
+    def delete(self, rec: int) -> bool:
+        with self._lock:
+            ok = self.glin.delete(rec)
+            if ok:
+                self._epoch += 1
+                if rec in self._added:
+                    self._added.remove(rec)
+                elif rec < self._snapshot_recs:
+                    self._tombstones.add(rec)
+            return ok
+
+    def delta_size(self) -> int:
+        """Records added plus published records tombstoned since the last
+        snapshot publish."""
+        return len(self._added) + len(self._tombstones)
+
+    # --------------------------------------------------------------- snapshot
+    @property
+    def epoch(self) -> int:
+        return self._epoch
+
+    @property
+    def device_cap(self) -> int:
+        """Current adaptive per-query candidate capacity of the device path."""
+        return self._cap
+
+    def snapshot_is_stale(self) -> bool:
+        return self._snapshot is None or self._snapshot_epoch != self._epoch
+
+    def _padded(self, n: int) -> int:
+        return self._bucket(n, self.config.pad_quantum)
+
+    # bucket quanta for the small model tables (pad_quantum > 0): a republish
+    # that grew the tree or the piecewise function keeps the SAME shapes as
+    # long as each table stays inside its bucket
+    _LEAF_QUANTUM = 256
+    _NODE_QUANTUM = 64
+    _CODE_QUANTUM = 256
+    _PW_QUANTUM = 1024
+    _INF_HI = 1 << 30   # > any valid 30-bit limb
+
+    @staticmethod
+    def _bucket(n: int, q: int) -> int:
+        return n if q <= 0 else max(q, -(-n // q) * q)
+
+    def _pad_snapshot(self, snap: GLINSnapshot) -> GLINSnapshot:
+        """Bucket-pad every snapshot table (``EngineConfig.pad_quantum``
+        disables all of it when 0).
+
+        * slot arrays — padding slots sit past the ``leaf_start`` sentinel,
+          so no probe or candidate window ever reaches them;
+        * leaf tables — padding leaves carry +inf domain bounds (the ±2
+          routing fix-up can never step onto one), empty ``leaf_start`` runs
+          and far-away MBRs;
+        * node tables / child codes — only reachable through ``child_codes``
+          entries of real nodes, so zero padding is inert;
+        * piecewise pieces — +inf ``zmax_end`` (sorts after every real
+          piece) with +inf suffix-min (an augmentation landing there is a
+          no-op by the ``z_less`` take-test).
+        """
+        if self.config.pad_quantum <= 0:
+            return snap
+        dev = snap.device
+        i32, f32 = torch.int32, torch.float32
+
+        def full(n, v, dtype, cols=None):
+            shape = (n,) if cols is None else (n, cols)
+            return torch.full(shape, v, dtype=dtype, device=dev)
+
+        reps: dict = {}
+        # fixed trip counts: sticky-monotonic with generous floors (16 steps
+        # cover a model-error window of 2^16 slots — clipped to the leaf size
+        # anyway — at a few extra cheap binary-search gathers per probe);
+        # growing them stays correct (extra trips no-op)
+        steps = max(self._steps_floor, snap.search_steps, 16)
+        depth = max(self._depth_floor, snap.depth, 8)
+        if (steps, depth) != (snap.search_steps, snap.depth):
+            reps.update(search_steps=steps, depth=depth)
+        # slot arrays
+        n = snap.keys_hi.shape[0]
+        pad = self._padded(n) - n
+        if pad:
+            big = full(pad, (1 << 30) - 1, i32)
+            far = full(pad, 2e30, f32, 4)   # hits nothing
+            reps.update(
+                keys_hi=torch.cat([snap.keys_hi, big]),
+                keys_lo=torch.cat([snap.keys_lo, big]),
+                recs=torch.cat([snap.recs, full(pad, 0, i32)]),
+                rec_leaf=torch.cat([snap.rec_leaf,
+                                    full(pad, snap.num_leaves - 1, i32)]),
+                slot_lmbr=torch.cat([snap.slot_lmbr, far]),
+                slot_rmbr=torch.cat([snap.slot_rmbr, far]),
+            )
+        # leaf tables ((L,) and (L+1,) shapes share one bucket). The domain
+        # sentinel dlo[L] (the last leaf's nominal dhi) is REPLACED together
+        # with the pads by a strictly-infinite bound: inserted keys may
+        # legitimately exceed the nominal dhi (the host tree stores them in
+        # the last leaf), and without padding it was the fix-up's clamp to
+        # ``num_leaves - 1`` that kept such probes on the last REAL leaf —
+        # the infinite sentinel reproduces exactly that, so the ±2 routing
+        # fix-up can never step onto a (empty-windowed) pad leaf.
+        L = snap.num_leaves
+        lb = self._bucket(L, self._LEAF_QUANTUM)
+        if lb > L:
+            reps.update(
+                leaf_dlo_hi=torch.cat([snap.leaf_dlo_hi[:L],
+                                       full(lb + 1 - L, self._INF_HI, i32)]),
+                leaf_dlo_lo=torch.cat([snap.leaf_dlo_lo[:L],
+                                       full(lb + 1 - L, 1 << 30, i32)]),
+                leaf_start=torch.cat([snap.leaf_start,
+                                      snap.leaf_start[-1:].expand(lb - L)]),
+                leaf_mbr=torch.cat([snap.leaf_mbr,
+                                    full(lb - L, 2e30, f32, 4)]),
+                leaf_k0_hi=torch.cat([snap.leaf_k0_hi, full(lb - L, 0, i32)]),
+                leaf_k0_lo=torch.cat([snap.leaf_k0_lo, full(lb - L, 0, i32)]),
+                leaf_slope=torch.cat([snap.leaf_slope,
+                                      full(lb - L, 0.0, f32)]),
+                leaf_icpt=torch.cat([snap.leaf_icpt, full(lb - L, 0.0, f32)]),
+            )
+        # node tables + child codes (reachable only via real child_codes)
+        M = snap.node_scale.shape[0]
+        mb = self._bucket(M, self._NODE_QUANTUM)
+        if mb > M:
+            k = mb - M
+            reps.update(
+                node_dlo_hi=torch.cat([snap.node_dlo_hi, full(k, 0, i32)]),
+                node_dlo_lo=torch.cat([snap.node_dlo_lo, full(k, 0, i32)]),
+                node_scale=torch.cat([snap.node_scale, full(k, 0.0, f32)]),
+                node_fanout=torch.cat([snap.node_fanout, full(k, 1, i32)]),
+                node_child_base=torch.cat([snap.node_child_base,
+                                           full(k, 0, i32)]),
+            )
+        C = snap.child_codes.shape[0]
+        cb = self._bucket(C, self._CODE_QUANTUM)
+        if cb > C:
+            reps["child_codes"] = torch.cat([snap.child_codes,
+                                             full(cb - C, 0, i32)])
+        # piecewise pieces (only when the function exists at all)
+        Pn = snap.pw_zmax_hi.shape[0]
+        pb = self._bucket(Pn, self._PW_QUANTUM) if Pn else 0
+        if pb > Pn:
+            k = pb - Pn
+            inf, zero = full(k, self._INF_HI, i32), full(k, 0, i32)
+            reps.update(
+                pw_zmax_hi=torch.cat([snap.pw_zmax_hi, inf]),
+                pw_zmax_lo=torch.cat([snap.pw_zmax_lo, zero]),
+                pw_sufmin_hi=torch.cat([snap.pw_sufmin_hi, inf]),
+                pw_sufmin_lo=torch.cat([snap.pw_sufmin_lo, zero]),
+            )
+        return dataclasses.replace(snap, **reps) if reps else snap
+
+    def snapshot(self) -> GLINSnapshot:
+        """The flattened device snapshot at the CURRENT epoch (rebuilds when
+        stale; a stale snapshot is never handed out)."""
+        with self._lock:
+            if self.snapshot_is_stale():
+                cap = snapshot_capture(self.glin)
+                self._install_snapshot(
+                    self._pad_snapshot(snapshot_from_capture(cap,
+                                                             self.device)),
+                    cap, self._epoch)
+            return self._snapshot
+
+    def _install_snapshot(self, snap: GLINSnapshot, capture: HostCapture,
+                          epoch: int) -> None:
+        """Publish ``snap`` as the served snapshot (every dependent field
+        moves together, under the lock)."""
+        self._snapshot = snap
+        self._snapshot_epoch = epoch
+        self._snapshot_recs = capture.num_records
+        self._publishes += 1
+        self._added = set()
+        self._tombstones = set()
+        self._steps_floor = max(self._steps_floor, snap.search_steps)
+        self._depth_floor = max(self._depth_floor, snap.depth)
+
+    def _device_payload(self, needed_recs: Optional[int] = None
+                        ) -> VertexPods:
+        """fp32 device copy of the geometry store as width-bucketed
+        :class:`~repro_torch.core.device.VertexPods`, bucket-padded like the
+        snapshot (padding records are never gathered: snapshot ``recs`` only
+        holds real record ids). Keyed on (records, store layout generation)
+        rather than the epoch, and reused as long as it covers
+        ``needed_recs``: the pool is append-only between compactions, so
+        only a compacting republish rebuilds it."""
+        gs = self.glin.gs
+        need = len(gs) if needed_recs is None else needed_recs
+        if (self._payload is None
+                or self._payload_key[1] != gs.layout_version
+                or self._payload_key[0] < need):
+            n = len(gs)
+            m = self._padded(n)
+            # pod shapes under sticky floors: the width ladder covers the
+            # widest live record, the pool covers every record's pow2
+            # bucket slots (quantum headroom absorbs insert-driven growth)
+            maxw = max(self._width_floor, _pow2ceil(gs.max_nverts))
+            nv = np.maximum(gs.nverts.astype(np.int64), 1)
+            slots = int(np.sum(np.left_shift(
+                1, np.ceil(np.log2(nv)).astype(np.int64))))
+            pool_pad = max(self._pool_floor,
+                           self._bucket(max(slots, 1),
+                                        self.config.pad_quantum))
+            self._payload = pods_from_store(gs, self.device,
+                                            pad_records_to=m,
+                                            pool_pad_to=pool_pad,
+                                            max_width=maxw)
+            self._payload_key = (n, gs.layout_version)
+            self._pool_floor = max(self._pool_floor, pool_pad)
+            self._width_floor = max(self._width_floor, maxw)
+        return self._payload
+
+    def _compaction(self, base_relation: str,
+                    budget: Optional[int] = None) -> str:
+        """Stage-1 refinement implementation for ``batch_query``: the
+        ``refine_compact`` wrapper on a CUDA index, the scan reference on
+        the CPU, and the scan reference whenever the relation's MBR
+        prefilter has no kernel shape (``prefilter_kind == "custom"``) or
+        the budget exceeds ``MAX_COMPACT_BUDGET``. ``budget`` is the budget
+        the call will actually use (the overflow ladder grows it)."""
+        from ..kernels.refine import MAX_COMPACT_BUDGET
+
+        mode = self.config.compaction
+        if mode is None:
+            mode = "kernel" if self.device.type == "cuda" else "scan"
+        if mode not in ("kernel", "scan"):
+            raise ValueError(f"unknown compaction {mode!r}")
+        if mode == "kernel":
+            b = self.config.exact_budget if budget is None else budget
+            if (get_relation(base_relation).prefilter_kind == "custom"
+                    or b > MAX_COMPACT_BUDGET):
+                mode = "scan"
+        return mode
+
+    def _fusion_mode(self, base_relation: str,
+                     budget: Optional[int] = None) -> Optional[str]:
+        """Resolve ``EngineConfig.fusion`` to a ``batch_query_fused`` mode,
+        or ``None`` when the fused one-launch path cannot serve the call and
+        the staged pipeline must: fusion off, a custom-prefilter relation,
+        or a budget outside the two-stage envelope
+        ``(0, MAX_COMPACT_BUDGET]``. The kernel reads its tables from device
+        memory, so unlike the reference's fast-memory bound no store size
+        leaves the envelope."""
+        from ..kernels.refine import MAX_COMPACT_BUDGET
+
+        mode = self.config.fusion
+        if mode is None:
+            mode = "kernel" if self.device.type == "cuda" else "off"
+        if mode == "off":
+            return None
+        if mode not in ("kernel", "reference"):
+            raise ValueError(f"unknown fusion mode {mode!r}")
+        if get_relation(base_relation).prefilter_kind == "custom":
+            return None
+        b = self.config.exact_budget if budget is None else budget
+        if not 0 < b <= MAX_COMPACT_BUDGET:
+            return None
+        return mode
+
+    def _check_augmentable(self, relation: str, base) -> None:
+        """Fail loudly when a relation needs the piecewise augmentation and
+        the index was built without it — the device ``_augment()`` would
+        silently no-op on an empty piecewise table and drop true hits."""
+        if base.augment and self.glin.pw is None:
+            raise ValueError(f"{relation} requires the piecewise function "
+                             "(cfg.enable_piecewise=True)")
+
+    # ------------------------------------------------------------------- plan
+    def plan(self, batch, relation: Optional[str] = None) -> QueryPlan:
+        """Planned execution for ``batch`` (same input forms as ``query``)."""
+        if not isinstance(batch, QueryBatch):
+            batch = QueryBatch.window(batch, relation or "intersects")
+        cfg = self.config
+        rel = get_relation(batch.relation)
+        base = get_relation(rel.base_name())
+        self._check_augmentable(batch.relation, base)
+        stale = self.snapshot_is_stale()
+        delta = self.delta_size()
+
+        def host(reason):
+            return QueryPlan("host", "window", rel.name, base.name, False,
+                             reason, delta)
+
+        fused = self._fusion_mode(base.name) is not None
+        fnote = "; fused one-kernel refine" if fused else ""
+
+        def device(reason):
+            return QueryPlan("device", "window", rel.name, base.name, stale,
+                             reason + fnote, delta, fused=fused)
+
+        if batch.collect_stats and batch.backend == "device":
+            raise ValueError("collect_stats is host-only; drop it or force "
+                             "backend='host'")
+        if batch.backend == "host":
+            return host("forced by caller")
+        if batch.backend == "device":
+            return device("forced by caller")
+        if batch.backend is not None:
+            raise ValueError(f"unknown backend {batch.backend!r} (ported "
+                             "backends: 'host', 'device')")
+        if batch.collect_stats:
+            return host("QueryStats instrumentation is host-only")
+        if not base.device_native:
+            return host(f"relation {base.name!r} is not device-native")
+        q = len(batch)
+        if q < cfg.device_min_batch:
+            return host(f"batch of {q} < device_min_batch="
+                        f"{cfg.device_min_batch}")
+        if not stale:
+            return device(f"batch of {q} windows on {self.device.type}")
+        if q < cfg.stale_rebuild_min_batch:
+            return host(f"snapshot stale and batch of {q} < "
+                        f"stale_rebuild_min_batch="
+                        f"{cfg.stale_rebuild_min_batch}")
+        if self._snapshot is None:
+            return device(f"no published snapshot yet: publishing for "
+                          f"batch of {q}")
+        return device(f"snapshot stale; delta of {delta} not patchable "
+                      f"(no delta patching): republishing for batch of {q}")
+
+    # ------------------------------------------------------------------ query
+    def query(self, batch, relation: Optional[str] = None, **kw
+              ) -> QueryResult:
+        """THE entry point: one or thousands of window queries, any relation.
+
+        ``batch`` is a :class:`QueryBatch`, or a bare (4,) / (Q, 4) window
+        array (``relation`` then applies, default ``intersects``).
+
+        Concurrency contract: safe to call from many threads, interleaved
+        with :meth:`insert`/:meth:`delete`. A device batch is exact at the
+        epoch frozen in its prologue (``result.epoch``) and runs its device
+        compute without blocking writers; host batches serialize with
+        writers and are exact at the epoch they hold the lock.
+        """
+        if not isinstance(batch, QueryBatch):
+            batch = QueryBatch.window(batch, relation or "intersects", **kw)
+        else:
+            if relation is not None and relation != batch.relation:
+                raise ValueError("pass the relation inside the QueryBatch")
+            if kw:
+                raise ValueError(f"{sorted(kw)} must be set on the QueryBatch "
+                                 "itself")
+        with self._lock:
+            plan = self.plan(batch)
+        rel = get_relation(batch.relation)
+        base = get_relation(rel.base_name())
+        ctx = qexec.ExecContext(index=self, batch=batch, plan=plan,
+                                rel=rel, base=base)
+        qexec.compile_plan(plan).execute(ctx)
+        self._record_stages(plan.backend, ctx.stage_stats)
+        return QueryResult(ids=ctx.ids, plan=plan, epoch=ctx.epoch,
+                           stats=ctx.host_stats, stages=ctx.stage_stats)
+
+    def explain(self, batch, relation: Optional[str] = None) -> str:
+        """Pretty-print how ``batch`` WOULD execute (same input forms as
+        :meth:`query`, nothing runs): the planner's decision plus the
+        compiled stage composition — one line per stage with its
+        implementation and the canonical pipeline stages it fuses."""
+        if not isinstance(batch, QueryBatch):
+            batch = QueryBatch.window(batch, relation or "intersects")
+        with self._lock:
+            plan = self.plan(batch)
+        eplan = qexec.compile_plan(plan)
+        head = (f"QueryPlan backend={plan.backend} kind={plan.kind} "
+                f"relation={plan.relation} delta={plan.delta_size}"
+                + (" rebuild" if plan.rebuild_snapshot else ""))
+        lines = [head, f"  reason: {plan.reason}", "  stages:"]
+        lines += [f"    {row}" for row in eplan.describe()]
+        return "\n".join(lines)
+
+    # ------------------------------------------------------------- estimation
+    def count_candidates(self, windows, relation: str = "intersects"
+                         ) -> np.ndarray:
+        """MBR-level candidate counts per window (selectivity estimation)
+        through ``kernels.refine.refine_count`` — the CUDA kernel on a CUDA
+        index, its plain version on the CPU."""
+        from ..kernels.refine import refine_count
+
+        base = get_relation(relation).base_name()
+        base_rel = get_relation(base)
+        self._check_augmentable(relation, base_rel)
+        snap = self.snapshot()
+        wt = torch.as_tensor(np.atleast_2d(np.asarray(windows))
+                             .astype(np.float32)).to(self.device)
+        start, end = batch_query_bounds(snap, wt, base)
+        bounds = torch.stack([start, end], dim=1)
+        # MBR-level counting uses the padded probe window so dwithin-style
+        # relations count the candidates their refine step will actually see
+        counts = refine_count(base_rel.probe_window(wt).contiguous(), bounds,
+                              snap.slot_rmbr)
+        return counts.cpu().numpy()
+
+    # ----------------------------------------------------- execution support
+    def _freeze_live(self, rel) -> Optional[np.ndarray]:
+        """Live record ids for complement finishing, frozen under the lock
+        (the live mask walks the mutable host leaves)."""
+        if not rel.is_complement:
+            return None
+        return np.nonzero(self.glin._live_mask())[0].astype(np.int64)

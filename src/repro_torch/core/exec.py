@@ -1,0 +1,469 @@
+"""The staged query-execution pipeline behind :meth:`SpatialIndex.query`.
+
+GLIN's query path is ONE pipeline regardless of where it runs::
+
+    probe -> compact -> refine -> complement-finish
+
+What differs per backend is which *implementation* serves each stage and how
+many adjacent stages it fuses: the host loop walks the mutable tree one
+window at a time (probe+compact+refine in one pass), the device
+``batch_query`` composes the same three stages as THREE device dispatches
+(probe, compact kernel, exact gather+check), and ``batch_query_fused``
+collapses them into ONE (:class:`FusedDeviceStage`, selected by
+``EngineConfig.fusion``). Complement finishing is backend-independent — it
+operates on id lists against state frozen under the facade lock — so exactly
+ONE implementation of it exists, here.
+
+``SpatialIndex.plan()`` picks a backend; :func:`compile_plan` turns that
+:class:`QueryPlan` into an :class:`ExecutionPlan` — an ordered stage tuple —
+and :meth:`ExecutionPlan.execute` runs it, timing every stage into
+:class:`StageStats` (wall time, survivor counts, overflow-ladder
+escalations, dispatches). The stats ride out on ``QueryResult.stages`` and
+aggregate into ``SpatialIndex.stats()["stages"]``;
+:meth:`SpatialIndex.explain` pretty-prints the compiled pipeline without
+executing it.
+
+**The overflow ladder** (:class:`OverflowLadder`) is the one shared
+cap/budget escalation policy. Device-side refinement signals overflow with
+negative counts: ``-(run length) - 1`` when a query's candidate run outgrew
+``cap`` (magnitude > cap disambiguates), else ``-(survivors) - 1`` when the
+MBR survivors outgrew ``exact_budget``. The ladder jumps the cap straight
+to a sufficient power of two (a cheap bounds-only probe tells the two
+overflows apart), grows the budget geometrically past the true survivor
+count, and escalates to the single-stage dense path only once the needed
+budget exceeds ``MAX_COMPACT_BUDGET`` (or the cap). The compact kernel and
+the fused one-dispatch path scan the full run (they are capless), so with a
+budget active their overflow is ALWAYS the budget — their retries need no
+disambiguating bounds probe (:meth:`OverflowLadder.on_capless_overflow`).
+(The reference sends the staged compact kernel's overflow through the
+cap-aware probe, which raises ``OverflowError`` once a run outgrows
+``max_cap`` even though the kernel never needed the cap.)
+
+**Locking contract**: the host refine stage runs under the facade lock (it
+walks the mutable host tree) and freezes the live-id set for complement
+finishing in that same critical section; the device refine stages freeze
+the snapshot, payload and live-id set under the lock, then run their device
+compute OUTSIDE it. Complement finishing runs lock-free on the frozen copy,
+so its answer is exact at the frozen epoch no matter how writers
+interleave.
+
+**Dispatch telemetry**: every stage counts the device dispatches it issued
+into ``StageStats.dispatches`` (a staged two-stage attempt is 3 — probe,
+compact, exact; a dense attempt 2; a fused attempt 1; each disambiguating
+bounds probe adds 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .index import QueryStats
+
+__all__ = ["StageStats", "ExecContext", "Stage", "ExecutionPlan",
+           "OverflowLadder", "compile_plan", "PIPELINE_STAGES"]
+
+# canonical stage order
+PIPELINE_STAGES = ("probe", "compact", "refine", "complement-finish")
+
+
+def _engine():
+    """The engine module namespace, resolved at call time — tests patch
+    ``repro_torch.core.engine.batch_query`` and friends, and the stages must
+    see the patched bindings. Deferred to avoid the circular import (engine
+    imports this module)."""
+    from . import engine
+    return engine
+
+
+# --------------------------------------------------------------- observability
+@dataclasses.dataclass
+class StageStats:
+    """Per-stage telemetry for one executed query batch.
+
+    ``survivors`` is the total id count LEAVING the stage (-1 when the stage
+    does not produce ids); ``escalations`` counts overflow-ladder retries;
+    ``cap``/``budget`` are the settled ladder values a refine stage ended on
+    (budget 0 = single-stage dense, -1 = n/a); ``dispatches`` counts device
+    dispatches issued (staged two-stage attempt = 3, dense = 2, fused = 1,
+    +1 per disambiguating bounds probe — 0 for host/shared stages)."""
+
+    stage: str                       # primary canonical stage name
+    impl: str                        # "host" | "device" | "fused" | "shared"
+    covers: Tuple[str, ...] = ()     # canonical stages this impl fuses
+    wall_ms: float = 0.0
+    queries: int = 0
+    survivors: int = -1
+    escalations: int = 0
+    dispatches: int = 0
+    cap: int = 0
+    budget: int = -1
+    skipped: bool = False            # compiled in, but a no-op this run
+    note: str = ""
+
+
+@dataclasses.dataclass
+class ExecContext:
+    """Mutable state threaded through the stages of one execution.
+
+    The refine stage freezes everything downstream stages read (``epoch``,
+    ``live``) under the facade lock; the stages after it touch only this
+    context, never the live index fields."""
+
+    index: Any                       # the SpatialIndex facade
+    batch: Any                       # QueryBatch
+    plan: Any                        # QueryPlan
+    rel: Any                         # Relation
+    base: Any                        # probed base Relation
+    # frozen under the facade lock by the refine stage
+    epoch: int = -1
+    live: Optional[np.ndarray] = None
+    # outputs
+    ids: Optional[List[np.ndarray]] = None
+    host_stats: Optional[List[QueryStats]] = None
+    stage_stats: List[StageStats] = dataclasses.field(default_factory=list)
+
+
+def _total(ids: Optional[List[np.ndarray]]) -> int:
+    return -1 if ids is None else int(sum(r.shape[0] for r in ids))
+
+
+# -------------------------------------------------------------- overflow ladder
+class OverflowLadder:
+    """THE cap/budget escalation policy, shared by every refine
+    implementation (staged and fused). See the module docstring for
+    the negative-count encoding contract this consumes.
+
+    Holds the adaptive state for one query's retries; the settled ``cap`` is
+    max-merged back into the facade by the refine stage so the ladder is
+    walked once per workload, not once per call."""
+
+    def __init__(self, config, cap: int):
+        from ..kernels.refine import MAX_COMPACT_BUDGET
+
+        self.config = config
+        self.cap = int(cap)
+        self.budget = int(config.exact_budget)
+        # budget-growth ceiling before the ladder falls back to the dense
+        # single-stage path (a dense retry only re-checks cheap predicates)
+        self.max_budget = MAX_COMPACT_BUDGET
+        self.escalations = 0
+
+    @property
+    def use_budget(self) -> int:
+        """The budget the next call actually uses: two-stage refinement only
+        pays for itself while the budget is positive AND below the cap."""
+        b = self.budget
+        return b if 0 < b < self.cap else 0
+
+    def grow_cap(self, need: int) -> None:
+        cfg = self.config
+        if self.cap >= cfg.max_cap or need > cfg.max_cap:
+            raise OverflowError(
+                f"candidate run of {need} exceeded max_cap="
+                f"{cfg.max_cap}; raise EngineConfig.max_cap or "
+                f"narrow the windows")
+        self.cap = min(max(self.cap * 2, 1 << (need - 1).bit_length()),
+                       cfg.max_cap)
+
+    def grow_budget(self, use_budget: int, survivors: int) -> None:
+        """Budget overflow: the negative-count encoding carries the TRUE
+        survivor count, so the budget grows geometrically straight past it
+        (re-running compaction) and only falls back to the single-stage
+        dense path (budget 0) once the needed budget exceeds
+        ``max_budget`` (``MAX_COMPACT_BUDGET``) or the cap."""
+        target = max(use_budget * 2,
+                     1 << max(survivors - 1, 0).bit_length())
+        self.budget = (0 if target > self.max_budget or target >= self.cap
+                       else target)
+
+    def on_device_overflow(self, counts: np.ndarray, use_budget: int,
+                           probe_bounds, batch_len: int) -> None:
+        """Single-device retry: the overflow signal conflates run-length >
+        cap with survivors > budget; ``probe_bounds`` (a cheap bounds-only
+        probe) tells them apart, so the cap jumps straight to sufficiency —
+        keeping the LOGICAL budget (one the old cap disabled because
+        ``budget >= cap`` comes back into play once the cap outgrows it)."""
+        self.escalations += 1
+        start, end = probe_bounds()
+        need = int(np.max(np.asarray(end - start))) if batch_len else 0
+        if need > self.cap:
+            self.grow_cap(need)
+            return
+        if not use_budget:
+            raise AssertionError(
+                "single-stage overflow with run <= cap")  # unreachable
+        self.grow_budget(use_budget, int(-(counts.min()) - 1))
+
+    def on_capless_overflow(self, counts: np.ndarray,
+                            use_budget: int) -> None:
+        """Retry after a capless attempt — the fused kernel or the compact
+        kernel, which walk each query's whole run: a negative count is
+        ALWAYS budget overflow carrying the total survivor count, so the
+        budget jumps straight past it with no disambiguating bounds probe
+        (and no cap to outgrow). A zeroed budget hands the retry to the
+        staged dense path."""
+        self.escalations += 1
+        if not use_budget:
+            raise AssertionError(
+                "fused overflow without an active budget")  # unreachable
+        self.grow_budget(use_budget, int(-(counts.min()) - 1))
+
+
+# ------------------------------------------------------------------- stages
+class Stage:
+    """One pipeline stage: fill ``ctx`` (and its own ``StageStats``). A
+    fused implementation covers several adjacent canonical stages —
+    ``covers`` names them for ``explain()`` and the telemetry.
+    ``dispatches`` is the static per-attempt device-dispatch count of the
+    implementation (what ``explain()`` prints before execution; the
+    executed count lands in ``StageStats.dispatches``)."""
+
+    name: str = "?"
+    covers: Tuple[str, ...] = ()
+    impl: str = "?"
+    dispatches: int = 0
+
+    def run(self, ctx: ExecContext, st: StageStats) -> None:
+        raise NotImplementedError
+
+
+class HostRefineStage(Stage):
+    """fp64 probe+compact+refine: one ``GLIN.query`` walk per window over
+    the mutable host tree, under the facade lock. Queries the BASE relation
+    only — complement finishing is the shared downstream stage (the live-id
+    set it needs is frozen here, in the same critical section)."""
+
+    name = "refine"
+    covers = ("probe", "compact", "refine")
+    impl = "host"
+
+    def run(self, ctx: ExecContext, st: StageStats) -> None:
+        idx, batch = ctx.index, ctx.batch
+        stats = ([QueryStats() for _ in range(len(batch))]
+                 if batch.collect_stats else None)
+        ids: List[np.ndarray] = []
+        with idx._lock:
+            for i, w in enumerate(batch.windows):
+                s = stats[i] if stats is not None else None
+                ids.append(np.sort(idx.glin.query(w, ctx.base.name, s)))
+            ctx.live = idx._freeze_live(ctx.rel)
+            ctx.epoch = idx._epoch
+        ctx.ids = ids
+        ctx.host_stats = stats
+        st.survivors = _total(ids)
+
+
+class _DeviceStage(Stage):
+    """Shared prologue/epilogue of the two device refine implementations."""
+
+    def _freeze(self, ctx: ExecContext):
+        """Under the facade lock: the served snapshot and payload (immutable
+        device tensors; a stale snapshot republishes first), the live-id
+        set and the epoch — a writer landing after this block changes none
+        of them. Returns ``(snap, pods, ladder, windows)``."""
+        idx, batch = ctx.index, ctx.batch
+        cfg = idx.config
+        with idx._lock:
+            snap = idx.snapshot()
+            pods = idx._device_payload(idx._snapshot_recs)
+            ctx.live = idx._freeze_live(ctx.rel)
+            ctx.epoch = idx._epoch
+            ladder = OverflowLadder(cfg, idx._cap)
+        q = len(batch.windows)
+        wq = batch.windows.astype(np.float32)
+        if cfg.pad_quantum > 0 and q:
+            # bucket the query axis to a power of two, as the reference does
+            # (its compiled query is per batch shape); padding rows repeat
+            # the last window and are sliced off in _finish
+            qb = 1 << (q - 1).bit_length()
+            if qb > q:
+                wq = np.concatenate([wq, np.repeat(wq[-1:], qb - q, 0)])
+        return snap, pods, ladder, torch.as_tensor(wq).to(snap.device)
+
+    @staticmethod
+    def _settle(idx, ladder) -> None:
+        with idx._lock:
+            # max-merge: a concurrent query may have grown it further
+            idx._cap = max(idx._cap, ladder.cap)
+
+    @staticmethod
+    def _finish(ctx: ExecContext, st: StageStats, hits, ladder) -> None:
+        hits = hits.cpu().numpy()[: len(ctx.batch.windows)]
+        ctx.ids = [np.sort(row[row >= 0]).astype(np.int64) for row in hits]
+        st.survivors = _total(ctx.ids)
+        st.escalations = ladder.escalations
+        st.cap, st.budget = ladder.cap, ladder.use_budget
+
+
+def _staged_attempt(idx, eng, snap, wt, pods, base, ladder, st):
+    """One staged ``batch_query`` attempt under the ladder. Returns the hits
+    when every count is non-negative, else walks the ladder and returns
+    None."""
+    ub = ladder.use_budget
+    comp = idx._compaction(base, ub or None)
+    hits, counts = eng.batch_query(
+        snap, wt, pods, relation=base, cap=ladder.cap, exact_budget=ub,
+        compaction=comp)
+    st.dispatches += 3 if ub else 2   # probe/compact/exact vs dense
+    counts = counts.cpu().numpy()
+    if (counts >= 0).all():
+        return hits
+    if ub and comp == "kernel":
+        # the compact kernel walks each whole run (capless): with a budget
+        # active its overflow is always the budget, whatever the run length
+        ladder.on_capless_overflow(counts, ub)
+        return None
+    st.dispatches += 1                # disambiguating bounds probe
+    ladder.on_device_overflow(
+        counts, ub,
+        lambda: tuple(t.cpu().numpy() for t in
+                      eng.batch_query_bounds(snap, wt, relation=base)),
+        wt.shape[0])
+    return None
+
+
+class DeviceRefineStage(_DeviceStage):
+    """The staged probe+compact+refine dispatches (fp32). Freezes the
+    served snapshot/payload and the live-id set under the facade lock, then
+    runs the overflow-ladder retry loop OUTSIDE it — writers are never
+    blocked by device compute, and the answer is exact at the frozen
+    epoch."""
+
+    name = "refine"
+    covers = ("probe", "compact", "refine")
+    impl = "device"
+    dispatches = 3
+
+    def run(self, ctx: ExecContext, st: StageStats) -> None:
+        eng, idx = _engine(), ctx.index
+        snap, pods, ladder, wt = self._freeze(ctx)
+        while True:
+            hits = _staged_attempt(idx, eng, snap, wt, pods, ctx.base.name,
+                                   ladder, st)
+            if hits is not None:
+                break
+        self._settle(idx, ladder)
+        self._finish(ctx, st, hits, ladder)
+
+
+class FusedDeviceStage(_DeviceStage):
+    """ONE-dispatch probe+compact+refine: the whole staged pipeline of
+    :class:`DeviceRefineStage` executed by a single fused kernel launch
+    (``core.device.batch_query_fused``). Same freeze/retry/epilogue
+    contract; what changes is the vehicle — and ``dispatches`` telemetry
+    asserting the 3 -> 1 collapse.
+
+    The fused path is two-stage only, so the stage re-resolves
+    ``SpatialIndex._fusion_mode`` every ladder step: a zeroed budget (dense
+    escalation) or a budget past ``MAX_COMPACT_BUDGET`` falls back to the
+    staged ``batch_query`` for that attempt — correctness never depends on
+    fusion being available."""
+
+    name = "refine"
+    covers = ("probe", "compact", "refine")
+    impl = "fused"
+    dispatches = 1
+
+    def run(self, ctx: ExecContext, st: StageStats) -> None:
+        eng, idx = _engine(), ctx.index
+        snap, pods, ladder, wt = self._freeze(ctx)
+        base = ctx.base.name
+        while True:
+            ub = ladder.use_budget
+            # the budget this attempt uses, 0 included: a dense escalation
+            # must leave the fused envelope (the reference passes
+            # ``ub or None`` here, which reads 0 as the configured budget
+            # and then refuses exact_budget=0)
+            mode = idx._fusion_mode(base, ub)
+            if mode is None:
+                # budget ladder left the fused envelope (dense escalation /
+                # budget past MAX_COMPACT_BUDGET): staged fallback
+                st.note = "fused envelope exceeded: staged fallback"
+                hits = _staged_attempt(idx, eng, snap, wt, pods, base,
+                                       ladder, st)
+                if hits is not None:
+                    break
+                continue
+            hits, counts = eng.batch_query_fused(
+                snap, wt, pods, relation=base, exact_budget=ub, mode=mode)
+            st.dispatches += 1
+            counts = counts.cpu().numpy()
+            if (counts >= 0).all():
+                break
+            ladder.on_capless_overflow(counts, ub)
+        self._settle(idx, ladder)
+        self._finish(ctx, st, hits, ladder)
+
+
+class ComplementFinishStage(Stage):
+    """Complement relations (e.g. ``disjoint``): subtract the base hits from
+    the live-id set the refine stage froze under the lock — THE one
+    complement implementation, identical lock story on every backend."""
+
+    name = "complement-finish"
+    covers = ("complement-finish",)
+    impl = "shared"
+
+    def run(self, ctx: ExecContext, st: StageStats) -> None:
+        rel = ctx.rel
+        if not rel.is_complement:
+            st.skipped = True
+            st.note = "relation is not a complement"
+            return
+        live = ctx.live
+        if live is None:   # refine stages freeze it whenever rel needs it
+            with ctx.index._lock:
+                live = ctx.index._freeze_live(rel)
+        ctx.ids = [np.setdiff1d(live, r) for r in ctx.ids]
+        if ctx.host_stats is not None:
+            # candidates/checked/leaves_* honestly describe the base
+            # probe's work, but the hit count must be the complement's
+            for s, r in zip(ctx.host_stats, ctx.ids):
+                s.results = int(r.shape[0])
+        st.survivors = _total(ctx.ids)
+
+
+# ------------------------------------------------------------- execution plan
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """The compiled stage composition for one planned backend."""
+
+    backend: str
+    stages: Tuple[Stage, ...]
+
+    def execute(self, ctx: ExecContext) -> ExecContext:
+        for stage in self.stages:
+            st = StageStats(stage=stage.name, impl=stage.impl,
+                            covers=stage.covers, queries=len(ctx.batch))
+            t0 = time.perf_counter()
+            stage.run(ctx, st)
+            st.wall_ms = 1e3 * (time.perf_counter() - t0)
+            ctx.stage_stats.append(st)
+        return ctx
+
+    def describe(self) -> List[str]:
+        return [f"{i}. {s.name:<18} impl={s.impl:<8} "
+                f"covers={'+'.join(s.covers)}"
+                + (f" dispatches={s.dispatches}" if s.dispatches else "")
+                for i, s in enumerate(self.stages)]
+
+
+def compile_plan(plan) -> ExecutionPlan:
+    """``QueryPlan`` -> ordered stage tuple. Every backend ends in the SAME
+    shared complement-finish implementation; it stays compiled in and
+    no-ops with ``skipped=True`` for a non-complement relation, so the
+    pipeline shape is static per backend."""
+    if plan.kind != "window":
+        raise NotImplementedError(f"{plan.kind!r} queries are not ported "
+                                  "yet (the kNN slice)")
+    if plan.backend == "host":
+        return ExecutionPlan("host", (HostRefineStage(),
+                                      ComplementFinishStage()))
+    if plan.backend == "device":
+        refine = FusedDeviceStage() if plan.fused else DeviceRefineStage()
+        return ExecutionPlan("device", (refine, ComplementFinishStage()))
+    raise ValueError(f"unknown backend {plan.backend!r}")

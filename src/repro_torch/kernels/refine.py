@@ -1,0 +1,355 @@
+"""GLIN refine kernels for Hopper: count, compact and fused.
+
+Three wrappers, each over a CUDA C++ kernel of ``csrc/refine.cu`` (sm_90a)
+and with its plain torch version beside it:
+
+* :func:`refine_count`   — per query, the count of slots in its run whose
+  record MBR meets the probe window (``SpatialIndex.count_candidates``).
+* :func:`refine_compact` — per query, the first ``budget`` survivors of
+  interval + leaf-MBR + record-MBR tests in ascending slot order, ``-1``
+  padded, and the TOTAL survivor count (the staged refine's stage 1).
+* :func:`refine_fused`   — the whole query in one launch: learned-index probe,
+  the compact stage, and the relation's exact predicate over the survivors'
+  vertex pods (the engine's default refine on a card).
+
+A CUDA tensor always takes the kernel; a CPU tensor always takes the plain
+version (the CPU tests reach the wrappers' layout code that way). Each
+wrapper counts its kernel launches in ``<wrapper>.launches`` — a launch made
+only to compare a kernel with its plain version counts too, so a caller that
+wants the main path's count resets it around that path.
+
+Every plain version processes the whole slot table in query chunks (a
+``(chunk, N)`` mask of :data:`MASK_CHUNK_ELEMS` elements), so it also runs
+at real store sizes on the card.
+"""
+from __future__ import annotations
+
+import math
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from ..core import geometry as geom
+
+__all__ = ["MAX_COMPACT_BUDGET", "refine_count", "refine_compact",
+           "refine_fused", "refine_count_plain", "refine_compact_plain",
+           "refine_fused_plain", "compact_plain", "fused_probe_plain"]
+
+# The reference package's budget bound (there, its TPU scatter block had to
+# fit fast memory). Kept so both packages plan the same stages; it is not a
+# limit of this card — the fused kernel's survivor list at this bound takes
+# 4 KB of shared memory.
+MAX_COMPACT_BUDGET = 1024
+PREFILTERS = ("intersects", "contains")
+# query rows x slots per chunk of a whole-table mask (16M elements: ~64 MB
+# per int32 intermediate)
+MASK_CHUNK_ELEMS = 1 << 24
+
+_I32 = torch.int32
+_F32 = torch.float32
+
+
+# ---------------------------------------------------------------- checking
+def _route(*tensors) -> bool:
+    """True for the kernel (CUDA tensors), False for the plain version (CPU
+    tensors); every operand must live on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"operands on different devices: {t.device} "
+                             f"and {dev}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _check(name, t, dtype, shape):
+    """What the kernel takes: dtype, shape (None = any extent), contiguous
+    rows, 16-byte aligned base (the kernels load rows as float4/int4)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and t.shape[i] != s for i, s in enumerate(shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.numel() and t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must be 16-byte aligned")
+
+
+def _launch(name, device, *args):
+    from . import _build
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _build.call(name, *[a.data_ptr() if isinstance(a, torch.Tensor)
+                            else a for a in args], stream)
+
+
+def _chunk(n: int) -> int:
+    return max(1, MASK_CHUNK_ELEMS // max(int(n), 1))
+
+
+# ---------------------------------------------------------------- count
+def refine_count_plain(windows, bounds, mbrs):
+    """(Q,) int32: slots in [start, end) whose record MBR meets the window
+    (``repro.kernels.ref.refine_count_ref``, in query chunks)."""
+    q, n = windows.shape[0], mbrs.shape[0]
+    out = torch.zeros(q, dtype=_I32, device=windows.device)
+    slot = torch.arange(n, dtype=_I32, device=windows.device)
+    step = _chunk(n)
+    for i in range(0, q, step):
+        b = bounds[i:i + step]
+        inter = geom.mbr_intersects(mbrs[None], windows[i:i + step, None, :])
+        in_run = (slot >= b[:, 0:1]) & (slot < b[:, 1:2])
+        out[i:i + step] = (inter & in_run).sum(dim=1, dtype=_I32)
+    return out
+
+
+def refine_count(windows, bounds, mbrs):
+    """windows (Q,4) f32 probe windows, bounds (Q,2) i32 slot runs, mbrs
+    (N,4) f32 slot-aligned record MBRs -> (Q,) i32 candidate counts.
+
+    Replaces ``refine_count_pallas`` (repro/kernels/refine.py). Bound on
+    this card: bytes — each run's record MBR rows (16 B a slot) read once.
+    One block per query streams its own run with coalesced float4 loads and
+    a block reduction; the reference swept the whole table per query tile.
+    """
+    if not _route(windows, bounds, mbrs):
+        return refine_count_plain(windows, bounds, mbrs)
+    q, n = windows.shape[0], mbrs.shape[0]
+    _check("windows", windows, _F32, (q, 4))
+    _check("bounds", bounds, _I32, (q, 2))
+    _check("mbrs", mbrs, _F32, (n, 4))
+    out = torch.empty(q, dtype=_I32, device=windows.device)
+    if q:
+        _launch("glin_refine_count", windows.device, windows, bounds, mbrs,
+                out, q, n)
+        refine_count.launches += 1
+    return out
+
+
+refine_count.launches = 0
+
+
+# ---------------------------------------------------------------- compact
+def compact_plain(probe_w, start, end, leaf_mbrs, rec_mbrs, budget: int,
+                  prefilter: str):
+    """Whole-table mask + stable compaction, in query chunks -> (slots
+    (Q, budget) i32 [-1 padded, ascending], counts (Q,) i32 total
+    survivors). Compaction is a cumsum plus a per-row search for the k-th
+    survivor (``batch_query_fused``'s reference composition)."""
+    q, n = probe_w.shape[0], leaf_mbrs.shape[0]
+    dev = probe_w.device
+    slots = torch.full((q, budget), -1, dtype=_I32, device=dev)
+    counts = torch.zeros(q, dtype=_I32, device=dev)
+    if n == 0 or q == 0:
+        return slots, counts
+    slot = torch.arange(n, dtype=_I32, device=dev)
+    kth = torch.arange(1, budget + 1, dtype=_I32, device=dev)
+    step = _chunk(n)
+    for i in range(0, q, step):
+        w = probe_w[i:i + step, None, :]
+        leaf_ok = geom.mbr_intersects(leaf_mbrs[None], w)
+        if prefilter == "contains":
+            rec_ok = geom.mbr_contains(rec_mbrs[None], w)
+        else:
+            rec_ok = geom.mbr_intersects(rec_mbrs[None], w)
+        in_run = (slot >= start[i:i + step, None]) & (slot < end[i:i + step,
+                                                                 None])
+        mask = in_run & leaf_ok & rec_ok
+        cum = torch.cumsum(mask.to(_I32), dim=1, dtype=_I32)
+        counts[i:i + step] = cum[:, -1]
+        pos = torch.searchsorted(
+            cum, kth.expand(cum.shape[0], budget).contiguous(), side="left")
+        slots[i:i + step] = torch.where(pos < n, pos.to(_I32), -1)
+    return slots, counts
+
+
+def refine_compact_plain(windows, bounds, leaf_mbrs, rec_mbrs, budget: int,
+                         prefilter: str = "intersects"):
+    """``repro.kernels.ref.refine_compact_ref`` in query chunks."""
+    return compact_plain(windows, bounds[:, 0], bounds[:, 1], leaf_mbrs,
+                         rec_mbrs, budget, prefilter)
+
+
+def refine_compact(windows, bounds, leaf_mbrs, rec_mbrs, *, budget: int,
+                   prefilter: str = "intersects"):
+    """windows (Q,4) f32 PROBE windows, bounds (Q,2) i32 slot runs,
+    leaf_mbrs/rec_mbrs (N,4) f32 slot-aligned MBR tables -> (slots
+    (Q, budget) i32 [-1 padded, ascending slot order], counts (Q,) i32 TOTAL
+    survivors; ``counts > budget`` means the list is truncated).
+
+    Replaces ``refine_compact_pallas`` (repro/kernels/refine.py). Bound on
+    this card: bytes — each run's leaf and record MBR rows (32 B a slot)
+    read once, plus the (Q, budget) slot list written. One block per query
+    walks its run in 256-slot chunks; survivors take their column from a
+    block-wide exclusive prefix sum (warp ballot + popcount) and are stored
+    directly, in place of the reference's one-hot scatter.
+    """
+    if prefilter not in PREFILTERS:
+        raise ValueError(f"unsupported prefilter {prefilter!r}")
+    if not 0 < budget <= MAX_COMPACT_BUDGET:
+        raise ValueError(f"budget {budget} outside (0, MAX_COMPACT_BUDGET="
+                         f"{MAX_COMPACT_BUDGET}]: use compaction='scan'")
+    if not _route(windows, bounds, leaf_mbrs, rec_mbrs):
+        return refine_compact_plain(windows, bounds, leaf_mbrs, rec_mbrs,
+                                    budget, prefilter)
+    q, n = windows.shape[0], leaf_mbrs.shape[0]
+    _check("windows", windows, _F32, (q, 4))
+    _check("bounds", bounds, _I32, (q, 2))
+    _check("leaf_mbrs", leaf_mbrs, _F32, (n, 4))
+    _check("rec_mbrs", rec_mbrs, _F32, (n, 4))
+    slots = torch.empty((q, budget), dtype=_I32, device=windows.device)
+    counts = torch.empty(q, dtype=_I32, device=windows.device)
+    if q:
+        _launch("glin_refine_compact", windows.device, windows, bounds,
+                leaf_mbrs, rec_mbrs, slots, counts, q, n, budget,
+                int(prefilter == "contains"))
+        refine_compact.launches += 1
+    return slots, counts
+
+
+refine_compact.launches = 0
+
+
+# ---------------------------------------------------------------- fused
+def _packed_tables(keys, leaf_i, leaf_f, node_i, node_f, codes, pw,
+                   search_steps, depth):
+    """The fused operand columns under the snapshot's field names, so the
+    plain probe runs ``core.device``'s own traversal and search."""
+    return SimpleNamespace(
+        keys_hi=keys[:, 0], keys_lo=keys[:, 1],
+        leaf_start=leaf_i[:, 0], leaf_dlo_hi=leaf_i[:, 1],
+        leaf_dlo_lo=leaf_i[:, 2], leaf_k0_hi=leaf_i[:, 3],
+        leaf_k0_lo=leaf_i[:, 4], leaf_slope=leaf_f[:, 0],
+        leaf_icpt=leaf_f[:, 1], node_dlo_hi=node_i[:, 0],
+        node_dlo_lo=node_i[:, 1], node_fanout=node_i[:, 2],
+        node_child_base=node_i[:, 3], node_scale=node_f[:, 0],
+        child_codes=codes[:, 0], pw_zmax_hi=pw[:, 0], pw_zmax_lo=pw[:, 1],
+        pw_sufmin_hi=pw[:, 2], pw_sufmin_lo=pw[:, 3],
+        num_leaves=leaf_i.shape[0] - 1, search_steps=search_steps,
+        depth=depth)
+
+
+def fused_probe_plain(qkeys, keys, leaf_i, leaf_f, node_i, node_f, codes, pw,
+                      *, augment: bool, search_steps: int, depth: int):
+    """``_fused_probe``: the [start, end) slot run of each query from its
+    pre-augmentation keys ``[zmin_hi, zmin_lo, ub_hi, ub_lo]``."""
+    from ..core import device as dev
+
+    t = _packed_tables(keys, leaf_i, leaf_f, node_i, node_f, codes, pw,
+                       search_steps, depth)
+    zmin_hi, zmin_lo = qkeys[:, 0], qkeys[:, 1]
+    if augment:
+        zmin_hi, zmin_lo = dev._augment(t, zmin_hi, zmin_lo)
+    return (dev.batch_probe(t, zmin_hi, zmin_lo),
+            dev.batch_probe(t, qkeys[:, 2], qkeys[:, 3]))
+
+
+def refine_fused_plain(windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f,
+                       node_i, node_f, codes, pw, pod_i, pool, leaf_mbrs,
+                       rec_mbrs, *, budget, prefilter, code, dist, augment,
+                       search_steps, depth):
+    """Probe, whole-table compaction and the exact stage as plain tensor
+    code (``batch_query_fused(mode="reference")`` on packed operands)."""
+    start, end = fused_probe_plain(qkeys, keys, leaf_i, leaf_f, node_i,
+                                   node_f, codes, pw, augment=augment,
+                                   search_steps=search_steps, depth=depth)
+    slots, total = compact_plain(probe_w, start, end, leaf_mbrs, rec_mbrs,
+                                 budget, prefilter)
+    taken = slots >= 0
+    rec = torch.where(taken, recs[:, 0][torch.clamp(slots, min=0)], 0)
+    ok = geom.exact_over_pods(geom.device_predicate(code, dist), windows,
+                              pool, pod_i[:, 0], pod_i[:, 1], pod_i[:, 2],
+                              pod_i[:, 3], rec, taken)
+    fmask = taken & ok
+    hits = torch.where(fmask, rec, -1)
+    counts = torch.where(total > budget, -total - 1,
+                         fmask.sum(dim=1, dtype=_I32))
+    return hits, counts
+
+
+def refine_fused(windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f, node_i,
+                 node_f, codes, pw, pod_i, pool, leaf_mbrs, rec_mbrs, *,
+                 budget: int, prefilter: str, code: int, dist: float = 0.0,
+                 augment: bool, search_steps: int, depth: int):
+    """One-launch probe + compact + exact refine.
+
+    Per-query inputs (Q rows): ``windows``/``probe_w`` (Q, 4) f32 raw and
+    relation-padded windows, ``qkeys`` (Q, 4) i32 pre-augmentation
+    ``[zmin_hi, zmin_lo, ub_hi, ub_lo]`` keys. Tables (packed by
+    ``core.device._fused_operands``): ``keys`` (N, 2) i32, ``recs`` (N, 1)
+    i32, ``leaf_i`` (L+1, 5) i32 ``[start, dlo_hi, dlo_lo, k0_hi, k0_lo]``,
+    ``leaf_f`` (L+1, 2) f32 ``[slope, icpt]``, ``node_i`` (M, 4) i32
+    ``[dlo_hi, dlo_lo, fanout, child_base]``, ``node_f`` (M, 1) f32,
+    ``codes`` (C, 1) i32, ``pw`` (P, 4) i32 ``[zmax_hi, zmax_lo, sufmin_hi,
+    sufmin_lo]``, ``pod_i`` (R, 4) i32 ``[off, nv, kind, bucket]``, ``pool``
+    (V, 2) f32 vertex pods, ``leaf_mbrs``/``rec_mbrs`` (N, 4) f32. ``code``
+    is the relation's predicate code (``geometry.PRED_*``), ``dist`` the
+    ``dwithin`` distance.
+
+    Returns ``(hits (Q, budget) i32 [record id where the exact predicate
+    holds, else -1, column for column over the survivors], counts (Q,) i32
+    exact hits, or -(survivors) - 1 when the survivors exceed the budget)``.
+
+    Replaces ``refine_fused_pallas`` (repro/kernels/refine.py). Bound on
+    this card: bytes — each run's leaf and record MBR rows (32 B a slot),
+    the survivors' record ids, pod headers and vertices, and the (Q, budget)
+    hits written. One block per query: threads 0 and 1 run the two probes
+    (a few dozen dependent loads through L2), the block compacts its run
+    into a shared-memory survivor list, then each thread evaluates whole
+    survivors as a scalar loop over their vertices.
+    """
+    if prefilter not in PREFILTERS:
+        raise ValueError(f"unsupported prefilter {prefilter!r}")
+    if not 0 < budget <= MAX_COMPACT_BUDGET:
+        raise ValueError(
+            f"budget {budget} outside (0, MAX_COMPACT_BUDGET="
+            f"{MAX_COMPACT_BUDGET}]: the fused kernel is two-stage only — "
+            "use the staged batch_query for budget 0 or larger budgets")
+    if not 0 <= code <= geom.PRED_DWITHIN:
+        raise ValueError(f"unknown predicate code {code!r}")
+    ops = (windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f, node_i,
+           node_f, codes, pw, pod_i, pool, leaf_mbrs, rec_mbrs)
+    if not _route(*ops):
+        return refine_fused_plain(
+            *ops, budget=budget, prefilter=prefilter, code=code, dist=dist,
+            augment=augment, search_steps=search_steps, depth=depth)
+    q, n = windows.shape[0], keys.shape[0]
+    nl, npw = leaf_i.shape[0], pw.shape[0]
+    for name, t, dt, shape in (
+            ("windows", windows, _F32, (q, 4)),
+            ("probe_w", probe_w, _F32, (q, 4)),
+            ("qkeys", qkeys, _I32, (q, 4)), ("keys", keys, _I32, (n, 2)),
+            ("recs", recs, _I32, (n, 1)), ("leaf_i", leaf_i, _I32, (nl, 5)),
+            ("leaf_f", leaf_f, _F32, (nl, 2)),
+            ("node_i", node_i, _I32, (None, 4)),
+            ("node_f", node_f, _F32, (node_i.shape[0], 1)),
+            ("codes", codes, _I32, (None, 1)), ("pw", pw, _I32, (npw, 4)),
+            ("pod_i", pod_i, _I32, (None, 4)), ("pool", pool, _F32, (None, 2)),
+            ("leaf_mbrs", leaf_mbrs, _F32, (n, 4)),
+            ("rec_mbrs", rec_mbrs, _F32, (n, 4))):
+        _check(name, t, dt, shape)
+    if nl < 2 or npw < 1 or node_i.shape[0] < 1 or codes.shape[0] < 1:
+        raise ValueError("fused tables must hold at least one leaf, node, "
+                         "code and piece row (core.device._fused_operands)")
+    if not 0 < search_steps < 30:
+        raise ValueError(f"search_steps {search_steps} outside (0, 30)")
+    hits = torch.empty((q, budget), dtype=_I32, device=windows.device)
+    counts = torch.empty(q, dtype=_I32, device=windows.device)
+    if q:
+        dist2 = float(np.float32(float(dist) ** 2))
+        aug_steps = max(1, math.ceil(math.log2(npw + 1)))
+        _launch("glin_refine_fused", windows.device, *ops, hits, counts, q,
+                n, nl - 1, npw, aug_steps, pool.shape[0], budget,
+                int(prefilter == "contains"), code, dist2, int(augment),
+                search_steps, depth)
+        refine_fused.launches += 1
+    return hits, counts
+
+
+refine_fused.launches = 0

@@ -1,0 +1,213 @@
+"""The refine kernels' wrappers and plain versions.
+
+On the CPU a wrapper takes its plain version (the kernel's arithmetic in
+tensor code), which must equal the reference package's XLA oracles bit for
+bit: ``kernels.ref.refine_count_ref`` / ``refine_compact_ref`` for count and
+compact (both prefilters, empty and inverted runs, odd budgets), and
+``batch_query_fused(mode="reference")`` for the fused query over the seven
+relation forms. (``test_torch_cuda.py`` holds each CUDA kernel against its
+plain version on the card.)
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+jnp = pytest.importorskip("jax.numpy")   # the reference needs jax
+# small tensors: one torch thread per xdist worker beats oversubscribing
+# the cores the workers share
+torch.set_num_threads(1)
+
+from _oracle import mixed_store  # noqa: E402
+from repro.core import device as rdev  # noqa: E402
+from repro.core.datasets import make_query_windows  # noqa: E402
+from repro.core.engine import EngineConfig as REngineConfig  # noqa: E402
+from repro.core.engine import SpatialIndex as RIndex  # noqa: E402
+from repro.core.index import GLIN as RGLIN  # noqa: E402
+from repro.core.index import GLINConfig as RGLINConfig  # noqa: E402
+from repro.kernels import ref as rref  # noqa: E402
+from repro_torch.core import device as tdev  # noqa: E402
+from repro_torch.core import geometry as tgeom  # noqa: E402
+from repro_torch.core import relations as trel  # noqa: E402
+from repro_torch.kernels import refine as kr  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+RELATIONS = ("intersects", "contains", "covers", "within", "touches",
+             "crosses", "dwithin:0.004")
+
+
+@pytest.fixture(scope="module")
+def world():
+    """Reference snapshot over an odd N=347 mixed store, carried into the
+    port; 15 windows (random, empty-region, whole-domain)."""
+    gs = mixed_store(347, seed=3)
+    g = RGLIN.build(gs, RGLINConfig(piece_limitation=200))
+    rs = RIndex(g, REngineConfig(pad_quantum=0)).snapshot()
+    rpods = rdev.pods_from_store(gs)
+    fields = {k: np.asarray(getattr(rs, k)) for k in tdev.SNAPSHOT_FIELDS}
+    meta = {k: getattr(rs, k) for k in tdev.SNAPSHOT_META}
+    ts = tdev.snapshot_from_numpy(fields, meta, device="cpu")
+    tpods = tdev.pods_from_numpy(
+        {k: np.asarray(getattr(rpods, k))
+         for k in ("pool", "off", "nv", "kd", "bucket")}
+        | {"max_width": rpods.max_width}, device="cpu")
+    lo = gs.mbrs[:, :2].min(axis=0) - 0.01
+    hi = gs.mbrs[:, 2:].max(axis=0) + 0.01
+    wins = np.concatenate([
+        make_query_windows(gs, 0.004, 13, seed=4),
+        [[hi[0] + 1, hi[1] + 1, hi[0] + 2, hi[1] + 2],
+         [lo[0], lo[1], hi[0], hi[1]]]]).astype(np.float32)
+    rng = np.random.default_rng(5)
+    n = len(gs)
+    a = rng.integers(0, n, len(wins))
+    b = rng.integers(0, n + 1, len(wins))
+    bounds = np.stack([a, b], 1).astype(np.int32)   # some inverted
+    bounds[0] = [5, 5]                               # empty run
+    bounds[1] = [0, n]                               # the whole table
+    return dict(gs=gs, rs=rs, rpods=rpods, ts=ts, tpods=tpods, wins=wins,
+                bounds=bounds)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ------------------------------------------------------------ plain == ref --
+def test_refine_count_plain_matches_reference(world):
+    rs = world["rs"]
+    want = rref.refine_count_ref(jnp.asarray(world["wins"]),
+                                 jnp.asarray(world["bounds"]),
+                                 rs.slot_rmbr)
+    before = kr.refine_count.launches
+    got = kr.refine_count(_t(world["wins"]), _t(world["bounds"]),
+                          world["ts"].slot_rmbr)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.dtype == torch.int32
+    assert kr.refine_count.launches == before   # CPU: plain version
+
+
+@pytest.mark.parametrize("prefilter", ["intersects", "contains"])
+@pytest.mark.parametrize("budget", [7, 64])
+def test_refine_compact_plain_matches_reference(world, prefilter, budget):
+    rs, ts = world["rs"], world["ts"]
+    ws, wb = world["wins"], world["bounds"]
+    if prefilter == "contains":   # tiny windows that records can cover
+        c = (ws[:, :2] + ws[:, 2:]) / 2
+        ws = np.concatenate([c, c + 1e-5], 1).astype(np.float32)
+    want_s, want_c = rref.refine_compact_ref(
+        jnp.asarray(ws), jnp.asarray(wb), rs.slot_lmbr, rs.slot_rmbr,
+        budget, prefilter)
+    before = kr.refine_compact.launches
+    got_s, got_c = kr.refine_compact(_t(ws), _t(wb), ts.slot_lmbr,
+                                     ts.slot_rmbr, budget=budget,
+                                     prefilter=prefilter)
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    assert kr.refine_compact.launches == before
+    assert (np.asarray(want_c) > 0).any()
+    if prefilter == "intersects":
+        assert (np.asarray(want_c) > budget).any()   # a truncated row
+
+
+@pytest.mark.parametrize("relation", RELATIONS)
+def test_refine_fused_plain_matches_reference(world, relation):
+    """The wrapper (plain version on the CPU) over packed operands ==
+    the reference's fused reference composition: the (Q, budget) hit
+    layout column for column, exact counts and overflow codes."""
+    wins = world["wins"]
+    rh, rc = rdev.batch_query_fused(world["rs"], jnp.asarray(wins),
+                                    world["rpods"], relation=relation,
+                                    exact_budget=64, mode="reference")
+    before = kr.refine_fused.launches
+    th, tc = tdev.batch_query_fused(world["ts"], _t(wins), world["tpods"],
+                                    relation=relation, exact_budget=64,
+                                    mode="kernel")
+    np.testing.assert_array_equal(th.numpy(), np.asarray(rh))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(rc))
+    assert kr.refine_fused.launches == before
+
+
+def test_fused_empty_and_inverted_probe_runs(world):
+    """Doctored keys: an inverted run (zmin > ub) and one past every stored
+    key both give zero survivors; an untouched row is unaffected."""
+    ts, tpods = world["ts"], world["tpods"]
+    rel = trel.get_relation("contains")
+    w = _t(world["wins"][:3])
+    qk = torch.stack(tdev._raw_query_keys(ts, w, rel), dim=1)
+    qk[0] = qk[0][[2, 3, 0, 1]]
+    qk[1] = torch.tensor([2**30, 0, 2**30, 0], dtype=torch.int32)
+    pod_i = torch.stack([tpods.off, tpods.nv, tpods.kd, tpods.bucket], 1)
+    hits, counts = kr.refine_fused(
+        w, rel.probe_window(w), qk, *tdev._fused_operands(ts), pod_i,
+        tpods.pool, ts.slot_lmbr, ts.slot_rmbr, budget=32,
+        prefilter=rel.prefilter_kind, code=rel.code, augment=False,
+        search_steps=ts.search_steps, depth=ts.depth)
+    assert counts[0] == 0 and (hits[0] == -1).all()
+    assert counts[1] == 0 and (hits[1] == -1).all()
+    _, c_ref = tdev.batch_query_fused(ts, w, tpods, relation="contains",
+                                      exact_budget=32, mode="reference")
+    assert counts[2] == c_ref[2]
+
+
+# ------------------------------------------------------------- the wrappers --
+def test_wrapper_validation(world):
+    ts = world["ts"]
+    w, b = _t(world["wins"]), _t(world["bounds"])
+    with pytest.raises(ValueError, match="budget"):
+        kr.refine_compact(w, b, ts.slot_lmbr, ts.slot_rmbr,
+                          budget=kr.MAX_COMPACT_BUDGET + 1)
+    with pytest.raises(ValueError, match="prefilter"):
+        kr.refine_compact(w, b, ts.slot_lmbr, ts.slot_rmbr, budget=8,
+                          prefilter="custom")
+    with pytest.raises(ValueError, match="devices"):
+        kr.refine_count(w, b, ts.slot_rmbr.to("meta"))
+    with pytest.raises(TypeError, match="dtype"):
+        kr._check("x", w.double(), torch.float32, (None, 4))
+    with pytest.raises(ValueError, match="shape"):
+        kr._check("x", w, torch.float32, (None, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        kr._check("x", w.t(), torch.float32, (4, None))
+    with pytest.raises(ValueError, match="aligned"):
+        kr._check("x", torch.zeros(41)[1:], torch.float32, (None,))
+
+
+def test_cuda_request_without_cuda_raises():
+    """Entry points run on the card unless the caller asks for the CPU:
+    asking for CUDA where there is none raises, nothing falls back."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    from repro_torch.core import SpatialIndex
+    gs = mixed_store(40, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpatialIndex.build(gs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpatialIndex.build(gs, device="cuda")
+    assert SpatialIndex.build(gs, device="cpu").device.type == "cpu"
+
+
+def test_port_imports_no_jax_and_no_reference():
+    """No file of the port, nor chip_smoke.py, imports jax or repro."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        tree = ast.parse(f.read_text(), str(f))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (f, name)
+
+
+def test_device_predicate_codes_cover_relations():
+    for name in RELATIONS:
+        rel = trel.get_relation(name)
+        assert tgeom.device_predicate(rel.code, rel.dist) is not None
+    with pytest.raises(ValueError, match="code"):
+        tgeom.device_predicate(99)
