@@ -13,17 +13,32 @@ Phases (any failure raises, and the script exits non-zero):
    polygons, 64-vertex rings; fp32-representable coordinates), indexed by
    ``SpatialIndex.build(gs, device="cuda")``;
 4. each kernel against its plain torch version at the main path's shapes
-   (1024 windows at selectivity 1e-4, budget 256), exact equality of every
-   output, with CUDA-event times, the least time the card could take, and
-   the launches that comparison and its timing made;
-5. the main path through the facade: every relation with the default
+   (1024 windows at selectivity 1e-4, budget 256; the compact kernel also
+   on a real first kNN rung's squares, at budget 256 and on its fat rows at
+   a budget of at least 4096; the kNN top-k on that rung's (1024, 256)
+   distances and on a wide (1024, 4096) case; the
+   Morton encoding of every record; the mask of 64 windows over every
+   slot), exact equality of every output, with CUDA-event times, the least
+   time the card could take, and the launches that comparison and its
+   timing made;
+5. the window path through the facade: every relation with the default
    (fused kernel) plan, against the plain reference composition, the staged
    kernel path and the fp64 host path; an overflow-ladder batch at
    selectivity 1e-3; ``count_candidates``; an insert + delete and the
-   republish. Launch counters are zeroed just before this phase and read
-   just after: every kernel must have launched;
-6. one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+   republish;
+6. the kNN path through the facade: 1024 points (the windows' centres) at
+   k = 10 and 100, the default plan (top-k and compact kernels) against the
+   plain two-key sort and, on 64 points, the fp64 host kNN;
+7. the kernel-level ``ops`` entry point: the Morton keys of every record
+   against the host's, the candidate mask against the candidate counts, and
+   both against the entry point's plain side (``use_kernel=False``);
+8. one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+
+Launch counters are zeroed just before each of phases 5, 6 and 7 and read
+just after: every kernel of that path must have launched, and a kernel's
+``launches`` in the last line is its count from its path.
 """
+import collections
 import json
 import shutil
 import statistics
@@ -33,6 +48,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"            # every index and tensor of the drive lives here
 N_RECORDS = 2_000_000
 N_WINDOWS = 1024
 SELECTIVITY = 1e-4         # the main batch: ~200 records per window
@@ -44,10 +60,19 @@ FP32_OPS_PER_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
 FUSED_RELATIONS = ("intersects", "contains", "covers", "within", "touches",
                    "crosses", "dwithin:0.0005")
 FACADE_RELATIONS = FUSED_RELATIONS + ("disjoint",)
-CSRC = "src/repro_torch/kernels/csrc/refine.cu"
+KNN_KS = (10, 100)
+KNN_TOPK_WIDE = (4096, 100)  # (B, k) of the synthetic top-k case
+MASK_WINDOWS = 64            # the (Q, N) int8 mask: 2 MB per window
+_CU = "src/repro_torch/kernels/csrc/"
+CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
+        "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
+        "morton_encode": _CU + "morton.cu", "refine_mask": _CU + "refine.cu"}
 REPLACES = {"refine_count": "src/repro/kernels/refine.py:391",
             "refine_compact": "src/repro/kernels/refine.py:415",
-            "refine_fused": "src/repro/kernels/refine.py:466"}
+            "refine_fused": "src/repro/kernels/refine.py:466",
+            "knn_topk": "src/repro/kernels/refine.py:592",
+            "morton_encode": "src/repro/kernels/morton.py:40",
+            "refine_mask": "src/repro/kernels/refine.py:368"}
 
 
 def log(obj):
@@ -82,6 +107,43 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def profiled(fn, reps: int = 1):
+    """Run ``fn`` ``reps`` times under ``torch.profiler`` -> (host wall ms
+    per run, {kernel name: device ms per run}); the dict is empty when the
+    profiler sees no device activity (device time then goes unmeasured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            dev[e.key] = dev.get(e.key, 0.0) + us / 1e3 / reps
+    return wall, dev
+
+
+def device_ms(fn, kernel: str, reps: int = 10):
+    """Device time per call of the kernels whose name holds ``kernel`` (the
+    event timing of a small kernel also holds the wrapper's host work,
+    since the card waits for the launch); None when unmeasured."""
+    _, dev = profiled(fn, reps)
+    ms = [t for name, t in dev.items() if kernel in name]
+    return sum(ms) if ms else None
 
 
 def fp32_exact(gs) -> None:
@@ -155,8 +217,14 @@ def main() -> int:
     from repro_torch.core.datasets import generate, make_query_windows
     from repro_torch.core.engine import (EngineConfig, QueryBatch,
                                          SpatialIndex)
+    from repro_torch.core import engine as eng_mod
     from repro_torch.core.relations import get_relation
+    from repro_torch.core.zorder import (ZGrid, morton_encode_np,
+                                         split_hilo_np)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import knn as kk
+    from repro_torch.kernels import morton as km
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import refine as kr
 
     r = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
@@ -170,7 +238,9 @@ def main() -> int:
     _build.load()
     log({"build_s": time.perf_counter() - t0,
          "library": _build.library_path().name,
-         "nvcc_s": _build.build_seconds})
+         "nvcc_s": _build.build_seconds,
+         "nvcc_source_s": _build.source_seconds,
+         "nvcc_source_sum_s": sum(_build.source_seconds.values())})
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("ptxas: " + line.strip())
@@ -180,7 +250,7 @@ def main() -> int:
     gs = generate("mixed", N_RECORDS, seed=0)
     fp32_exact(gs)
     t1 = time.perf_counter()
-    idx = SpatialIndex.build(gs, device="cuda")
+    idx = SpatialIndex.build(gs, device=DEVICE)
     snap = idx.snapshot()
     pods = idx._device_payload()
     torch.cuda.synchronize()
@@ -203,7 +273,8 @@ def main() -> int:
     # piecewise augmentation) can exceed it, and is left out and counted
     cand = make_query_windows(gs, LADDER_SELECTIVITY, 64, seed=2)
     s_, e_ = dev.batch_query_bounds(
-        snap, torch.from_numpy(cand.astype(np.float32)).cuda(), "intersects")
+        snap, torch.from_numpy(cand.astype(np.float32)).to(DEVICE),
+        "intersects")
     runs = (e_ - s_).cpu().numpy()
     fit = runs <= EngineConfig().max_cap // 2
     wins_hi = cand[fit][:32]
@@ -212,7 +283,7 @@ def main() -> int:
          "ladder_run_max": int(runs.max())})
     if len(wins_hi) < 16:
         raise RuntimeError("too few ladder windows fit max_cap")
-    w = torch.from_numpy(wins.astype(np.float32)).cuda()
+    w = torch.from_numpy(wins.astype(np.float32)).to(DEVICE)
 
     # ------------------------------------------- 4. kernels vs plain versions
     results = {}
@@ -317,18 +388,157 @@ def main() -> int:
         log(line)
         results.setdefault("refine_fused", line)
 
-    # -------------------------------------------- 5. the main path, end to end
+    # the kNN top-k on a real first rung: the windows' centres probed at
+    # their seeded radii through the intersects pipeline, the survivors'
+    # exact squared distances (what batch_knn_rank hands the top-k)
+    k0 = KNN_KS[0]
+    ctr = (w[:, :2] + w[:, 2:]) / 2
+    cw = torch.cat([ctr, ctr], 1)
+    rad = dev.knn_seed_radii(snap, cw, k0)
+    sq = torch.cat([ctr - rad[:, None], ctr + rad[:, None]], 1)
+    rung_hits, rung_counts = dev.batch_query(
+        snap, sq, pods, relation="intersects", cap=idx.device_cap,
+        exact_budget=BUDGET, compaction="kernel")
+    # the compact kernel at the kNN path's inputs: the rung's squares at
+    # the pinned budget, then its fat rows at the budget their ladder grows
+    # to (at least 4096: past MAX_COMPACT_BUDGET, which only the staged
+    # compaction takes)
+    s_sq, e_sq = dev.batch_query_bounds(snap, sq, "intersects")
+    pw_sq = rel_i.probe_window(sq).contiguous()
+    b_sq = torch.stack([s_sq, e_sq], 1)
+    fat = torch.nonzero(rung_counts < 0).flatten()
+    if fat.numel() == 0:
+        raise RuntimeError("the first kNN rung has no fat row")
+    need = int((-rung_counts[fat] - 1).max())
+    fat_budget = max(4096, 1 << (need - 1).bit_length())
+    for name, rows, budget in (("refine_compact[knn rung]", slice(None),
+                                BUDGET),
+                               ("refine_compact[knn fat rows]", fat,
+                                fat_budget)):
+        args = (pw_sq[rows].contiguous(), b_sq[rows].contiguous(), lm, rm)
+        n0 = kr.refine_compact.launches
+        got = kr.refine_compact(*args, budget=budget)
+        want = kr.refine_compact_plain(*args, budget, "intersects")
+        log({"name": name, "shape": [int(args[0].shape[0]), snap.num_slots,
+                                     budget],
+             **compare(name, got, want), "survivors": int(got[1].sum()),
+             "survivors_max": int(got[1].max()), "run_max": run_max(args[1]),
+             "launches": kr.refine_compact.launches - n0})
+    valid = rung_hits >= 0
+    rung_d = dev._sqdist_over(cw, pods, rung_hits.clamp(min=0), valid)
+    rung_i = torch.where(valid, rung_hits, kk.ID_PAD)
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    wb, wk = KNN_TOPK_WIDE
+    wide_d = torch.randint(0, 64, (q, wb), device=DEVICE,
+                           generator=g).float() / 8     # many ties
+    wide_i = torch.randint(0, 1 << 20, (q, wb), device=DEVICE,
+                           generator=g, dtype=torch.int32)
+    dead = torch.rand((q, wb), device=DEVICE, generator=g) < 0.25
+    wide_d[dead] = float("inf")                         # inf tails
+    wide_i[dead] = kk.ID_PAD
+    wide_i[:, 1::7] = wide_i[:, ::7][:, :wide_i[:, 1::7].shape[1]]
+    wide_d[:, 1::7] = wide_d[:, ::7][:, :wide_d[:, 1::7].shape[1]]  # dups
+
+    def packed_topk(d, ids, k):
+        """The nearest PyTorch call: (d bits << 32 | id) packed into int64
+        (d >= 0, so its bits order as the distance; ids >= 0), then
+        torch.topk — two calls."""
+        key = (d.view(torch.int32).long() << 32) | ids.long()
+        return torch.topk(key, k, dim=1, largest=False, sorted=True).values
+
+    for name, (d, ids, k) in (("knn_topk", (rung_d, rung_i, k0)),
+                              ("knn_topk[wide]", (wide_d, wide_i, wk))):
+        n0 = kk.knn_topk.launches
+        got = kk.knn_topk(d, ids, k)
+        want = kk.knn_topk_plain(d, ids, k)
+        lib = packed_topk(d, ids, k)
+        if not (torch.equal((lib & 0xFFFFFFFF).int(), got[1])
+                and torch.equal((lib >> 32).int().view(torch.float32),
+                                got[0])):
+            raise RuntimeError(f"{name}: packed torch.topk disagrees")
+        b = d.shape[1]
+        line = {"name": name, "shape": [q, b, k],
+                **compare(name, got, want),
+                "kernel_ms": cuda_ms(lambda: kk.knn_topk(d, ids, k), 25),
+                "plain_ms": cuda_ms(lambda: kk.knn_topk_plain(d, ids, k), 10),
+                "library_ms": cuda_ms(lambda: packed_topk(d, ids, k), 10),
+                "library_call": "int64 pack of (d bits << 32 | id), then "
+                                "torch.topk: two calls",
+                "device_ms": device_ms(lambda: kk.knn_topk(d, ids, k),
+                                       "knn_topk_kernel"),
+                "live_columns": int((d < float("inf")).sum()),
+                **bound(q * b * 8 + q * k * 8, q * b * 2)}
+        line["launches"] = kk.knn_topk.launches - n0
+        log(line)
+        results.setdefault("knn_topk", line)
+
+    # Morton keys of every record's lower-left corner
+    qx_np, qy_np = ZGrid(snap.grid_x0, snap.grid_y0,
+                         snap.grid_cell).quantize_np(gs.mbrs[:, 0],
+                                                     gs.mbrs[:, 1])
+    qx = torch.from_numpy(qx_np.astype(np.int32)).to(DEVICE)
+    qy = torch.from_numpy(qy_np.astype(np.int32)).to(DEVICE)
+    n0 = km.morton_encode.launches
+    got = km.morton_encode(qx, qy)
+    want = km.morton_encode_plain(qx, qy)
+    nrec = int(qx.shape[0])
+    line = {"name": "morton_encode", "shape": [nrec],
+            **compare("morton_encode", got, want),
+            "kernel_ms": cuda_ms(lambda: km.morton_encode(qx, qy), 25),
+            "device_ms": device_ms(lambda: km.morton_encode(qx, qy),
+                                   "morton_kernel"),
+            "plain_ms": cuda_ms(lambda: km.morton_encode_plain(qx, qy), 10),
+            **bound(nrec * 16, nrec * 40)}
+    line["launches"] = km.morton_encode.launches - n0
+    log(line)
+    results["morton_encode"] = line
+
+    # the candidate mask of MASK_WINDOWS windows over every slot
+    wm, bm = pw_i[:MASK_WINDOWS].contiguous(), b_i[:MASK_WINDOWS].contiguous()
+    n0 = kr.refine_mask.launches
+    got = kr.refine_mask(wm, bm, rm)
+    want = kr.refine_mask_plain(wm, bm, rm)
+    nslot = snap.num_slots
+    line = {"name": "refine_mask", "shape": [MASK_WINDOWS, nslot],
+            **compare("refine_mask", got, want),
+            "kernel_ms": cuda_ms(lambda: kr.refine_mask(wm, bm, rm), 25),
+            "device_ms": device_ms(lambda: kr.refine_mask(wm, bm, rm),
+                                   "mask_kernel"),
+            "plain_ms": cuda_ms(lambda: kr.refine_mask_plain(wm, bm, rm), 5),
+            "candidates": int(got.sum()),
+            **bound(nslot * 16 + MASK_WINDOWS * (24 + nslot),
+                    MASK_WINDOWS * nslot * 6)}
+    line["launches"] = kr.refine_mask.launches - n0
+    log(line)
+    results["refine_mask"] = line
+    del got, want
+
+    # -------------------------------------------- 5. the window path
     counters = {"refine_count": kr.refine_count,
                 "refine_compact": kr.refine_compact,
-                "refine_fused": kr.refine_fused}
+                "refine_fused": kr.refine_fused,
+                "knn_topk": kk.knn_topk,
+                "morton_encode": km.morton_encode,
+                "refine_mask": kr.refine_mask}
+    window_kernels = ("refine_count", "refine_compact", "refine_fused")
+    def read_path(path, kernels, keep=None):
+        """The counts of one path's run; every kernel of the path must have
+        launched. Returns the counts of ``keep`` (default: ``kernels``)."""
+        got_ = {kn: counters[kn].launches for kn in kernels}
+        log({"path": path, "launches": got_})
+        for kn, n in got_.items():
+            if n == 0:
+                raise RuntimeError(f"{kn} never launched on the {path} path")
+        return {kn: got_[kn] for kn in (keep or kernels)}
+
     for fn in counters.values():
         fn.launches = 0
     facades = {"kernel": idx,
                "reference": SpatialIndex(idx.glin,
                                          EngineConfig(fusion="reference"),
-                                         device="cuda"),
+                                         device=DEVICE),
                "off": SpatialIndex(idx.glin, EngineConfig(fusion="off"),
-                                   device="cuda")}
+                                   device=DEVICE)}
     for f in facades.values():
         f.snapshot()
         f._device_payload()
@@ -408,21 +618,131 @@ def main() -> int:
                                      "intersects", backend="host").ids,
          "republished vs host")
 
-    launches = {k: fn.launches for k, fn in counters.items()}
-    for k, n in launches.items():
-        if n == 0:
-            raise RuntimeError(f"{k} never launched on the main path")
+    launches = read_path("window", window_kernels)
 
-    # ------------------------------------------------------------- 6. report
+    # -------------------------------------------------------- 6. the kNN path
+    pts = ((wins[:, :2] + wins[:, 2:]) / 2).astype(np.float32).astype(
+        np.float64)
+    by_sort = SpatialIndex(idx.glin, EngineConfig(knn_topk="sort"),
+                           device=DEVICE)
+    by_sort.snapshot()
+    by_sort._device_payload()
+    # count the rung dispatches by compaction (scan / kernel / dense)
+    plain_batch_query = eng_mod.batch_query
+    modes = collections.Counter()
+
+    def counting_batch_query(*a, **kw):
+        modes[kw.get("compaction") if kw.get("exact_budget") else "dense"] += 1
+        return plain_batch_query(*a, **kw)
+
+    for facade in (idx, by_sort):       # first-call allocations, untimed
+        facade.query(QueryBatch.knn(pts[:HOST_CHECK], KNN_KS[0]))
+    for fn in counters.values():
+        fn.launches = 0
+    eng_mod.batch_query = counting_batch_query
+    try:
+        for k in KNN_KS:
+            knn, wall_ms = {}, {}
+            # in turns (kernel, sort, sort, kernel): the first batch of a
+            # new k pays the allocator's first requests of its sizes
+            for name in ("kernel", "sort", "sort", "kernel"):
+                facade = idx if name == "kernel" else by_sort
+                modes.clear()
+                before = {kn: fn.launches for kn, fn in counters.items()}
+                t0 = time.perf_counter()
+                res = facade.query(QueryBatch.knn(pts, k))
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                wall_ms.setdefault(name, []).append(wall)
+                st = res.stages[0]
+                log({"batch": f"knn[{name}]", "k": k, "queries": len(pts),
+                     "wall_ms": wall,
+                     "backend": res.plan.backend, "rungs": st.rungs,
+                     "rung_hist": list(st.rung_hist),
+                     "seed_hits": st.seed_hits,
+                     "escalations": st.escalations,
+                     "dispatches": st.dispatches, "cap": st.cap,
+                     "note": st.note,
+                     "host_fallback": "host fallback" in st.note,
+                     "rung_dispatches": dict(modes),
+                     "scan_dispatches": modes.get("scan", 0),
+                     "launches": {kn: fn.launches - before[kn]
+                                  for kn, fn in counters.items()}})
+                if res.plan.backend != "device" or any(
+                        len(r) != k for r in res.ids):
+                    raise RuntimeError(f"knn[{name}] k={k}: {res.plan}")
+                if name in knn:
+                    same(res.ids, knn[name].ids, f"knn[{name}] k={k} rerun")
+                knn[name] = res
+            same(knn["kernel"].ids, knn["sort"].ids,
+                 f"knn k={k} kernel vs sort")
+            for a, b in zip(knn["kernel"].distances, knn["sort"].distances):
+                if not np.array_equal(a, b):
+                    raise RuntimeError(f"knn k={k}: distances differ "
+                                       "between the kernel and the sort")
+            t0 = time.perf_counter()
+            host = idx.query(QueryBatch.knn(pts[:HOST_CHECK], k,
+                                            backend="host"))
+            log({"batch": "knn[host]", "k": k, "queries": HOST_CHECK,
+                 "wall_ms": (time.perf_counter() - t0) * 1e3})
+            same(knn["kernel"].ids[:HOST_CHECK], host.ids,
+                 f"knn k={k} kernel vs host")
+            err = 0.0
+            for a, b in zip(knn["kernel"].distances, host.distances):
+                if not np.allclose(a, b, rtol=1e-4, atol=1e-7):
+                    raise RuntimeError(f"knn k={k}: distances off the host's")
+                err = max(err, float(np.abs(a - b).max()))
+            log({"knn_vs_host": {"k": k, "max_abs_err": err}})
+            # where the batch's time goes: device time by kernel of the same
+            # query repeated under the profiler, over its unprofiled wall
+            wall, dev = profiled(lambda: idx.query(QueryBatch.knn(pts, k)))
+            busy = sum(dev.values())
+            log({"knn_profile": {
+                "k": k, "profiled_wall_ms": wall, "device_ms": busy,
+                "device_busy_share": (busy / min(wall_ms["kernel"]) if dev
+                                      else None),
+                "top_kernels": dict(sorted(dev.items(),
+                                           key=lambda kv: -kv[1])[:8])}})
+    finally:
+        eng_mod.batch_query = plain_batch_query
+    launches.update(read_path("knn", ("knn_topk", "refine_compact"),
+                              keep=("knn_topk",)))
+
+    # ------------------------------------------------ 7. the ops entry point
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    hi, lo = kops.morton_encode(qx, qy)
+    want_hi, want_lo = split_hilo_np(morton_encode_np(qx_np, qy_np))
+    if not (np.array_equal(hi.cpu().numpy(), want_hi)
+            and np.array_equal(lo.cpu().numpy(), want_lo)):
+        raise RuntimeError("ops.morton_encode differs from the host keys")
+    mask = kops.refine_mask(wm, bm, rm)
+    if not torch.equal(mask.sum(1, dtype=torch.int32),
+                       kops.refine_count(wm, bm, rm)):
+        raise RuntimeError("ops.refine_mask row sums differ from "
+                           "ops.refine_count")
+    # the entry point's plain side (use_kernel=False) on the same inputs
+    compare("ops.morton_encode", (hi, lo),
+            kops.morton_encode(qx, qy, use_kernel=False))
+    compare("ops.refine_mask", mask,
+            kops.refine_mask(wm, bm, rm, use_kernel=False))
+    torch.cuda.synchronize()
+    log({"batch": "ops", "wall_ms": (time.perf_counter() - t0) * 1e3,
+         "records": nrec, "mask_windows": MASK_WINDOWS})
+    launches.update(read_path("ops", ("morton_encode", "refine_mask")))
+
+    # ------------------------------------------------------------- 8. report
     entries = []
     for k in counters:
         r_ = results[k]
-        entries.append({"name": k, "route": "cuda", "source": CSRC,
+        entries.append({"name": k, "route": "cuda", "source": CSRC[k],
                         "replaces": REPLACES[k], "launches": launches[k],
                         "max_abs_err": r_["max_abs_err"],
                         "ms": r_["kernel_ms"], "plain_ms": r_["plain_ms"],
                         "bound_ms": r_["bound_ms"],
-                        "bound_by": r_["bound_by"], "library_ms": None})
+                        "bound_by": r_["bound_by"],
+                        "library_ms": r_.get("library_ms")})
     log(card_line())
     log({"kernels": entries})
     log({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,10 @@ windows are probed *simultaneously* with tensor ops on one device:
   snapshot time so the fp64→fp32 drop can never shrink the window);
 * refinement       — leaf-MBR skip, record-MBR mask, compaction of the
   survivors and exact-shape checks over width-bucketed vertex pods, either
-  as plain tensor code or through the CUDA kernels of ``kernels.refine``.
+  as plain tensor code or through the CUDA kernels of ``kernels.refine``;
+* kNN              — CDF-seeded radii read off the model, exact squared
+  distances over the survivors' pods and a (distance, id) top-k
+  (``kernels.knn``), so only the (Q, k) result leaves the device.
 
 Z-addresses are (hi, lo) int32 limb pairs throughout — no 64-bit integers in
 the probe. Every tensor lives on the snapshot's device; the same functions
@@ -36,7 +39,8 @@ __all__ = ["GLINSnapshot", "HostCapture", "VertexPods", "pack_pods",
            "pods_from_store", "pods_from_numpy", "snapshot_capture",
            "snapshot_from_capture", "snapshot_from_host",
            "snapshot_from_numpy", "batch_probe", "batch_query_bounds",
-           "batch_query", "batch_query_fused"]
+           "batch_query", "batch_query_fused", "knn_seed_radii",
+           "batch_knn_rank"]
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -598,11 +602,11 @@ def batch_query_bounds(s: GLINSnapshot, windows: torch.Tensor,
 def _exact_over(rel, windows: torch.Tensor, pods: VertexPods,
                 rec: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """Exact predicates over gathered records ``rec`` (Q, M) -> bool, at the
-    widest pow2 bucket among the ``sel`` lanes (``geometry.exact_over_pods``;
+    widest pow2 bucket among the ``sel`` lanes (``geometry.map_over_pods``;
     unselected lanes come back False)."""
-    return geom.exact_over_pods(rel.device_predicate, windows, pods.pool,
-                                pods.off, pods.nv, pods.kd, pods.bucket,
-                                rec, sel)
+    return geom.map_over_pods(rel.device_predicate, windows, pods.pool,
+                              pods.off, pods.nv, pods.kd, pods.bucket, rec,
+                              sel, False)
 
 
 def _exact_refine_compacted(rel, windows: torch.Tensor, s: GLINSnapshot,
@@ -637,10 +641,12 @@ def batch_query(s: GLINSnapshot, windows: torch.Tensor, pods: VertexPods,
     encodes the truncated hit count and only signals that the slot run
     outgrew ``cap``.
 
-    ``exact_budget`` > 0 enables TWO-STAGE refinement: stage 1 evaluates
-    only the cheap interval + leaf-MBR + record-MBR masks; stage 2 compacts
-    the survivors per query and runs exact-shape checks + vertex gathers on
-    at most ``exact_budget`` candidates. ``compaction`` picks the stage-1
+    ``exact_budget`` > 0 enables TWO-STAGE refinement at any budget (the
+    caller's ``core.exec.OverflowLadder`` keeps a scan's budget below the
+    cap, where it buys something): stage 1 evaluates only the cheap
+    interval + leaf-MBR + record-MBR masks; stage 2 compacts the survivors
+    per query and runs exact-shape checks + vertex gathers on at most
+    ``exact_budget`` candidates. ``compaction`` picks the stage-1
     implementation:
 
     * ``"kernel"`` — ``kernels.refine.refine_compact``: interval + leaf-MBR
@@ -658,7 +664,7 @@ def batch_query(s: GLINSnapshot, windows: torch.Tensor, pods: VertexPods,
     q = windows.shape[0]
     dev = windows.device
 
-    if exact_budget and exact_budget < cap:
+    if exact_budget > 0:
         kb = exact_budget
         probe_w = rel.probe_window(windows)
         if compaction == "kernel":
@@ -706,7 +712,7 @@ def batch_query(s: GLINSnapshot, windows: torch.Tensor, pods: VertexPods,
         enc = torch.where(run_over, runlen, surv)
         return hits, torch.where(overflow, -enc - 1, counts)
 
-    # single-stage dense path (exact_budget disabled or >= cap)
+    # single-stage dense path (exact_budget disabled)
     pos = start[:, None] + torch.arange(cap, dtype=_I32, device=dev)
     valid = pos < torch.minimum(end, start + cap)[:, None]
     posc = torch.clamp(pos, max=s.num_slots - 1)
@@ -819,3 +825,100 @@ def batch_query_fused(s: GLINSnapshot, windows: torch.Tensor,
         rel.prefilter_kind)
     hits, counts = _exact_refine_compacted(rel, windows, s, pods, slots)
     return hits, torch.where(mbr_counts > kb, -mbr_counts - 1, counts)
+
+
+# ---------------------------------------------------------------------------
+# Device-complete kNN: CDF-seeded radii + exact-distance top-k ranking
+# ---------------------------------------------------------------------------
+def _sqdist_over(windows: torch.Tensor, pods: VertexPods, rec: torch.Tensor,
+                 sel: torch.Tensor) -> torch.Tensor:
+    """Exact squared window-to-geometry distances over gathered records
+    ``rec`` (Q, M) -> f32, +inf on unselected lanes: the distance twin of
+    ``_exact_over``, gathering at the widest pow2 bucket among the ``sel``
+    lanes (``geometry.map_over_pods``, in lane chunks, so a budget-wide
+    rank never gathers a (Q, M, width) block at once)."""
+    return geom.map_over_pods(geom.rect_geom_sqdist_torch, windows,
+                              pods.pool, pods.off, pods.nv, pods.kd,
+                              pods.bucket, rec, sel, float("inf"))
+
+
+def knn_seed_radii(s: GLINSnapshot, windows: torch.Tensor, k: float
+                   ) -> torch.Tensor:
+    """CDF-seeded initial kNN radii: degenerate windows (Q, 4) -> (Q,) f32.
+
+    The published learned index doubles as a density estimate: each point
+    routes through the model to its leaf (``_find_leaf``); the leaf's record
+    count over its aggregate-MBR area is the local intensity rho, and the
+    expected k-th-neighbour distance of a planar process of intensity rho is
+    ``sqrt(k / (pi * rho))``, offset by the point's distance to the leaf's
+    aggregate MBR (a point routed to a leaf it does not touch must first
+    reach the data). An estimate only: the rung ladder above it is the
+    correctness backstop, and settlement is always the exact within-radius
+    count from :func:`batch_knn_rank`."""
+    grid = ZGrid(s.grid_x0, s.grid_y0, s.grid_cell)
+    (zmin_hi, zmin_lo), _ = mbr_to_zinterval_hilo(
+        windows, grid, guard=ZGrid.FP32_GUARD_CELLS)
+    leaf = _find_leaf(s, zmin_hi, zmin_lo)
+    count = (s.leaf_start[leaf + 1] - s.leaf_start[leaf]).to(_F32)
+    m = s.leaf_mbr[leaf]
+    area = torch.clamp((m[:, 2] - m[:, 0]) * (m[:, 3] - m[:, 1]),
+                       min=float(np.float32(1e-12)))
+    rho = torch.clamp(count, min=1.0) / area
+    zero = torch.zeros((), dtype=_F32, device=windows.device)
+    gx = torch.maximum(torch.maximum(m[:, 0] - windows[:, 0],
+                                     windows[:, 0] - m[:, 2]), zero)
+    gy = torch.maximum(torch.maximum(m[:, 1] - windows[:, 1],
+                                     windows[:, 1] - m[:, 3]), zero)
+    gap = torch.sqrt(gx * gx + gy * gy)
+    kf = torch.tensor(float(np.float32(k)), dtype=_F32, device=windows.device)
+    return gap + torch.sqrt(kf / (float(np.float32(math.pi)) * rho))
+
+
+def batch_knn_rank(windows: torch.Tensor, pods: VertexPods,
+                   hits: torch.Tensor, radius: torch.Tensor, k: int,
+                   impl: str = "sort", tombstones=None, delta=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Device top-k over intersects survivors: (Q, B) hit ids -> ((Q, k)
+    ids, (Q, k) distances, (Q,) within-radius candidate counts).
+
+    ``hits`` is the refine stage's -1-padded id matrix; exact distances come
+    from one widest-surviving-bucket pod gather (``_sqdist_over``), so the
+    candidate set never leaves the device — only the (Q, k) result does.
+    Ordering is the shared ``geometry.rank_knn`` (distance, id) contract
+    over SQUARED distances: ``impl="kernel"`` ranks through the
+    ``kernels.knn.knn_topk`` wrapper (the CUDA kernel on a card, its plain
+    version for CPU tensors), ``impl="sort"`` through the plain two-key sort.
+
+    ``radius`` ((Q,) f32) is each point's own probe radius this rung; the
+    count is |{candidates with d2 <= radius^2}|, the dwithin predicate's
+    test, which drives the ladder's settlement rule. ``tombstones`` (T,) i32
+    masks deleted-but-published ids out of the ranking. ``delta`` (the
+    unpublished added set) is not ported yet and must be None."""
+    from ..kernels import knn as kknn
+
+    if impl not in ("sort", "kernel"):
+        raise ValueError(f"unknown knn top-k impl {impl!r}")
+    if delta is not None:
+        raise NotImplementedError("ranking an unpublished delta arrives with "
+                                  "device+delta")
+    q, dev = windows.shape[0], windows.device
+    valid = hits >= 0
+    rec = torch.clamp(hits, min=0)
+    d2 = _sqdist_over(windows, pods, rec, valid)
+    ids = torch.where(valid, hits, kknn.ID_PAD)
+    if tombstones is not None and tombstones.shape[0]:
+        dead = torch.isin(hits, tombstones)
+        d2 = torch.where(dead, float("inf"), d2)
+        ids = torch.where(dead, kknn.ID_PAD, ids)
+    counts = (d2 <= (radius * radius)[:, None]).sum(dim=1, dtype=_I32)
+    if d2.shape[1] < k:                    # k > budget: pad columns
+        padw = k - d2.shape[1]
+        d2 = torch.cat([d2, torch.full((q, padw), float("inf"), dtype=_F32,
+                                       device=dev)], dim=1)
+        ids = torch.cat([ids, torch.full((q, padw), kknn.ID_PAD, dtype=_I32,
+                                         device=dev)], dim=1)
+    top = kknn.knn_topk if impl == "kernel" else kknn.knn_topk_plain
+    d2k, idk = top(d2.contiguous(), ids.contiguous(), k)
+    dk = torch.sqrt(torch.clamp(d2k, min=0.0))
+    idk = torch.where(torch.isinf(d2k), -1, idk)
+    return idk, dk, counts

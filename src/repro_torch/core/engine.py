@@ -16,7 +16,8 @@ owns the plumbing:
   runs on the host instead;
 * **execution is planned, then staged**: ``plan(batch)`` picks a backend
   (host loop for small or stats-collecting batches; the device path for
-  large batches against a fresh or republished snapshot) and
+  large batches against a fresh or republished snapshot — window queries
+  and device-complete kNN, ``QueryBatch.knn``, alike) and
   ``core.exec.compile_plan`` turns the choice into an
   :class:`~repro_torch.core.exec.ExecutionPlan` with per-stage telemetry on
   every result (``QueryResult.stages``, ``stats()["stages"]``,
@@ -96,9 +97,10 @@ class EngineConfig:
                                       # exact-checks at most this many
                                       # candidates per query
     compaction: Optional[str] = None  # stage-1 impl: "kernel" (the
-                                      # refine_compact wrapper) or "scan"
-                                      # (tensor reference); None = kernel on
-                                      # a CUDA index, scan on the CPU
+                                      # refine_compact wrapper, any budget)
+                                      # or "scan" (tensor reference); None =
+                                      # kernel on a CUDA index, scan on the
+                                      # CPU
     fusion: Optional[str] = None      # one-launch probe+compact+refine:
                                       # "kernel" (the refine_fused wrapper),
                                       # "reference" (plain tensor composition
@@ -108,6 +110,21 @@ class EngineConfig:
                                       # budgets outside (0, MAX_COMPACT_
                                       # BUDGET] fall back to the staged
                                       # pipeline automatically
+    knn_device_min_batch: int = 16    # knn point batches this big run
+                                      # device-complete (seeded probes +
+                                      # on-device top-k ranking); smaller
+                                      # ones loop on the host
+    knn_seed: Optional[str] = None    # initial knn radius selection: "cdf"
+                                      # (per-point density seed read off the
+                                      # published learned model) or "global"
+                                      # (one whole-store density estimate);
+                                      # None = cdf. Either way the rung
+                                      # ladder is the correctness backstop
+    knn_topk: Optional[str] = None    # device top-k impl: "kernel" (the
+                                      # knn_topk wrapper) or "sort" (plain
+                                      # two-key sort); None = kernel on a
+                                      # CUDA index, sort on the CPU. Both
+                                      # obey the (distance, id) contract
     pad_quantum: int = 4096           # bucket-pad record/slot table lengths
                                       # so insert-driven growth keeps shapes
                                       # (0 disables padding)
@@ -115,15 +132,17 @@ class EngineConfig:
 
 @dataclasses.dataclass(frozen=True)
 class QueryBatch:
-    """One or many window queries against one relation.
+    """One or many queries of one kind against one relation.
 
-    Build with :meth:`window`; ``backend`` forces a specific execution path
-    (benchmarks, tests), otherwise the planner decides.
+    Build with :meth:`window` / :meth:`knn`; ``backend`` forces a specific
+    execution path (benchmarks, tests), otherwise the planner decides.
     """
 
-    kind: str = "window"
+    kind: str = "window"                    # "window" | "knn"
     windows: Optional[np.ndarray] = None    # (Q, 4) fp64
     relation: str = "intersects"
+    points: Optional[np.ndarray] = None     # (Q, 2) fp64, knn only
+    k: int = 1
     backend: Optional[str] = None     # force "host" / "device"
     collect_stats: bool = False       # per-window QueryStats (host path)
 
@@ -139,13 +158,16 @@ class QueryBatch:
                    backend=backend, collect_stats=collect_stats)
 
     @classmethod
-    def knn(cls, points, k: int, backend: Optional[str] = None):
-        raise NotImplementedError(
-            "kNN queries are not ported yet: they arrive with the kNN slice "
-            "(device kNN ranking and its top-k kernel)")
+    def knn(cls, points, k: int,
+            backend: Optional[str] = None) -> "QueryBatch":
+        p = np.atleast_2d(np.asarray(points, np.float64))
+        if p.ndim != 2 or p.shape[1] != 2:
+            raise ValueError(f"points must be (Q, 2); got {p.shape}")
+        return cls(kind="knn", points=p, k=int(k), backend=backend)
 
     def __len__(self) -> int:
-        return 0 if self.windows is None else int(self.windows.shape[0])
+        arr = self.windows if self.kind == "window" else self.points
+        return 0 if arr is None else int(arr.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,8 +175,8 @@ class QueryPlan:
     """How a batch will execute (returned by ``plan``, recorded on results)."""
 
     backend: str                  # "host" | "device"
-    kind: str                     # "window"
-    relation: Optional[str]
+    kind: str                     # "window" | "knn"
+    relation: Optional[str]       # None for knn
     base_relation: Optional[str]  # probed relation (complements differ)
     rebuild_snapshot: bool        # device path will republish the snapshot
     reason: str
@@ -171,6 +193,7 @@ class QueryResult:
     plan: QueryPlan
     epoch: int                                  # index epoch that was served
     stats: Optional[List[QueryStats]] = None    # host path, when requested
+    distances: Optional[List[np.ndarray]] = None  # knn only
     stages: Optional[List["qexec.StageStats"]] = None  # per-stage telemetry
 
     def __len__(self) -> int:
@@ -271,7 +294,9 @@ class SpatialIndex:
                 ent = per.setdefault(ss.stage, {
                     "impl": ss.impl, "calls": 0, "skipped": 0,
                     "wall_ms": 0.0, "queries": 0, "survivors": 0,
-                    "escalations": 0, "dispatches": 0})
+                    "escalations": 0, "dispatches": 0, "delta_added": 0,
+                    "delta_tombstoned": 0, "rungs": 0, "seed_hits": 0,
+                    "rung_hist": []})
                 ent["calls"] += 1
                 ent["wall_ms"] += ss.wall_ms
                 # the executing impl may differ per call (staged vs fused
@@ -284,6 +309,20 @@ class SpatialIndex:
                 ent["survivors"] += max(ss.survivors, 0)
                 ent["escalations"] += ss.escalations
                 ent["dispatches"] += ss.dispatches
+                ent["delta_added"] += ss.delta_added
+                ent["delta_tombstoned"] += ss.delta_tombstoned
+                # knn-rank seeding telemetry (zero for window stages):
+                # rung_hist sums element-wise — entry i is the points that
+                # settled after i+1 probes, so hist[0]/queries is the seed
+                # hit-rate across every call
+                ent["rungs"] += ss.rungs
+                ent["seed_hits"] += ss.seed_hits
+                hist = ent["rung_hist"]
+                for i, v in enumerate(ss.rung_hist):
+                    if i < len(hist):
+                        hist[i] += v
+                    else:
+                        hist.append(v)
 
     # ------------------------------------------------------------ maintenance
     def insert(self, verts: np.ndarray, nverts: int, kind: int = 0) -> int:
@@ -504,26 +543,21 @@ class SpatialIndex:
             self._width_floor = max(self._width_floor, maxw)
         return self._payload
 
-    def _compaction(self, base_relation: str,
-                    budget: Optional[int] = None) -> str:
+    def _compaction(self, base_relation: str) -> str:
         """Stage-1 refinement implementation for ``batch_query``: the
         ``refine_compact`` wrapper on a CUDA index, the scan reference on
         the CPU, and the scan reference whenever the relation's MBR
-        prefilter has no kernel shape (``prefilter_kind == "custom"``) or
-        the budget exceeds ``MAX_COMPACT_BUDGET``. ``budget`` is the budget
-        the call will actually use (the overflow ladder grows it)."""
-        from ..kernels.refine import MAX_COMPACT_BUDGET
-
+        prefilter has no kernel shape (``prefilter_kind == "custom"``). The
+        compact kernel takes any budget the overflow ladder grows to (up to
+        ``max_cap`` for knn)."""
         mode = self.config.compaction
         if mode is None:
             mode = "kernel" if self.device.type == "cuda" else "scan"
         if mode not in ("kernel", "scan"):
             raise ValueError(f"unknown compaction {mode!r}")
-        if mode == "kernel":
-            b = self.config.exact_budget if budget is None else budget
-            if (get_relation(base_relation).prefilter_kind == "custom"
-                    or b > MAX_COMPACT_BUDGET):
-                mode = "scan"
+        if (mode == "kernel"
+                and get_relation(base_relation).prefilter_kind == "custom"):
+            mode = "scan"
         return mode
 
     def _fusion_mode(self, base_relation: str,
@@ -565,6 +599,8 @@ class SpatialIndex:
         if not isinstance(batch, QueryBatch):
             batch = QueryBatch.window(batch, relation or "intersects")
         cfg = self.config
+        if batch.kind == "knn":
+            return self._plan_knn(batch)
         rel = get_relation(batch.relation)
         base = get_relation(rel.base_name())
         self._check_augmentable(batch.relation, base)
@@ -612,13 +648,48 @@ class SpatialIndex:
         return device(f"snapshot stale; delta of {delta} not patchable "
                       f"(no delta patching): republishing for batch of {q}")
 
+    def _plan_knn(self, batch: QueryBatch) -> QueryPlan:
+        """The reference planner's knn branch without the sharded and
+        ``device+delta`` backends: a stale snapshot plans ``device`` and
+        republishes (the reference patches a small delta in-line)."""
+        cfg = self.config
+        q = len(batch)
+        seed = cfg.knn_seed or "cdf"
+        delta = self.delta_size()
+        stale = self.snapshot_is_stale()
+
+        def knn_plan(backend, reason):
+            return QueryPlan(backend, "knn", None, None,
+                             backend == "device" and stale, reason, delta)
+
+        if batch.backend in ("host", "device"):
+            return knn_plan(batch.backend, "forced by caller")
+        if batch.backend is not None:
+            raise ValueError(f"unknown backend {batch.backend!r} (ported "
+                             "backends: 'host', 'device')")
+        if q < cfg.knn_device_min_batch or self.glin.pw is None:
+            why = (f"batch of {q} < knn_device_min_batch="
+                   f"{cfg.knn_device_min_batch}"
+                   if q < cfg.knn_device_min_batch
+                   else "no piecewise function published")
+            return knn_plan("host", f"knn executes on the host index ({why})")
+        reason = (f"device-complete knn: {seed}-seeded dwithin ladder + "
+                  f"device top-{batch.k} ({q} points >= knn_device_min_batch="
+                  f"{cfg.knn_device_min_batch})")
+        if stale and self._snapshot is not None:
+            reason += (f"; snapshot stale, delta of {delta} not patchable "
+                       "(no delta patching): republishing")
+        return knn_plan("device", reason)
+
     # ------------------------------------------------------------------ query
     def query(self, batch, relation: Optional[str] = None, **kw
               ) -> QueryResult:
-        """THE entry point: one or thousands of window queries, any relation.
+        """THE entry point: one or thousands of queries, any relation or knn.
 
         ``batch`` is a :class:`QueryBatch`, or a bare (4,) / (Q, 4) window
-        array (``relation`` then applies, default ``intersects``).
+        array (``relation`` then applies, default ``intersects``). A knn
+        batch (:meth:`QueryBatch.knn`) returns ids and ``distances`` per
+        point in ascending (distance, id) order.
 
         Concurrency contract: safe to call from many threads, interleaved
         with :meth:`insert`/:meth:`delete`. A device batch is exact at the
@@ -636,14 +707,17 @@ class SpatialIndex:
                                  "itself")
         with self._lock:
             plan = self.plan(batch)
-        rel = get_relation(batch.relation)
-        base = get_relation(rel.base_name())
+        rel = base = None
+        if batch.kind == "window":
+            rel = get_relation(batch.relation)
+            base = get_relation(rel.base_name())
         ctx = qexec.ExecContext(index=self, batch=batch, plan=plan,
                                 rel=rel, base=base)
         qexec.compile_plan(plan).execute(ctx)
         self._record_stages(plan.backend, ctx.stage_stats)
         return QueryResult(ids=ctx.ids, plan=plan, epoch=ctx.epoch,
-                           stats=ctx.host_stats, stages=ctx.stage_stats)
+                           stats=ctx.host_stats, distances=ctx.distances,
+                           stages=ctx.stage_stats)
 
     def explain(self, batch, relation: Optional[str] = None) -> str:
         """Pretty-print how ``batch`` WOULD execute (same input forms as

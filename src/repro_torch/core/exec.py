@@ -14,6 +14,11 @@ collapses them into ONE (:class:`FusedDeviceStage`, selected by
 operates on id lists against state frozen under the facade lock — so exactly
 ONE implementation of it exists, here.
 
+A knn batch compiles to ONE stage that covers probe, compaction, refine
+and the rank: :class:`KnnHostStage` (the fp64 host ladder, one point at a
+time) or :class:`KnnDeviceStage` (seeded radius rungs of ``intersects``
+probes, each ranked on the device by exact distance and a top-k).
+
 ``SpatialIndex.plan()`` picks a backend; :func:`compile_plan` turns that
 :class:`QueryPlan` into an :class:`ExecutionPlan` — an ordered stage tuple —
 and :meth:`ExecutionPlan.execute` runs it, timing every stage into
@@ -31,7 +36,8 @@ MBR survivors outgrew ``exact_budget``. The ladder jumps the cap straight
 to a sufficient power of two (a cheap bounds-only probe tells the two
 overflows apart), grows the budget geometrically past the true survivor
 count, and escalates to the single-stage dense path only once the needed
-budget exceeds ``MAX_COMPACT_BUDGET`` (or the cap). The compact kernel and
+budget exceeds ``MAX_COMPACT_BUDGET`` (or, with scan compaction, the
+cap). The compact kernel and
 the fused one-dispatch path scan the full run (they are capless), so with a
 budget active their overflow is ALWAYS the budget — their retries need no
 disambiguating bounds probe (:meth:`OverflowLadder.on_capless_overflow`).
@@ -61,10 +67,13 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .index import QueryStats
+from .device import batch_knn_rank, knn_seed_radii
+from .index import QueryStats, initial_knn_radius
+from .index import knn as _host_knn
 
 __all__ = ["StageStats", "ExecContext", "Stage", "ExecutionPlan",
-           "OverflowLadder", "compile_plan", "PIPELINE_STAGES"]
+           "OverflowLadder", "KnnHostStage", "KnnDeviceStage",
+           "compile_plan", "PIPELINE_STAGES"]
 
 # canonical stage order
 PIPELINE_STAGES = ("probe", "compact", "refine", "complement-finish")
@@ -101,8 +110,15 @@ class StageStats:
     dispatches: int = 0
     cap: int = 0
     budget: int = -1
+    delta_added: int = 0
+    delta_tombstoned: int = 0
     skipped: bool = False            # compiled in, but a no-op this run
     note: str = ""
+    # knn-rank telemetry (zero/empty on every other stage)
+    rungs: int = 0                   # deepest per-point radius-ladder depth
+    rung_hist: Tuple[int, ...] = ()  # points settled per rung; [0] = seeded
+    seed_hits: int = 0               # points settled at their seeded radius
+    seed_radius: float = 0.0         # median seed radius
 
 
 @dataclasses.dataclass
@@ -110,19 +126,21 @@ class ExecContext:
     """Mutable state threaded through the stages of one execution.
 
     The refine stage freezes everything downstream stages read (``epoch``,
-    ``live``) under the facade lock; the stages after it touch only this
-    context, never the live index fields."""
+    ``live``, ``snap``) under the facade lock; the stages after it touch
+    only this context, never the live index fields."""
 
     index: Any                       # the SpatialIndex facade
     batch: Any                       # QueryBatch
     plan: Any                        # QueryPlan
-    rel: Any                         # Relation
-    base: Any                        # probed base Relation
+    rel: Any                         # Relation (None for knn)
+    base: Any                        # probed base Relation (None for knn)
     # frozen under the facade lock by the refine stage
     epoch: int = -1
     live: Optional[np.ndarray] = None
+    snap: Any = None                 # the snapshot a knn batch served
     # outputs
     ids: Optional[List[np.ndarray]] = None
+    distances: Optional[List[np.ndarray]] = None
     host_stats: Optional[List[QueryStats]] = None
     stage_stats: List[StageStats] = dataclasses.field(default_factory=list)
 
@@ -141,23 +159,39 @@ class OverflowLadder:
     max-merged back into the facade by the refine stage so the ladder is
     walked once per workload, not once per call."""
 
-    def __init__(self, config, cap: int):
+    def __init__(self, config, cap: int, max_budget: Optional[int] = None,
+                 compaction: str = "scan"):
         from ..kernels.refine import MAX_COMPACT_BUDGET
 
         self.config = config
         self.cap = int(cap)
         self.budget = int(config.exact_budget)
         # budget-growth ceiling before the ladder falls back to the dense
-        # single-stage path (a dense retry only re-checks cheap predicates)
-        self.max_budget = MAX_COMPACT_BUDGET
+        # single-stage path. Window refines keep MAX_COMPACT_BUDGET (a dense
+        # retry only re-checks cheap predicates); knn raises it to max_cap
+        # because the rank's exact-distance work scales with the hit-matrix
+        # WIDTH — compaction at a large budget is far cheaper than ranking
+        # a dense (Q, cap) matrix every rung.
+        self.max_budget = (MAX_COMPACT_BUDGET if max_budget is None
+                           else int(max_budget))
+        # the staged attempts' stage-1 implementation. THE place that knows
+        # the compact kernel walks whole runs: its two-stage attempts need
+        # no cap (which then bounds only the dense path) and its overflow
+        # is always the budget
+        self.compaction = compaction
+        self.capless = compaction == "kernel"
         self.escalations = 0
+
+    def two_stage(self, budget: int) -> bool:
+        """Whether ``budget`` runs two-stage: it must be positive, and below
+        the cap unless the compaction is capless (a scan windows each run
+        to the cap, so a budget at the cap buys nothing)."""
+        return budget > 0 and (self.capless or budget < self.cap)
 
     @property
     def use_budget(self) -> int:
-        """The budget the next call actually uses: two-stage refinement only
-        pays for itself while the budget is positive AND below the cap."""
-        b = self.budget
-        return b if 0 < b < self.cap else 0
+        """The budget the next call actually uses (0: the dense path)."""
+        return self.budget if self.two_stage(self.budget) else 0
 
     def grow_cap(self, need: int) -> None:
         cfg = self.config
@@ -174,11 +208,12 @@ class OverflowLadder:
         survivor count, so the budget grows geometrically straight past it
         (re-running compaction) and only falls back to the single-stage
         dense path (budget 0) once the needed budget exceeds
-        ``max_budget`` (``MAX_COMPACT_BUDGET``) or the cap."""
+        ``max_budget`` (``MAX_COMPACT_BUDGET`` unless the caller raised it)
+        or, unless capless, the cap."""
         target = max(use_budget * 2,
                      1 << max(survivors - 1, 0).bit_length())
-        self.budget = (0 if target > self.max_budget or target >= self.cap
-                       else target)
+        self.budget = (target if target <= self.max_budget
+                       and self.two_stage(target) else 0)
 
     def on_device_overflow(self, counts: np.ndarray, use_budget: int,
                            probe_bounds, batch_len: int) -> None:
@@ -197,6 +232,17 @@ class OverflowLadder:
             raise AssertionError(
                 "single-stage overflow with run <= cap")  # unreachable
         self.grow_budget(use_budget, int(-(counts.min()) - 1))
+
+    def on_staged_overflow(self, counts: np.ndarray, use_budget: int,
+                           probe_bounds, batch_len: int) -> None:
+        """Retry after a staged ``batch_query`` attempt: a capless two-stage
+        attempt overflowed its budget; anything else takes the bounds
+        probe."""
+        if use_budget and self.capless:
+            self.on_capless_overflow(counts, use_budget)
+        else:
+            self.on_device_overflow(counts, use_budget, probe_bounds,
+                                    batch_len)
 
     def on_capless_overflow(self, counts: np.ndarray,
                             use_budget: int) -> None:
@@ -272,7 +318,8 @@ class _DeviceStage(Stage):
             pods = idx._device_payload(idx._snapshot_recs)
             ctx.live = idx._freeze_live(ctx.rel)
             ctx.epoch = idx._epoch
-            ladder = OverflowLadder(cfg, idx._cap)
+            ladder = OverflowLadder(cfg, idx._cap,
+                                    compaction=idx._compaction(ctx.base.name))
         q = len(batch.windows)
         wq = batch.windows.astype(np.float32)
         if cfg.pad_quantum > 0 and q:
@@ -304,25 +351,20 @@ def _staged_attempt(idx, eng, snap, wt, pods, base, ladder, st):
     when every count is non-negative, else walks the ladder and returns
     None."""
     ub = ladder.use_budget
-    comp = idx._compaction(base, ub or None)
     hits, counts = eng.batch_query(
         snap, wt, pods, relation=base, cap=ladder.cap, exact_budget=ub,
-        compaction=comp)
+        compaction=ladder.compaction)
     st.dispatches += 3 if ub else 2   # probe/compact/exact vs dense
     counts = counts.cpu().numpy()
     if (counts >= 0).all():
         return hits
-    if ub and comp == "kernel":
-        # the compact kernel walks each whole run (capless): with a budget
-        # active its overflow is always the budget, whatever the run length
-        ladder.on_capless_overflow(counts, ub)
-        return None
-    st.dispatches += 1                # disambiguating bounds probe
-    ladder.on_device_overflow(
-        counts, ub,
-        lambda: tuple(t.cpu().numpy() for t in
-                      eng.batch_query_bounds(snap, wt, relation=base)),
-        wt.shape[0])
+
+    def probe_bounds():
+        st.dispatches += 1            # disambiguating bounds probe
+        return tuple(t.cpu().numpy() for t in
+                     eng.batch_query_bounds(snap, wt, relation=base))
+
+    ladder.on_staged_overflow(counts, ub, probe_bounds, wt.shape[0])
     return None
 
 
@@ -427,6 +469,238 @@ class ComplementFinishStage(Stage):
         st.survivors = _total(ctx.ids)
 
 
+class KnnHostStage(Stage):
+    """knn on the mutable host tree, one point at a time under the lock."""
+
+    name = "knn-rank"
+    covers = ("probe", "refine", "knn-rank")
+    impl = "host"
+
+    def run(self, ctx: ExecContext, st: StageStats) -> None:
+        idx, batch = ctx.index, ctx.batch
+        ids, dists = [], []
+        with idx._lock:      # the host knn walks the mutable tree
+            for p in batch.points:
+                i, d = _host_knn(idx.glin, p, batch.k)
+                ids.append(np.asarray(i, np.int64))
+                dists.append(np.asarray(d))
+            ctx.epoch = idx._epoch
+        ctx.ids, ctx.distances = ids, dists
+        st.survivors = _total(ids)
+
+
+def _seed_radii(snap, wins, k, seed_mode, r_global, st) -> np.ndarray:
+    """Initial radii for the degenerate windows ``wins``. CDF seeds route
+    through the published model (``device.knn_seed_radii``); a seed that
+    comes back non-finite or non-positive (a point routed to an empty leaf,
+    whose aggregate-MBR sentinel has no area) falls back to the global
+    density radius — the seed is a performance prior, never allowed to
+    poison the probe."""
+    if seed_mode != "cdf":
+        return np.full(wins.shape[0], r_global)
+    wq = torch.as_tensor(wins.astype(np.float32)).to(snap.device)
+    seeds = knn_seed_radii(snap, wq, k).cpu().numpy().astype(np.float64)
+    st.dispatches += 1
+    bad = ~np.isfinite(seeds) | (seeds <= 0.0)
+    seeds[bad] = r_global
+    return seeds
+
+
+def _knn_backstop(idx, cfg) -> tuple:
+    """Resolve the knn config knobs: (seed mode, top-k impl).
+    ``knn_seed=None`` -> the CDF density seed; ``knn_topk=None`` -> the
+    ``knn_topk`` kernel on a CUDA index, the plain two-key sort on the
+    CPU."""
+    seed = cfg.knn_seed or "cdf"
+    if seed not in ("cdf", "global"):
+        raise ValueError(f"unknown knn_seed {cfg.knn_seed!r} "
+                         "(use 'cdf' or 'global')")
+    impl = cfg.knn_topk or ("kernel" if idx.device.type == "cuda"
+                            else "sort")
+    if impl not in ("sort", "kernel"):
+        raise ValueError(f"unknown knn_topk {cfg.knn_topk!r} "
+                         "(use 'sort' or 'kernel')")
+    return seed, impl
+
+
+class KnnDeviceStage(Stage):
+    """Device-complete knn (cf. LISA): each point probes at its OWN seeded
+    radius and the survivors are ranked ON DEVICE by exact squared distance
+    (:func:`~repro_torch.core.device.batch_knn_rank`) — only the final
+    ``(Q, k)`` ids + distances and the within-radius counts that drive the
+    ladder cross back to the host. Candidate sets never do.
+
+    Each rung probes EVERY still-undone point in ONE ``intersects`` batch:
+    the probe window is the point's L-inf inflation by its own radius, a
+    square superset of the dwithin disc whose corner candidates the exact
+    distance test in the rank discards. A point is DONE once its
+    within-radius count reaches k (the within set is exactly {distance <=
+    r}: no closer geometry can be missing) or covers every live record.
+
+    Radius selection: ``knn_seed_radii`` seeds each point near its expected
+    k-th-neighbour distance. Between rungs an undone point grows by the 2D
+    density scaling ``d_within * sqrt(k / within)`` of the exact distances
+    it already holds, clamped to [2r, 4r]. The first dispatch of a rung
+    pins the configured ``exact_budget``; rows that overflow it (fat rows)
+    re-dispatch on their own through the overflow ladder with
+    ``max_budget=max_cap`` — compaction at a large budget stays cheaper
+    than ranking a dense (Q, cap) matrix. A straggler whose run outgrows
+    ``max_cap`` finishes on the host loop, and ``note`` says so.
+    ``rung_hist`` / ``seed_hits`` / ``seed_radius`` report how well the
+    seeding worked; ``escalations`` counts overflow-ladder retries (not
+    rungs)."""
+
+    name = "knn-rank"
+    covers = ("probe", "compact", "refine", "knn-rank")
+    impl = "device"
+    dispatches = 4
+
+    def run(self, ctx: ExecContext, st: StageStats) -> None:
+        eng = _engine()
+        idx, batch = ctx.index, ctx.batch
+        cfg = idx.config
+        pts = np.asarray(batch.points, np.float64)
+        q, k = len(batch), int(batch.k)
+        wins = np.concatenate([pts, pts], axis=1)    # degenerate windows
+        with idx._lock:
+            # same freeze contract as the window stages: snapshot + payload
+            # captured under the lock (a stale snapshot republishes), device
+            # compute outside it — every rung serves the SAME frozen epoch
+            snap = idx.snapshot()
+            pods = idx._device_payload(idx._snapshot_recs)
+            ctx.epoch = idx._epoch
+            ladder = OverflowLadder(cfg, idx._cap, max_budget=cfg.max_cap,
+                                    compaction=idx._compaction("intersects"))
+            n_live = idx.glin.num_records
+            r_global = initial_knn_radius(idx.glin, k)
+            seed_mode, impl = _knn_backstop(idx, cfg)
+        ctx.snap = snap
+        dev = snap.device
+        out_ids: List[np.ndarray] = [np.empty(0, np.int64)] * q
+        out_d: List[np.ndarray] = [np.empty(0, np.float64)] * q
+        ctx.ids, ctx.distances = out_ids, out_d
+        if k <= 0 or n_live == 0 or q == 0:
+            st.survivors = 0
+            return
+        radius = _seed_radii(snap, wins, k, seed_mode, r_global, st)
+        st.seed_radius = float(np.median(radius))
+        st.note = f"seed={seed_mode} topk={impl}"
+        # tier-1 budget: the CONFIGURED exact budget, pinned — the rank
+        # stays narrow for the common case and only fat rows escalate
+        # through `ladder` below
+        b0 = int(cfg.exact_budget)
+        done = np.zeros(q, bool)
+        probes = np.zeros(q, np.int32)
+        for _ in range(64):
+            todo = np.nonzero(~done)[0]
+            if todo.size == 0:
+                break
+            ctr = wins[todo].astype(np.float32)
+            rr = radius[todo].astype(np.float32)
+            sq = np.stack([ctr[:, 0] - rr, ctr[:, 1] - rr,
+                           ctr[:, 2] + rr, ctr[:, 3] + rr], axis=1)
+            sq_t = torch.as_tensor(sq).to(dev)
+            ctr_t = torch.as_tensor(ctr).to(dev)
+            rr_t = torch.as_tensor(rr).to(dev)
+            probes[todo] += 1
+            # tier 1: ONE fixed-budget dispatch for every undone point; a
+            # fat row (a square that swallowed a dense core) signals a
+            # negative count and re-dispatches below on its own
+            c1 = ladder.cap
+            ub = b0 if ladder.two_stage(b0) else 0
+            hits, ch = eng.batch_query(
+                snap, sq_t, pods, relation="intersects", cap=c1,
+                exact_budget=ub, compaction=ladder.compaction)
+            st.dispatches += 3 if ub else 2
+            ch = ch.cpu().numpy()
+            good = ch >= 0
+            idk, dk, within = (t.cpu().numpy() for t in batch_knn_rank(
+                ctr_t, pods, hits, rr_t, k, impl))
+            st.dispatches += 1
+            fat = np.nonzero(~good)[0]
+            if fat.size:
+                # tier 2: only the overflowed rows walk the ladder, with a
+                # budget right-sized from THIS rung's survivor counts
+                need = int((-ch[fat] - 1).max())
+                t = 1 << max(need - 1, b0 - 1, 1).bit_length()
+                ladder.budget = (t if t <= ladder.max_budget
+                                 and ladder.two_stage(t) else 0)
+                fat_t = torch.as_tensor(fat).to(dev)
+                try:
+                    fhits = _knn_refine(idx, eng, snap, pods, sq_t[fat_t],
+                                        ladder, st)
+                except OverflowError:
+                    # a straggler's run outgrew max_cap: the host loop has
+                    # no cap — finish the stragglers there
+                    st.note = ("straggler radius outgrew max_cap: "
+                               "host fallback")
+                    with idx._lock:
+                        for i in todo[fat]:
+                            hi, hd = _host_knn(idx.glin, pts[int(i)], k)
+                            out_ids[int(i)] = np.asarray(hi, np.int64)
+                            out_d[int(i)] = np.asarray(hd)
+                    done[todo[fat]] = True
+                else:
+                    fidk, fdk, fwit = batch_knn_rank(
+                        ctr_t[fat_t], pods, fhits, rr_t[fat_t], k, impl)
+                    st.dispatches += 1
+                    idk[fat] = fidk.cpu().numpy()
+                    dk[fat] = fdk.cpu().numpy()
+                    within[fat] = fwit.cpu().numpy()
+                    good[fat] = True
+            settle = good & ((within >= k) | (within >= n_live))
+            for j in np.nonzero(settle)[0]:
+                i = int(todo[j])
+                keep = idk[j] >= 0
+                out_ids[i] = idk[j][keep].astype(np.int64)
+                out_d[i] = dk[j][keep].astype(np.float64)
+            done[todo[settle]] = True
+            # rows finished on the host above are done too: they take no
+            # radius growth (their `within` may exceed k — the reference
+            # indexes `dk` with it here and fails, fault F6)
+            und = np.nonzero(~done[todo])[0]
+            if und.size:
+                # count-informed growth: an undone row holds the exact
+                # distances of its `within` (< k) nearest, so the 2D density
+                # scaling d_within * sqrt(k / within) estimates the k-th
+                # neighbour radius; clamped to [2r, 4r] (an empty row, still
+                # crossing empty space toward the data, takes 4r)
+                ru = radius[todo[und]]
+                cnt = within[und].astype(np.float64)
+                dlast = dk[und, np.maximum(within[und] - 1, 0)]
+                est = np.where(
+                    cnt > 0,
+                    dlast.astype(np.float64)
+                    * np.sqrt(k / np.maximum(cnt, 1.0)),
+                    np.inf)
+                radius[todo[und]] = np.maximum(
+                    2.0 * ru, np.minimum(est, 4.0 * ru))
+        else:
+            raise RuntimeError("knn did not converge")
+        st.survivors = _total(out_ids)
+        st.escalations = ladder.escalations
+        st.cap, st.budget = ladder.cap, ladder.use_budget
+        maxp = int(probes.max())
+        st.rungs = maxp
+        st.rung_hist = tuple(int((probes == i).sum())
+                             for i in range(1, maxp + 1))
+        st.seed_hits = int((probes == 1).sum())
+
+
+def _knn_refine(idx, eng, snap, pods, wt, ladder, st):
+    """One knn rung's fat rows through the staged device refine under the
+    shared overflow ladder — ``_staged_attempt``'s retry contract, so the
+    compact kernel's overflow is read as capless (no bounds probe that a
+    run past ``max_cap`` would fail). The hit matrix stays on the device
+    for ``batch_knn_rank``; only the overflow counts cross to the host."""
+    while True:
+        hits = _staged_attempt(idx, eng, snap, wt, pods, "intersects",
+                               ladder, st)
+        if hits is not None:
+            _DeviceStage._settle(idx, ladder)
+            return hits
+
+
 # ------------------------------------------------------------- execution plan
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
@@ -457,9 +731,12 @@ def compile_plan(plan) -> ExecutionPlan:
     shared complement-finish implementation; it stays compiled in and
     no-ops with ``skipped=True`` for a non-complement relation, so the
     pipeline shape is static per backend."""
-    if plan.kind != "window":
-        raise NotImplementedError(f"{plan.kind!r} queries are not ported "
-                                  "yet (the kNN slice)")
+    if plan.kind == "knn":
+        if plan.backend == "device":
+            return ExecutionPlan("device", (KnnDeviceStage(),))
+        if plan.backend == "host":
+            return ExecutionPlan("host", (KnnHostStage(),))
+        raise ValueError(f"unknown knn backend {plan.backend!r}")
     if plan.backend == "host":
         return ExecutionPlan("host", (HostRefineStage(),
                                       ComplementFinishStage()))

@@ -64,7 +64,7 @@ __all__ = [
     "ragged_padded",
     "PRED_INTERSECTS", "PRED_CONTAINS", "PRED_COVERS", "PRED_WITHIN",
     "PRED_TOUCHES", "PRED_CROSSES", "PRED_DWITHIN",
-    "device_predicate", "exact_over_pods",
+    "device_predicate", "map_over_pods",
 ]
 
 
@@ -856,24 +856,24 @@ def device_predicate(code: int, dist: float = 0.0):
 _EXACT_CHUNK_ELEMS = 1 << 22
 
 
-def exact_over_pods(pred, windows, pool, off, nv, kd, bucket, rec, sel):
-    """Exact predicate over gathered records ``rec`` (Q, M) -> (Q, M) bool.
+def map_over_pods(fn, windows, pool, off, nv, kd, bucket, rec, sel, fill):
+    """``fn(rect, verts, nverts, kinds)`` — an exact predicate or distance —
+    over gathered records ``rec`` (Q, M) -> (Q, M), ``fill`` on unselected
+    lanes (every caller masks them anyway).
 
-    Evaluates the selected lanes only (unselected lanes come back False;
-    every caller masks them anyway), gathering each record's vertex pod at
+    Evaluates the selected lanes only, gathering each record's vertex pod at
     the widest pow2 bucket among the selected lanes of the whole batch —
     the reference's width ladder picks the same branch — padded with the
     last valid vertex. Lanes run in chunks, so memory stays bounded even
     over a dense (Q, cap) candidate block."""
-    out = torch.zeros(rec.shape, dtype=torch.bool, device=rec.device)
     rows, cols = sel.nonzero(as_tuple=True)
     if rows.numel() == 0:
-        return out
+        return torch.full(rec.shape, fill, device=rec.device)
     r = rec[rows, cols]
     o, n, k = off[r], nv[r], kd[r]
     width = 1 << int(bucket[r].max())
     lane = torch.arange(width, dtype=torch.int64, device=rec.device)
-    res = torch.empty(r.shape[0], dtype=torch.bool, device=rec.device)
+    parts = []
     step = max(1, _EXACT_CHUNK_ELEMS // width)
     for i in range(0, r.shape[0], step):
         nn = n[i:i + step, None]
@@ -881,7 +881,9 @@ def exact_over_pods(pred, windows, pool, off, nv, kd, bucket, rec, sel):
             o[i:i + step, None, None].to(torch.int64)
             + torch.minimum(lane, nn[..., None].to(torch.int64) - 1),
             0, pool.shape[0] - 1)
-        res[i:i + step] = pred(windows[rows[i:i + step]], pool[idx], nn,
-                               k[i:i + step, None])[:, 0]
+        parts.append(fn(windows[rows[i:i + step]], pool[idx], nn,
+                        k[i:i + step, None])[:, 0])
+    res = torch.cat(parts)
+    out = torch.full(rec.shape, fill, dtype=res.dtype, device=rec.device)
     out[rows, cols] = res
     return out

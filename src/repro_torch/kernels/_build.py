@@ -1,11 +1,14 @@
 """Build and bind the CUDA kernels of ``kernels/csrc``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, which ``ctypes`` loads. The library lands in
-``build/repro_torch_kernels/`` at the repository root, named by a hash of the
-sources and the flags, so one process builds at most once and an edited
-source never loads a stale library. Nothing here runs at import time: the
-CPU-only tests import every module and never build.
+At first use, ``nvcc`` compiles each ``csrc/*.cu`` into an object file, one
+process per source, all started together, and links them into one shared
+library with a plain C interface, which ``ctypes`` loads. The library lands
+in ``build/repro_torch_kernels/`` at the repository root, named by a hash of
+the sources and the flags, so one process builds at most once and an edited
+source never loads a stale library. Each source's own nvcc time lands in
+:data:`source_seconds` (their sum is what one serial nvcc over all sources
+takes; the parallel build takes about the longest). Nothing here runs at
+import time: the CPU-only tests import every module and never build.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``--fmad=false``
 (no multiply-add contraction: the kernels' fp32 arithmetic rounds as the
@@ -21,14 +24,14 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
-              "-fPIC")
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,12 +41,16 @@ _SIGNATURES = {
     "glin_refine_count": [_P, _P, _P, _P, _I, _I, _P],
     "glin_refine_compact": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "glin_refine_fused": [_P] * 17 + [_I] * 9 + [_F, _I, _I, _I, _P],
+    "glin_refine_mask": [_P, _P, _P, _P, _I, _I, _P],
+    "glin_knn_topk": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "glin_morton_encode": [_P, _P, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""            # nvcc's output of this process's build, if any
 build_seconds = 0.0       # wall time of that build (0 when loaded cached)
+source_seconds = {}       # each source's own nvcc wall time in that build
 
 
 def _nvcc() -> str:
@@ -71,30 +78,58 @@ def library_path() -> Path:
     for f in cu + cuh:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"librefine_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libglin_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmd) -> tuple:
+    """One nvcc process -> (its result, its own wall seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    return r, time.perf_counter() - t0
+
+
+def _compile(out: Path) -> None:
+    """nvcc each source to an object, all at once, then link ``out``."""
+    global build_log, build_seconds, source_seconds
+    cu, _ = sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for src, o in zip(cu, objs)]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            done = list(pool.map(_run, cmds))
+        source_seconds = {src.name: sec for src, (_, sec) in zip(cu, done)}
+        if not any(r.returncode for r, _ in done):
+            cmds.append(link)
+            done.append(_run(link))
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = "".join(r.stdout + r.stderr for r, _ in done)
+    failed = [f"nvcc failed ({r.returncode}): {' '.join(cmd)}"
+              for cmd, (r, _) in zip(cmds, done) if r.returncode]
+    if failed:
+        raise RuntimeError("\n".join(failed) + "\n" + build_log)
+    os.replace(tmp, out)
 
 
 def load() -> ctypes.CDLL:
     """The kernel library, compiled on first use (raises with nvcc's output
     when the build fails)."""
-    global _lib, build_log, build_seconds
+    global _lib
     with _lock:
         if _lib is not None:
             return _lib
         out = library_path()
         if not out.exists():
-            cu, _ = sources()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            build_seconds = time.perf_counter() - t0
-            build_log = r.stdout + r.stderr
-            if r.returncode:
-                raise RuntimeError(f"nvcc failed ({r.returncode}): "
-                                   f"{' '.join(cmd)}\n{build_log}")
-            os.replace(tmp, out)
+            _compile(out)
         lib = ctypes.CDLL(str(out))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,15 +1,21 @@
-// GLIN refine kernels for Hopper (sm_90a): count, compact and fused.
+// GLIN refine kernels for Hopper (sm_90a): count, compact, fused and mask.
 //
-// All three are per-query walks over the query's own slot run [start, end)
-// of the Z-sorted record table, one thread block per query. The reference
-// TPU kernels (repro/kernels/refine.py) sweep the WHOLE slot table for every
-// query tile and mask slots outside the run, and build a one-hot
-// (rows, slots, budget) scatter because the TPU vector unit has no scatter.
-// Here each block reads only its run and places survivors with a block-wide
-// exclusive prefix sum (warp ballot + popcount, then per-warp offsets in
-// shared memory). The survivor set, its ascending slot order and the total
-// count are the same, because the reference's in-run test zeroes every slot
-// outside the run.
+// Count, compact and fused are per-query walks over the query's own slot
+// run [start, end) of the Z-sorted record table, one thread block per query.
+// The reference TPU kernels (repro/kernels/refine.py) sweep the WHOLE slot
+// table for every query tile and mask slots outside the run, and build a
+// one-hot (rows, slots, budget) scatter because the TPU vector unit has no
+// scatter. Here each block reads only its run and places survivors with a
+// block-wide exclusive prefix sum (warp ballot + popcount, then per-warp
+// offsets in shared memory). The survivor set, its ascending slot order and
+// the total count are the same, because the reference's in-run test zeroes
+// every slot outside the run. The compact kernel writes its survivors
+// straight to device memory, so its budget has no bound of its own; the
+// fused kernel keeps them in shared memory (kMaxBudget).
+//
+// The mask kernel (the kernel-level ops entry point) writes the whole
+// (Q, N) int8 mask, as refine_mask_pallas did: it is bound by those Q * N
+// output bytes.
 //
 // Bound: bytes. The work is fp32 compares on 16-byte MBR rows, one pass over
 // each run (count: the record MBR; compact/fused: leaf + record MBR), plus,
@@ -97,6 +103,27 @@ count_kernel(const float4* __restrict__ win, const int2* __restrict__ bounds,
   for (int s = lo + threadIdx.x; s < hi; s += kThreads) c += mbr_meets(mbrs[s], w);
   const int total = block_sum(c, warp_sums);
   if (threadIdx.x == 0) out[q] = total;
+}
+
+// ------------------------------------------------------------------ mask
+// The (Q, N) int8 candidate mask: slot in [start, end) AND record MBR meets
+// the window. Blocks tile the slots along x and a group of kMaskRows query
+// rows along y: each thread reads its slot's MBR once and writes one byte
+// per row, neighbouring threads on neighbouring bytes.
+constexpr int kMaskRows = 16;
+
+__global__ void __launch_bounds__(kThreads)
+mask_kernel(const float4* __restrict__ win, const int2* __restrict__ bounds,
+            const float4* __restrict__ mbrs, int8_t* __restrict__ out, int q, int n) {
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= n) return;
+  const float4 m = mbrs[s];
+  const int r1 = min(q, (static_cast<int>(blockIdx.y) + 1) * kMaskRows);
+  for (int r = blockIdx.y * kMaskRows; r < r1; ++r) {
+    const int2 b = bounds[r];
+    out[static_cast<int64_t>(r) * n + s] =
+        static_cast<int8_t>(s >= b.x && s < b.y && mbr_meets(m, win[r]));
+  }
 }
 
 // ------------------------------------------------------------------ compact
@@ -295,6 +322,17 @@ int glin_refine_count(const void* windows, const void* bounds, const void* mbrs,
   count_kernel<<<q, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(windows), static_cast<const int2*>(bounds),
       static_cast<const float4*>(mbrs), static_cast<int*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int glin_refine_mask(const void* windows, const void* bounds, const void* mbrs,
+                     void* out, int q, int n, void* stream) {
+  if (q < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kThreads - 1) / kThreads, (q + kMaskRows - 1) / kMaskRows);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  mask_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(windows), static_cast<const int2*>(bounds),
+      static_cast<const float4*>(mbrs), static_cast<int8_t*>(out), q, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,57 @@
+"""The kernel-level entry point: one function per GLIN kernel.
+
+The port's counterpart of the reference's ``repro.kernels.ops``. Each
+function takes ``use_kernel`` (the reference's ``use_pallas``): with it, a
+CUDA tensor launches the hand-written kernel and a CPU tensor takes the
+kernel's plain version, as the wrappers do; without it, the plain version
+runs on any device. Every function accepts any Q, N and B.
+"""
+from __future__ import annotations
+
+from . import knn, morton, refine
+
+__all__ = ["morton_encode", "refine_mask", "refine_count", "refine_compact",
+           "knn_topk"]
+
+
+def morton_encode(qx, qy, use_kernel: bool = True):
+    """(N,) int32 30-bit coordinates -> (hi, lo) int32 limbs."""
+    if not use_kernel:
+        return morton.morton_encode_plain(qx, qy)
+    return morton.morton_encode(qx, qy)
+
+
+def refine_mask(windows, bounds, mbrs, use_kernel: bool = True):
+    """(Q,4) f32, (Q,2) i32, (N,4) f32 -> (Q,N) int8 candidate mask."""
+    if not use_kernel:
+        return refine.refine_mask_plain(windows, bounds, mbrs)
+    return refine.refine_mask(windows, bounds, mbrs)
+
+
+def refine_count(windows, bounds, mbrs, use_kernel: bool = True):
+    """(Q,4) f32, (Q,2) i32, (N,4) f32 -> (Q,) int32 candidate counts."""
+    if not use_kernel:
+        return refine.refine_count_plain(windows, bounds, mbrs)
+    return refine.refine_count(windows, bounds, mbrs)
+
+
+def refine_compact(windows, bounds, leaf_mbrs, rec_mbrs, *, budget: int,
+                   prefilter: str = "intersects", use_kernel: bool = True):
+    """Mask + compaction: (Q,4) probe windows, (Q,2) i32 slot runs,
+    slot-aligned (N,4) leaf/record MBR tables -> (slots (Q, budget) i32
+    [-1 padded], counts (Q,) i32 total survivors; ``counts > budget``
+    signals truncation)."""
+    if not use_kernel:
+        return refine.refine_compact_plain(windows, bounds, leaf_mbrs,
+                                           rec_mbrs, budget, prefilter)
+    return refine.refine_compact(windows, bounds, leaf_mbrs, rec_mbrs,
+                                 budget=budget, prefilter=prefilter)
+
+
+def knn_topk(d, ids, *, k: int, use_kernel: bool = True):
+    """Top-k by ascending (distance, id): d (Q, B) f32 [+inf = dead lane],
+    ids (Q, B) i32 -> ((Q, k) f32, (Q, k) i32); columns past B are
+    ``(+inf, INT32_MAX)``."""
+    if not use_kernel:
+        return knn.knn_topk_plain(d, ids, k)
+    return knn.knn_topk(d, ids, k)

@@ -1,6 +1,6 @@
-"""GLIN refine kernels for Hopper: count, compact and fused.
+"""GLIN refine kernels for Hopper: count, compact, fused and mask.
 
-Three wrappers, each over a CUDA C++ kernel of ``csrc/refine.cu`` (sm_90a)
+Four wrappers, each over a CUDA C++ kernel of ``csrc/refine.cu`` (sm_90a)
 and with its plain torch version beside it:
 
 * :func:`refine_count`   — per query, the count of slots in its run whose
@@ -11,6 +11,8 @@ and with its plain torch version beside it:
 * :func:`refine_fused`   — the whole query in one launch: learned-index probe,
   the compact stage, and the relation's exact predicate over the survivors'
   vertex pods (the engine's default refine on a card).
+* :func:`refine_mask`    — the whole (Q, N) int8 candidate mask (the
+  kernel-level ``ops`` entry point; no core path uses it).
 
 A CUDA tensor always takes the kernel; a CPU tensor always takes the plain
 version (the CPU tests reach the wrappers' layout code that way). Each
@@ -33,13 +35,15 @@ import torch
 from ..core import geometry as geom
 
 __all__ = ["MAX_COMPACT_BUDGET", "refine_count", "refine_compact",
-           "refine_fused", "refine_count_plain", "refine_compact_plain",
-           "refine_fused_plain", "compact_plain", "fused_probe_plain"]
+           "refine_fused", "refine_mask", "refine_count_plain",
+           "refine_compact_plain", "refine_fused_plain", "refine_mask_plain",
+           "compact_plain", "fused_probe_plain"]
 
 # The reference package's budget bound (there, its TPU scatter block had to
-# fit fast memory). Kept so both packages plan the same stages; it is not a
-# limit of this card — the fused kernel's survivor list at this bound takes
-# 4 KB of shared memory.
+# fit fast memory). Kept for the fused kernel and the window ladder so both
+# packages plan the same stages; it is not a limit of this card — the fused
+# kernel's survivor list at this bound takes 4 KB of shared memory, and the
+# compact kernel takes any budget.
 MAX_COMPACT_BUDGET = 1024
 PREFILTERS = ("intersects", "contains")
 # query rows x slots per chunk of a whole-table mask (16M elements: ~64 MB
@@ -93,19 +97,62 @@ def _chunk(n: int) -> int:
     return max(1, MASK_CHUNK_ELEMS // max(int(n), 1))
 
 
-# ---------------------------------------------------------------- count
-def refine_count_plain(windows, bounds, mbrs):
-    """(Q,) int32: slots in [start, end) whose record MBR meets the window
-    (``repro.kernels.ref.refine_count_ref``, in query chunks)."""
+# ---------------------------------------------------------------- mask
+def _mask_chunks(windows, bounds, mbrs):
+    """Yield ``(row0, (chunk, N) bool)``: slot in [start, end) and record
+    MBR meets the window (``repro.kernels.ref.refine_mask_ref``), in query
+    chunks of :data:`MASK_CHUNK_ELEMS` elements."""
     q, n = windows.shape[0], mbrs.shape[0]
-    out = torch.zeros(q, dtype=_I32, device=windows.device)
     slot = torch.arange(n, dtype=_I32, device=windows.device)
     step = _chunk(n)
     for i in range(0, q, step):
         b = bounds[i:i + step]
         inter = geom.mbr_intersects(mbrs[None], windows[i:i + step, None, :])
-        in_run = (slot >= b[:, 0:1]) & (slot < b[:, 1:2])
-        out[i:i + step] = (inter & in_run).sum(dim=1, dtype=_I32)
+        yield i, inter & (slot >= b[:, 0:1]) & (slot < b[:, 1:2])
+
+
+def refine_mask_plain(windows, bounds, mbrs):
+    """(Q, N) int8 candidate mask in tensor code."""
+    out = torch.empty((windows.shape[0], mbrs.shape[0]), dtype=torch.int8,
+                      device=windows.device)
+    for i, m in _mask_chunks(windows, bounds, mbrs):
+        out[i:i + m.shape[0]] = m.to(torch.int8)
+    return out
+
+
+def refine_mask(windows, bounds, mbrs):
+    """windows (Q,4) f32, bounds (Q,2) i32 slot runs, mbrs (N,4) f32
+    slot-aligned record MBRs -> (Q, N) int8: 1 where the slot lies in the
+    query's run and its MBR meets the window.
+
+    Replaces ``refine_mask_pallas`` (repro/kernels/refine.py). Bound on this
+    card: bytes — the (Q, N) mask written, the MBR table read. Each thread
+    reads one slot's MBR once and writes its byte of 16 query rows.
+    """
+    if not _route(windows, bounds, mbrs):
+        return refine_mask_plain(windows, bounds, mbrs)
+    q, n = windows.shape[0], mbrs.shape[0]
+    _check("windows", windows, _F32, (q, 4))
+    _check("bounds", bounds, _I32, (q, 2))
+    _check("mbrs", mbrs, _F32, (n, 4))
+    out = torch.empty((q, n), dtype=torch.int8, device=windows.device)
+    if q and n:
+        _launch("glin_refine_mask", windows.device, windows, bounds, mbrs,
+                out, q, n)
+        refine_mask.launches += 1
+    return out
+
+
+refine_mask.launches = 0
+
+
+# ---------------------------------------------------------------- count
+def refine_count_plain(windows, bounds, mbrs):
+    """(Q,) int32: slots in [start, end) whose record MBR meets the window
+    (``repro.kernels.ref.refine_count_ref``, in query chunks)."""
+    out = torch.zeros(windows.shape[0], dtype=_I32, device=windows.device)
+    for i, m in _mask_chunks(windows, bounds, mbrs):
+        out[i:i + m.shape[0]] = m.sum(dim=1, dtype=_I32)
     return out
 
 
@@ -188,13 +235,14 @@ def refine_compact(windows, bounds, leaf_mbrs, rec_mbrs, *, budget: int,
     read once, plus the (Q, budget) slot list written. One block per query
     walks its run in 256-slot chunks; survivors take their column from a
     block-wide exclusive prefix sum (warp ballot + popcount) and are stored
-    directly, in place of the reference's one-hot scatter.
+    directly, in place of the reference's one-hot scatter — so, unlike the
+    fused kernel, any positive budget works (the kNN ladder grows it up to
+    ``EngineConfig.max_cap``).
     """
     if prefilter not in PREFILTERS:
         raise ValueError(f"unsupported prefilter {prefilter!r}")
-    if not 0 < budget <= MAX_COMPACT_BUDGET:
-        raise ValueError(f"budget {budget} outside (0, MAX_COMPACT_BUDGET="
-                         f"{MAX_COMPACT_BUDGET}]: use compaction='scan'")
+    if budget < 1:
+        raise ValueError(f"budget {budget} must be positive")
     if not _route(windows, bounds, leaf_mbrs, rec_mbrs):
         return refine_compact_plain(windows, bounds, leaf_mbrs, rec_mbrs,
                                     budget, prefilter)
@@ -263,9 +311,9 @@ def refine_fused_plain(windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f,
                                  budget, prefilter)
     taken = slots >= 0
     rec = torch.where(taken, recs[:, 0][torch.clamp(slots, min=0)], 0)
-    ok = geom.exact_over_pods(geom.device_predicate(code, dist), windows,
-                              pool, pod_i[:, 0], pod_i[:, 1], pod_i[:, 2],
-                              pod_i[:, 3], rec, taken)
+    ok = geom.map_over_pods(geom.device_predicate(code, dist), windows,
+                            pool, pod_i[:, 0], pod_i[:, 1], pod_i[:, 2],
+                            pod_i[:, 3], rec, taken, False)
     fmask = taken & ok
     hits = torch.where(fmask, rec, -1)
     counts = torch.where(total > budget, -total - 1,

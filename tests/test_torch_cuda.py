@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: each against its plain version on the same
-inputs, and the facade's kernel paths against its host path.
+inputs, and the facade's kernel paths (window queries and kNN) against its
+host path.
 
 Every test here is marked ``gpu`` and skips without a card (decided inside
 the ``cuda`` fixture). The file imports only the port, so it needs nothing
@@ -18,6 +19,8 @@ from repro_torch.core.engine import EngineConfig, QueryBatch, SpatialIndex
 from repro_torch.core.geometry import mbrs_of_verts
 from repro_torch.core.index import GLINConfig
 from repro_torch.core.relations import get_relation
+from repro_torch.kernels import knn as kk
+from repro_torch.kernels import morton as km
 from repro_torch.kernels import refine as kr
 
 RELATIONS = ("intersects", "contains", "covers", "within", "touches",
@@ -110,3 +113,126 @@ def test_facade_kernel_paths_match_host(store, cuda, relation):
                                                backend="host"))
         for a, b in zip(res, host):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_compact_kernel_past_the_fused_budget(store, cuda):
+    """Budgets past MAX_COMPACT_BUDGET (the kNN ladder's fat rows)."""
+    gs, wins = store
+    s = _index(gs, cuda).snapshot()
+    w = torch.from_numpy(wins).to(cuda)
+    start, end = tdev.batch_query_bounds(s, w, "intersects")
+    bounds = torch.stack([start, end], 1)
+    for budget in (kr.MAX_COMPACT_BUDGET + 1, 4096):
+        n0 = kr.refine_compact.launches
+        a = kr.refine_compact(w, bounds, s.slot_lmbr, s.slot_rmbr,
+                              budget=budget)
+        assert kr.refine_compact.launches == n0 + 1
+        b = kr.refine_compact_plain(w, bounds, s.slot_lmbr, s.slot_rmbr,
+                                    budget, "intersects")
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _topk_inputs(q, b, seed, cuda):
+    """Distance ties, duplicate (d, id) pairs, +inf tails, an all-+inf row,
+    zeros of both signs."""
+    g = np.random.default_rng(seed)
+    d = g.choice(np.float32([0.0, -0.0, 0.25, 0.5, 1.0, 2.0, 3.5]),
+                 (q, b)).astype(np.float32)
+    d[g.random((q, b)) < 0.3] = np.inf
+    ids = g.integers(0, 50, (q, b)).astype(np.int32)
+    ids[d == np.inf] = kk.ID_PAD
+    d[0], ids[0] = np.inf, kk.ID_PAD
+    if b >= 4:
+        d[1, :4], ids[1, :4] = 0.5, 7
+    if q > 2:
+        d[2] = g.random(b).astype(np.float32)
+    return torch.from_numpy(d).to(cuda), torch.from_numpy(ids).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,b,k", [(5, 37, 5), (1024, 256, 10),
+                                   (4, 130, 150), (3, 1, 4),
+                                   (8, 4096, 100), (3, 1 << 20, 10)])
+def test_knn_topk_kernel_matches_plain(cuda, q, b, k):
+    d, ids = _topk_inputs(q, b, q * 7 + b, cuda)
+    n0 = kk.knn_topk.launches
+    a = kk.knn_topk(d, ids, k)
+    assert kk.knn_topk.launches == n0 + 1
+    p = kk.knn_topk_plain(d, ids, k)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], p[0]) and torch.equal(a[1], p[1])
+
+
+@pytest.mark.gpu
+def test_morton_kernel_matches_plain(cuda):
+    g = np.random.default_rng(3)
+    lim = (1 << 30) - 1
+    qx = torch.from_numpy(np.concatenate(
+        [[0, lim, (1 << 15) - 1, 1 << 15],
+         g.integers(0, lim + 1, 1_000_003)]).astype(np.int32)).to(cuda)
+    qy = torch.from_numpy(np.concatenate(
+        [[lim, 0, 1 << 15, (1 << 15) - 1],
+         g.integers(0, lim + 1, 1_000_003)]).astype(np.int32)).to(cuda)
+    n0 = km.morton_encode.launches
+    a = km.morton_encode(qx, qy)
+    assert km.morton_encode.launches == n0 + 1
+    p = km.morton_encode_plain(qx, qy)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], p[0]) and torch.equal(a[1], p[1])
+
+
+@pytest.mark.gpu
+def test_mask_kernel_matches_plain(store, cuda):
+    gs, wins = store
+    s = _index(gs, cuda).snapshot()
+    w = torch.from_numpy(wins).to(cuda)
+    start, end = tdev.batch_query_bounds(s, w, "intersects")
+    bounds = torch.stack([start, end], 1)
+    bounds[0] = bounds[0].flip(0)          # an inverted run
+    n0 = kr.refine_mask.launches
+    a = kr.refine_mask(w, bounds, s.slot_rmbr)
+    assert kr.refine_mask.launches == n0 + 1
+    p = kr.refine_mask_plain(w, bounds, s.slot_rmbr)
+    torch.cuda.synchronize()
+    assert torch.equal(a, p) and a.any()
+    assert torch.equal(a.sum(1, dtype=torch.int32),
+                       kr.refine_count(w, bounds, s.slot_rmbr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 3500])
+def test_knn_facade_kernel_matches_sort_and_host(store, cuda, k):
+    """kNN through the facade: the top-k kernel and the compact kernel (the
+    default on a card) against the plain sort and the fp64 host ladder; the
+    exact budget 16 sends fat rows up the ladder, k=3500 exceeds the live
+    records."""
+    gs, _ = store
+    pts = np.random.default_rng(9).uniform(0.15, 0.85, (40, 2))
+    pts = pts.astype(np.float32).astype(np.float64)
+    res = {}
+    for topk in ("kernel", "sort"):
+        idx = _index(gs, cuda, exact_budget=16, knn_topk=topk)
+        n0 = (kk.knn_topk.launches, kr.refine_compact.launches)
+        res[topk] = idx.query(QueryBatch.knn(pts, k))
+        assert res[topk].plan.backend == "device"
+        launched = (kk.knn_topk.launches > n0[0],
+                    kr.refine_compact.launches > n0[1])
+        assert launched == (topk == "kernel", True)
+    host = idx.query(QueryBatch.knn(pts, k, backend="host"))
+    for i in range(len(pts)):
+        np.testing.assert_array_equal(res["kernel"].ids[i],
+                                      res["sort"].ids[i])
+        np.testing.assert_array_equal(res["kernel"].distances[i],
+                                      res["sort"].distances[i])
+        got = res["kernel"].ids[i]
+        if k > len(gs):
+            # every record, ranked: far records whose fp64 distances differ
+            # by less than fp32 rounding tie on the card (and order by id)
+            got, want = np.sort(got), np.sort(host.ids[i])
+        else:
+            want = host.ids[i]
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_allclose(res["kernel"].distances[i],
+                                   host.distances[i], rtol=1e-4, atol=1e-7)

@@ -171,8 +171,11 @@ def test_plan_backends_and_reasons_match_reference():
     assert a.reason.endswith(tail) and b.reason.endswith(tail)
     with pytest.raises(ValueError, match="backend"):
         idx.plan(QueryBatch.window(w8, "intersects", backend="sharded"))
-    with pytest.raises(NotImplementedError, match="kNN"):
-        QueryBatch.knn([[0.5, 0.5]], k=3)
+    from repro.core.engine import QueryBatch as RBatch   # kNN plans too
+    a = idx.plan(QueryBatch.knn([[0.5, 0.5]], k=3))
+    b = ref.plan(RBatch.knn([[0.5, 0.5]], k=3))
+    assert (a.kind, a.backend, a.reason) == (b.kind, b.backend, b.reason)
+    assert a.backend == "host"              # one point < knn_device_min_batch
 
 
 def test_first_publish_reason_matches_reference():

@@ -1,12 +1,15 @@
-"""The refine kernels' wrappers and plain versions.
+"""The kernels' wrappers and plain versions, and the ``ops`` entry point.
 
 On the CPU a wrapper takes its plain version (the kernel's arithmetic in
-tensor code), which must equal the reference package's XLA oracles bit for
+tensor code), which must equal the reference package's functions bit for
 bit: ``kernels.ref.refine_count_ref`` / ``refine_compact_ref`` for count and
-compact (both prefilters, empty and inverted runs, odd budgets), and
-``batch_query_fused(mode="reference")`` for the fused query over the seven
-relation forms. (``test_torch_cuda.py`` holds each CUDA kernel against its
-plain version on the card.)
+compact (both prefilters, empty and inverted runs, odd budgets, a budget
+past the fused kernel's bound), ``batch_query_fused(mode="reference")`` for
+the fused query over the seven relation forms, the two-key sort
+(``ops.knn_topk(use_pallas=False)``) for the kNN top-k, and the Pallas
+kernels in interpret mode for ``morton_encode`` and ``refine_mask``.
+(``test_torch_cuda.py`` holds each CUDA kernel against its plain version on
+the card.)
 """
 import ast
 import pathlib
@@ -27,10 +30,14 @@ from repro.core.engine import EngineConfig as REngineConfig  # noqa: E402
 from repro.core.engine import SpatialIndex as RIndex  # noqa: E402
 from repro.core.index import GLIN as RGLIN  # noqa: E402
 from repro.core.index import GLINConfig as RGLINConfig  # noqa: E402
+from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels import ref as rref  # noqa: E402
 from repro_torch.core import device as tdev  # noqa: E402
 from repro_torch.core import geometry as tgeom  # noqa: E402
 from repro_torch.core import relations as trel  # noqa: E402
+from repro_torch.kernels import knn as kk  # noqa: E402
+from repro_torch.kernels import morton as km  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import refine as kr  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -156,8 +163,13 @@ def test_wrapper_validation(world):
     ts = world["ts"]
     w, b = _t(world["wins"]), _t(world["bounds"])
     with pytest.raises(ValueError, match="budget"):
-        kr.refine_compact(w, b, ts.slot_lmbr, ts.slot_rmbr,
-                          budget=kr.MAX_COMPACT_BUDGET + 1)
+        kr.refine_compact(w, b, ts.slot_lmbr, ts.slot_rmbr, budget=0)
+    with pytest.raises(ValueError, match="budget"):
+        kr.refine_fused(*(w,) * 15, budget=kr.MAX_COMPACT_BUDGET + 1,
+                        prefilter="intersects", code=0, augment=False,
+                        search_steps=1, depth=1)
+    with pytest.raises(ValueError, match="k must"):
+        kk.knn_topk(w, b, 0)
     with pytest.raises(ValueError, match="prefilter"):
         kr.refine_compact(w, b, ts.slot_lmbr, ts.slot_rmbr, budget=8,
                           prefilter="custom")
@@ -191,7 +203,10 @@ def test_port_imports_no_jax_and_no_reference():
     """No file of the port, nor chip_smoke.py, imports jax or repro."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/kernels/knn.py",
+            "src/repro_torch/kernels/morton.py",
+            "src/repro_torch/kernels/ops.py"} <= names
     for f in files:
         tree = ast.parse(f.read_text(), str(f))
         for node in ast.walk(tree):
@@ -211,3 +226,134 @@ def test_device_predicate_codes_cover_relations():
         assert tgeom.device_predicate(rel.code, rel.dist) is not None
     with pytest.raises(ValueError, match="code"):
         tgeom.device_predicate(99)
+
+
+# --------------------------------------------- budgets past the fused bound --
+def test_refine_compact_budget_past_fused_bound(world):
+    """The compact kernel takes budgets past MAX_COMPACT_BUDGET (the kNN
+    ladder grows them up to max_cap); the engine routes them to it."""
+    rs, ts = world["rs"], world["ts"]
+    ws, wb = world["wins"], world["bounds"]
+    budget = 4096
+    want_s, want_c = rref.refine_compact_ref(
+        jnp.asarray(ws), jnp.asarray(wb), rs.slot_lmbr, rs.slot_rmbr,
+        budget, "intersects")
+    got_s, got_c = kr.refine_compact(_t(ws), _t(wb), ts.slot_lmbr,
+                                     ts.slot_rmbr, budget=budget)
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    from repro_torch.core import SpatialIndex
+    from repro_torch.core.engine import EngineConfig
+    idx = SpatialIndex.build(world["gs"], config=EngineConfig(
+        compaction="kernel"), device="cpu")
+    assert idx._compaction("intersects") == "kernel"
+    assert idx._fusion_mode("intersects", budget) is None
+
+
+# ------------------------------------------------------------ knn top-k --
+def _topk_inputs(q, b, seed):
+    """Rows with distance ties, duplicate (d, id) pairs, +inf tails, an
+    all-+inf row, zeros of both signs, and ids in random order."""
+    rng = np.random.default_rng(seed)
+    d = rng.choice(np.float32([0.0, -0.0, 0.25, 0.5, 1.0, 2.0, 3.5]),
+                   (q, b)).astype(np.float32)
+    d[rng.random((q, b)) < 0.3] = np.inf
+    ids = rng.integers(0, 50, (q, b)).astype(np.int32)
+    ids[d == np.inf] = kk.ID_PAD
+    d[0] = np.inf
+    ids[0] = kk.ID_PAD
+    d[1, :4] = 0.5
+    ids[1, :4] = 7                       # four identical pairs
+    if q > 2:
+        d[2] = rng.random(b).astype(np.float32)   # no ties at all
+    return d, ids
+
+
+@pytest.mark.parametrize("q,b,k", [(5, 37, 5), (9, 200, 17), (4, 130, 150),
+                                   (3, 1, 4), (6, 128, 128)])
+def test_knn_topk_plain_matches_two_key_sort(q, b, k):
+    """The plain version == the reference's two-key sort truncated to k
+    columns, the inputs padded to k columns with (+inf, INT32_MAX) where k
+    exceeds B (as ``batch_knn_rank`` pads them)."""
+    d, ids = _topk_inputs(q, b, seed=q * 1000 + b)
+    dp, ip = d, ids
+    if k > b:
+        dp = np.concatenate([d, np.full((q, k - b), np.inf, np.float32)], 1)
+        ip = np.concatenate([ids, np.full((q, k - b), kk.ID_PAD, np.int32)],
+                            1)
+    wd, wi = rops.knn_topk(jnp.asarray(dp), jnp.asarray(ip), k=k,
+                           use_pallas=False)
+    before = kk.knn_topk.launches
+    for got in (kk.knn_topk_plain(_t(d), _t(ids), k),
+                kk.knn_topk(_t(d), _t(ids), k),
+                tops.knn_topk(_t(d), _t(ids), k=k),
+                tops.knn_topk(_t(d), _t(ids), k=k, use_kernel=False)):
+        assert got[0].shape == (q, k) and got[1].dtype == torch.int32
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(wd))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(wi))
+        # -0 and +0 are one distance: the id decides between them
+        assert (np.diff(got[1].numpy()[:, :2], axis=1)[
+            got[0].numpy()[:, 1] == got[0].numpy()[:, 0]] >= 0).all()
+    assert kk.knn_topk.launches == before
+
+
+# --------------------------------------------------------------- morton --
+def test_morton_encode_matches_pallas_interpret():
+    rng = np.random.default_rng(8)
+    lim = (1 << 30) - 1
+    qx = np.concatenate([[0, lim, (1 << 15) - 1, 1 << 15, lim, 0],
+                         rng.integers(0, lim + 1, 997)]).astype(np.int32)
+    qy = np.concatenate([[0, lim, 1 << 15, (1 << 15) - 1, 0, lim],
+                         rng.integers(0, lim + 1, 997)]).astype(np.int32)
+    want = [rops.morton_encode(jnp.asarray(qx), jnp.asarray(qy),
+                               use_pallas=flag) for flag in (True, False)]
+    np.testing.assert_array_equal(np.asarray(want[0][0]),
+                                  np.asarray(want[1][0]))
+    before = km.morton_encode.launches
+    for hi, lo in (km.morton_encode_plain(_t(qx), _t(qy)),
+                   km.morton_encode(_t(qx), _t(qy)),
+                   tops.morton_encode(_t(qx), _t(qy)),
+                   tops.morton_encode(_t(qx), _t(qy), use_kernel=False)):
+        for w in want:
+            np.testing.assert_array_equal(hi.numpy(), np.asarray(w[0]))
+            np.testing.assert_array_equal(lo.numpy(), np.asarray(w[1]))
+    assert km.morton_encode.launches == before
+
+
+# ---------------------------------------------------------- refine mask --
+def test_refine_mask_matches_pallas_interpret(world):
+    rs, ts = world["rs"], world["ts"]
+    ws, wb = world["wins"], world["bounds"]
+    want = np.asarray(rops.refine_mask(jnp.asarray(ws), jnp.asarray(wb),
+                                       rs.slot_rmbr, use_pallas=True))
+    np.testing.assert_array_equal(want, np.asarray(rref.refine_mask_ref(
+        jnp.asarray(ws), jnp.asarray(wb), rs.slot_rmbr)))
+    assert want.any() and not want.all()
+    before = kr.refine_mask.launches
+    for got in (kr.refine_mask_plain(_t(ws), _t(wb), ts.slot_rmbr),
+                kr.refine_mask(_t(ws), _t(wb), ts.slot_rmbr),
+                tops.refine_mask(_t(ws), _t(wb), ts.slot_rmbr),
+                tops.refine_mask(_t(ws), _t(wb), ts.slot_rmbr,
+                                 use_kernel=False)):
+        assert got.dtype == torch.int8
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert kr.refine_mask.launches == before
+    # count is the mask's row sum, through either entry point
+    counts = tops.refine_count(_t(ws), _t(wb), ts.slot_rmbr)
+    np.testing.assert_array_equal(counts.numpy(), want.sum(1))
+    np.testing.assert_array_equal(
+        tops.refine_count(_t(ws), _t(wb), ts.slot_rmbr,
+                          use_kernel=False).numpy(), want.sum(1))
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_ops_refine_compact_both_ways(world, use_kernel):
+    rs, ts = world["rs"], world["ts"]
+    ws, wb = world["wins"], world["bounds"]
+    want = rops.refine_compact(jnp.asarray(ws), jnp.asarray(wb),
+                               rs.slot_lmbr, rs.slot_rmbr, budget=16,
+                               use_pallas=False)
+    got = tops.refine_compact(_t(ws), _t(wb), ts.slot_lmbr, ts.slot_rmbr,
+                              budget=16, use_kernel=use_kernel)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
