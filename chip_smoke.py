@@ -32,11 +32,22 @@ Phases (any failure raises, and the script exits non-zero):
 7. the kernel-level ``ops`` entry point: the Morton keys of every record
    against the host's, the candidate mask against the candidate counts, and
    both against the entry point's plain side (``use_kernel=False``);
-8. one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+8. LM serving: ``granite_3_2b`` at full width in bf16 (weights drawn on the
+   card from seed 0) behind the port's ``SlotServer``: 8 slots, max_ctx
+   1024, 16 requests of 512-token prompts with ``main_lm``'s generation
+   lengths (numpy seed 0) — prefill ms per request, decode ms per step,
+   tokens/s, peak memory, the device busy share of a few decode steps; then
+   the two attention kernels against their plain versions on q/k/v captured
+   from layer 0 of a real prefill and a real decode step (bf16, fp32, and a
+   128-slot windowed ring that wraps), decode against the full forward (bf16
+   and fp32 weights), and the kernel path against the plain path
+   (teacher-forced prefill + 32 decode steps of 2 requests);
+9. one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
-Launch counters are zeroed just before each of phases 5, 6 and 7 and read
-just after: every kernel of that path must have launched, and a kernel's
-``launches`` in the last line is its count from its path.
+Launch counters are zeroed just before each of phases 5, 6, 7 and 8's
+serving run and read just after: every kernel of that path must have
+launched, and a kernel's ``launches`` in the last line is its count from its
+path.
 """
 import collections
 import json
@@ -45,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -57,22 +69,42 @@ BUDGET = 256
 HOST_CHECK = 64            # windows held against the fp64 host path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor-core rate (dense)
 FUSED_RELATIONS = ("intersects", "contains", "covers", "within", "touches",
                    "crosses", "dwithin:0.0005")
 FACADE_RELATIONS = FUSED_RELATIONS + ("disjoint",)
 KNN_KS = (10, 100)
 KNN_TOPK_WIDE = (4096, 100)  # (B, k) of the synthetic top-k case
 MASK_WINDOWS = 64            # the (Q, N) int8 mask: 2 MB per window
+LM_ARCH = "granite_3_2b"
+LM_SLOTS, LM_CTX, LM_REQUESTS, LM_PROMPT = 8, 1024, 16, 512
+LM_WINDOW = 128              # the windowed case: a 128-slot ring that wraps
+LM_FORWARD_STEPS = 8         # decode steps held against the full forward
+LM_TEACHER_STEPS = 32        # kernel path vs plain path, teacher-forced
+LM_FP32_STEPS = 2            # the same two checks with fp32 weights
+# attention kernel vs plain version (as the reference's kernel tests): the
+# kernels sum in another order (online softmax over key tiles)
+ATT_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# logits of two paths through the 40-layer bf16 model: activations are
+# rounded to bf16 (2^-8 relative) at every layer, and a rounding flip in one
+# path spreads; the bound is a share of the logits' range. fp32 weights:
+# summation order only.
+LM_BF16_REL = 0.1
+LM_FP32_TOL = (2e-3, 1e-3)   # atol, rtol
 _CU = "src/repro_torch/kernels/csrc/"
 CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
         "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
-        "morton_encode": _CU + "morton.cu", "refine_mask": _CU + "refine.cu"}
+        "morton_encode": _CU + "morton.cu", "refine_mask": _CU + "refine.cu",
+        "flash_attention": _CU + "flash_attention.cu",
+        "decode_attention": _CU + "decode_attention.cu"}
 REPLACES = {"refine_count": "src/repro/kernels/refine.py:391",
             "refine_compact": "src/repro/kernels/refine.py:415",
             "refine_fused": "src/repro/kernels/refine.py:466",
             "knn_topk": "src/repro/kernels/refine.py:592",
             "morton_encode": "src/repro/kernels/morton.py:40",
-            "refine_mask": "src/repro/kernels/refine.py:368"}
+            "refine_mask": "src/repro/kernels/refine.py:368",
+            "flash_attention": "src/repro/kernels/flash_attention.py:79",
+            "decode_attention": "src/repro/kernels/decode_attention.py:64"}
 
 
 def log(obj):
@@ -111,8 +143,9 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def profiled(fn, reps: int = 1):
     """Run ``fn`` ``reps`` times under ``torch.profiler`` -> (host wall ms
-    per run, {kernel name: device ms per run}); the dict is empty when the
-    profiler sees no device activity (device time then goes unmeasured)."""
+    per run, {kernel name: device ms per run}, device kernels per run); the
+    dict is empty when the profiler sees no device activity (device time
+    then goes unmeasured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -125,7 +158,7 @@ def profiled(fn, reps: int = 1):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    dev = {}
+    dev, kernels = {}, 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -134,14 +167,15 @@ def profiled(fn, reps: int = 1):
             us = getattr(e, "self_cuda_time_total", 0)
         if us:
             dev[e.key] = dev.get(e.key, 0.0) + us / 1e3 / reps
-    return wall, dev
+            kernels += e.count
+    return wall, dev, kernels / reps
 
 
 def device_ms(fn, kernel: str, reps: int = 10):
     """Device time per call of the kernels whose name holds ``kernel`` (the
     event timing of a small kernel also holds the wrapper's host work,
     since the card waits for the launch); None when unmeasured."""
-    _, dev = profiled(fn, reps)
+    _, dev, _ = profiled(fn, reps)
     ms = [t for name, t in dev.items() if kernel in name]
     return sum(ms) if ms else None
 
@@ -194,10 +228,351 @@ def covered_slots(bounds, n: int) -> int:
     return int((d.cumsum(0)[:n] > 0).sum())
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
+          ) -> dict:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
             else "operations", "bytes": int(nbytes), "ops": int(ops)}
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn``, every kernel it launches included,
+    without the host's launch work: the stream first spins (~0.1 s,
+    ``torch.cuda._sleep``) while the host queues all ``reps`` calls, so the
+    CUDA events around them time only the device's run of them. ``fn`` must
+    not synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def lm_phase(katt, counters) -> tuple:
+    """8. LM serving on the port: returns ({kernel: result line}, {kernel:
+    launches of the serving run})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import SlotServer
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import transformer as tf
+
+    def leaves(tree):
+        for t in tree.values():
+            yield from leaves(t) if isinstance(t, dict) else (t,)
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    server = SlotServer(cfg, params, LM_SLOTS, LM_CTX, DEVICE)
+    torch.cuda.synchronize()
+    log({"lm_model": {"arch": LM_ARCH, "layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "heads": cfg.n_heads,
+                      "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                      "dtype": cfg.dtype,
+                      "params": sum(t.numel() for t in leaves(params)),
+                      "weight_bytes": sum(t.numel() * t.element_size()
+                                          for t in leaves(params)),
+                      "cache_bytes": sum(t.numel() * t.element_size()
+                                         for t in leaves(server.cache)),
+                      "init_s": time.perf_counter() - t0}})
+
+    # ------------------------------------------------ serve 16 requests
+    rng = np.random.default_rng(0)
+    queue = [(rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32),
+              int(rng.integers(8, LM_CTX - LM_PROMPT)))
+             for _ in range(LM_REQUESTS)]
+    prompts = [p for p, _ in queue]
+    gens = [g for _, g in queue]
+    owner = [None] * LM_SLOTS
+    outputs = {}
+    cur = np.zeros(LM_SLOTS, np.int32)
+    prefill_ms, step_ms, active_hist = [], [], []
+    decoded = 0
+    pending = list(range(LM_REQUESTS))
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t_run = time.perf_counter()
+    while pending or any(server.active):
+        for s in range(LM_SLOTS):
+            if not server.active[s] and pending:
+                r = pending.pop(0)
+                a, b = events()
+                a.record()
+                server.admit(s, prompts[r], gens[r])
+                b.record()
+                b.synchronize()
+                prefill_ms.append(a.elapsed_time(b))
+                owner[s], cur[s] = r, prompts[r][-1]
+        a, b = events()
+        a.record()
+        nxt = server.step(cur)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        active_hist.append(sum(server.active))
+        for s in range(LM_SLOTS):
+            if server.active[s]:
+                server.generated[s].append(int(nxt[s]))
+                cur[s] = nxt[s]
+                server.remaining[s] -= 1
+                decoded += 1
+                if server.remaining[s] <= 0:
+                    server.active[s] = False
+                    outputs[owner[s]] = list(server.generated[s])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = {"flash_attention": katt.flash_attention.launches,
+                "decode_attention": katt.decode_attention.launches}
+    log({"path": "lm serving", "launches": {
+        k: fn.launches for k, fn in counters.items()}})
+    steps = len(step_ms)
+    if launches != {"flash_attention": cfg.n_layers * LM_REQUESTS,
+                    "decode_attention": cfg.n_layers * steps}:
+        raise RuntimeError(f"lm serving: launches {launches}, expected "
+                           f"{cfg.n_layers} per prefill ({LM_REQUESTS}) and "
+                           f"per decode step ({steps})")
+    if sorted(outputs) != list(range(LM_REQUESTS)) or any(
+            len(outputs[r]) != gens[r] or min(outputs[r]) < 0
+            or max(outputs[r]) >= cfg.vocab for r in outputs):
+        raise RuntimeError("lm serving: a request's tokens are missing or "
+                           "out of the vocabulary")
+    log({"lm_serving": {
+        "requests": LM_REQUESTS, "slots": LM_SLOTS, "max_ctx": LM_CTX,
+        "prompt_len": LM_PROMPT, "generated_tokens": decoded,
+        "decode_steps": steps, "wall_s": wall,
+        "tokens_per_s": decoded / wall,
+        "prefill_ms_median": statistics.median(prefill_ms),
+        "prefill_ms_first": prefill_ms[0],
+        "prefill_ms_min": min(prefill_ms), "prefill_ms_max": max(prefill_ms),
+        "decode_step_ms_median": statistics.median(step_ms),
+        "decode_step_ms_full_batch_median": statistics.median(
+            [t for t, n in zip(step_ms, active_hist) if n == LM_SLOTS]
+            or [float("nan")]),
+        "decode_step_ms_min": min(step_ms),
+        "prefill_s_total": sum(prefill_ms) / 1e3,
+        "decode_s_total": sum(step_ms) / 1e3,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "memory_before_model_bytes": base_mem,
+        "launches": launches}})
+    prof_wall, dev, n_kernels = profiled(lambda: server.step(cur), reps=4)
+    busy = sum(dev.values())
+    log({"lm_decode_profile": {
+        "steps": 4, "wall_ms_per_step": prof_wall,
+        "device_ms_per_step": busy, "device_kernels_per_step": n_kernels,
+        "device_busy_share": busy / prof_wall if dev else None,
+        "top_kernels": dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8])}})
+
+    # ------------------------- each kernel against its plain version
+    # the model reaches the kernels as ``models.attention.katt.<wrapper>``:
+    # a stand-in module there captures layer 0's inputs (or, below, routes
+    # to the plain versions) and leaves the kernel module as it is
+    cap = {}
+
+    def grab(tag):
+        def wrap(name):
+            def wrapper(*args):
+                cap.setdefault(name.split("_")[0] + tag, tuple(
+                    t.clone() for t in args if isinstance(t, torch.Tensor)))
+                return getattr(katt, name)(*args)
+            return wrapper
+        return types.SimpleNamespace(
+            flash_attention=wrap("flash_attention"),
+            decode_attention=wrap("decode_attention"))
+
+    cfg_w = dataclasses.replace(cfg, window=LM_WINDOW)
+    try:
+        mattn.katt = grab("")
+        server.admit(0, prompts[0], 1)            # layer 0 of a real prefill
+        server.step(cur)                          # ... and of a decode step
+        mattn.katt = grab("_w")
+        toks_w = torch.from_numpy(np.stack(prompts[:LM_SLOTS])).to(DEVICE)
+        _, cache_w = tf.prefill(params, cfg_w, {"tokens": toks_w},
+                                seq_len_cache=LM_CTX)
+        tf.decode_step(params, cfg_w, {"tokens": toks_w[:, 0]}, cache_w)
+        del cache_w
+    finally:
+        mattn.katt = katt
+    ap, pos = cap["decode_w"][3], cap["decode_w"][4]
+    if not (ap.shape[1] == LM_WINDOW and int(pos.min()) > LM_WINDOW):
+        raise RuntimeError("windowed case: the ring did not wrap")
+
+    def fp32(args):
+        return tuple(t.float() if t.is_floating_point() else t for t in args)
+
+    cases = [("flash_attention", "bf16", cap["flash"], 0),
+             ("flash_attention", "fp32", fp32(cap["flash"]), 0),
+             ("flash_attention", f"bf16 window {LM_WINDOW}", cap["flash_w"],
+              LM_WINDOW),
+             ("decode_attention", "bf16", cap["decode"], 0),
+             ("decode_attention", "fp32", fp32(cap["decode"]), 0),
+             ("decode_attention", f"bf16 window {LM_WINDOW}",
+              cap["decode_w"], LM_WINDOW)]
+    results = {}
+    for name, case, args, window in cases:
+        kern = getattr(katt, name)
+        plain = getattr(katt, name + "_plain")
+        got = kern(*args, window)
+        want = plain(*args, window)
+        err = max_err(got, want)
+        tol = ATT_TOL[str(args[0].dtype).split(".")[1]]
+        line = {"name": f"{name}[{case}]",
+                "shape": {"q": list(args[0].shape), "k": list(args[1].shape)},
+                "max_abs_err": err, "tolerance": tol}
+        if not err < tol:
+            raise RuntimeError(f"{name}[{case}]: max abs err {err} from the "
+                               f"plain version, tolerance {tol}")
+        if case != "bf16":
+            log(line)
+            continue
+        q, k, v = args[:3]
+        if name == "flash_attention":
+            b_, hq, s_, d_ = q.shape
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            ops = 4 * b_ * hq * d_ * s_ * (s_ + 1) // 2
+
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+        else:
+            b_, hq, d_ = q.shape
+            apos, p_ = args[3], args[4]
+            valid = (apos >= 0) & (apos <= p_[:, None])
+            live = int(valid.sum())          # this run's live slots
+            hkv = k.shape[1]
+            nbytes = (2 * live * hkv * d_ * 2 + 2 * 2 * q.numel()
+                      + apos.numel() * 4 + p_.numel() * 4)
+            ops = 4 * live * hq * d_
+            mask = valid[:, None, None, :]
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], k, v, attn_mask=mask,
+                    enable_gqa=True)[:, :, 0]
+            line["live_slots"] = live
+        lib_err = max_err(lib(), want)
+        line.update({
+            "kernel_ms": queued_ms(lambda: kern(*args, window), 50),
+            "event_ms": cuda_ms(lambda: kern(*args, window), 25),
+            "plain_ms": queued_ms(lambda: plain(*args, window), 20),
+            "plain_event_ms": cuda_ms(lambda: plain(*args, window), 10),
+            "library_ms": queued_ms(lib, 50),
+            "library_event_ms": cuda_ms(lib, 25),
+            "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                            + (" (is_causal, enable_gqa)"
+                               if name == "flash_attention" else
+                               " (boolean mask from abs_pos/pos, enable_gqa)"),
+            "library_max_abs_err": lib_err,
+            **bound(nbytes, ops, BF16_OPS_PER_S)})
+        log(line)
+        results[name] = line
+
+    # ----------------- decode against the full forward, through the kernels
+    def check(got, want, atol, rtol):
+        """(max abs error, its limit: atol + rtol * the logits' range)."""
+        return max_err(got, want), atol + rtol * float(want.abs().max())
+
+    def decode_vs_forward(prm, c, n_steps, tol):
+        toks = torch.from_numpy(np.concatenate(
+            [prompts[0], np.asarray(outputs[0], np.int32)])).to(DEVICE)[None]
+        last, cache = tf.prefill(prm, c, {"tokens": toks[:, :LM_PROMPT]},
+                                 seq_len_cache=LM_CTX)
+        worst = []
+        for t in range(n_steps + 1):
+            if t:
+                last, cache = tf.decode_step(
+                    prm, c, {"tokens": toks[:, LM_PROMPT + t - 1]}, cache)
+            full, _ = tf.forward(prm, c, {"tokens": toks[:, :LM_PROMPT + t]},
+                                 logits_last_only=True)
+            worst.append(check(last, full[:, -1], *tol))
+        return worst
+
+    def kernel_vs_plain(prm, c, n_steps, tol):
+        """Prefill + n decode steps of 2 requests, the same tokens fed to
+        the kernel path and the plain path."""
+        g = np.random.default_rng(1)
+        toks = torch.from_numpy(np.stack(prompts[:2])).to(DEVICE)
+        feed = torch.from_numpy(g.integers(0, c.vocab, (n_steps, 2)).astype(
+            np.int32)).to(DEVICE)
+        runs = {}
+        for path in ("kernel", "plain"):
+            n0 = katt.flash_attention.launches + katt.decode_attention.launches
+            if path == "plain":
+                mattn.katt = types.SimpleNamespace(
+                    flash_attention=katt.flash_attention_plain,
+                    decode_attention=katt.decode_attention_plain)
+            try:
+                logits, cache = tf.prefill(prm, c, {"tokens": toks},
+                                           seq_len_cache=LM_CTX)
+                out = [logits]
+                for t in range(n_steps):
+                    logits, cache = tf.decode_step(prm, c,
+                                                   {"tokens": feed[t]}, cache)
+                    out.append(logits)
+                runs[path] = out
+            finally:
+                mattn.katt = katt
+            n = katt.flash_attention.launches + katt.decode_attention.launches
+            if (n - n0 == 0) != (path == "plain"):
+                raise RuntimeError(f"the {path} path launched {n - n0} "
+                                   "attention kernels")
+        return [check(a, b, *tol)
+                for a, b in zip(runs["kernel"], runs["plain"])]
+
+    bf16_tol = (0.0, LM_BF16_REL)
+    report = {"decode_vs_forward[bf16]": decode_vs_forward(
+                  params, cfg, LM_FORWARD_STEPS, bf16_tol),
+              "kernel_vs_plain[bf16]": kernel_vs_plain(
+                  params, cfg, LM_TEACHER_STEPS, bf16_tol)}
+    del server
+    params32 = tree_map(params, lambda t: t.float())
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    report["decode_vs_forward[fp32]"] = decode_vs_forward(
+        params32, cfg32, LM_FP32_STEPS, LM_FP32_TOL)
+    report["kernel_vs_plain[fp32]"] = kernel_vs_plain(
+        params32, cfg32, LM_FP32_STEPS, LM_FP32_TOL)
+    del params32
+    for what, errs in report.items():
+        log({"lm_check": what, "steps": len(errs) - 1,
+             "max_abs_err": max(e for e, _ in errs),
+             "limit": min(lim for _, lim in errs),
+             "per_step": [round(e, 6) for e, _ in errs]})
+        bad = [i for i, (e, lim) in enumerate(errs) if not e <= lim]
+        if bad:
+            raise RuntimeError(f"{what}: logits off at steps {bad}: "
+                               f"{[errs[i] for i in bad]}")
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def tree_map(tree, fn):
+    """``fn`` on every tensor of a nested dict."""
+    return {k: tree_map(t, fn) if isinstance(t, dict) else fn(t)
+            for k, t in tree.items()}
 
 
 def main() -> int:
@@ -222,6 +597,7 @@ def main() -> int:
     from repro_torch.core.zorder import (ZGrid, morton_encode_np,
                                          split_hilo_np)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import attention as katt
     from repro_torch.kernels import knn as kk
     from repro_torch.kernels import morton as km
     from repro_torch.kernels import ops as kops
@@ -519,7 +895,9 @@ def main() -> int:
                 "refine_fused": kr.refine_fused,
                 "knn_topk": kk.knn_topk,
                 "morton_encode": km.morton_encode,
-                "refine_mask": kr.refine_mask}
+                "refine_mask": kr.refine_mask,
+                "flash_attention": katt.flash_attention,
+                "decode_attention": katt.decode_attention}
     window_kernels = ("refine_count", "refine_compact", "refine_fused")
     def read_path(path, kernels, keep=None):
         """The counts of one path's run; every kernel of the path must have
@@ -695,7 +1073,8 @@ def main() -> int:
             log({"knn_vs_host": {"k": k, "max_abs_err": err}})
             # where the batch's time goes: device time by kernel of the same
             # query repeated under the profiler, over its unprofiled wall
-            wall, dev = profiled(lambda: idx.query(QueryBatch.knn(pts, k)))
+            wall, dev, _ = profiled(
+                lambda: idx.query(QueryBatch.knn(pts, k)))
             busy = sum(dev.values())
             log({"knn_profile": {
                 "k": k, "profiled_wall_ms": wall, "device_ms": busy,
@@ -732,7 +1111,13 @@ def main() -> int:
          "records": nrec, "mask_windows": MASK_WINDOWS})
     launches.update(read_path("ops", ("morton_encode", "refine_mask")))
 
-    # ------------------------------------------------------------- 8. report
+    # ------------------------------------------------------ 8. LM serving
+    torch.cuda.empty_cache()
+    lm_results, lm_launches = lm_phase(katt, counters)
+    results.update(lm_results)
+    launches.update(lm_launches)
+
+    # ------------------------------------------------------------- 9. report
     entries = []
     for k in counters:
         r_ = results[k]

@@ -1,0 +1,4 @@
+"""Architecture configurations of the LM serving slice: the dense family."""
+from .base import ARCH_IDS, ArchConfig, get_arch
+
+__all__ = ["ARCH_IDS", "ArchConfig", "get_arch"]

@@ -1,0 +1,9 @@
+"""Granite-3.0-2B [hf:ibm-granite/granite-3.0-2b-base]: GQA dense.
+40L d=2048 32H kv=8 d_ff=8192 vocab=49155."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-3-2b", family="dense",
+    n_layers=40, d_model=2048, n_heads=32, n_kv_heads=8, head_dim=64,
+    d_ff=8192, vocab=49155, rope_theta=1e4,
+)

@@ -6,13 +6,16 @@ refine   GLIN refine stage: candidate count, run compaction, the fused
          candidate mask
 knn      the kNN rank's (distance, id) top-k
 morton   Z-address encoding of grid coordinates
+attention  the LM's prefill (flash) and decode attention
 ops      the kernel-level entry point (one function per kernel, with a
          ``use_kernel`` switch to the plain version)
 """
+from .attention import decode_attention, flash_attention
 from .knn import knn_topk
 from .morton import morton_encode
 from .refine import (MAX_COMPACT_BUDGET, refine_compact, refine_count,
                      refine_fused, refine_mask)
 
 __all__ = ["MAX_COMPACT_BUDGET", "refine_count", "refine_compact",
-           "refine_fused", "refine_mask", "knn_topk", "morton_encode"]
+           "refine_fused", "refine_mask", "knn_topk", "morton_encode",
+           "flash_attention", "decode_attention"]

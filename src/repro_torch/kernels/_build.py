@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argument types of the C entry points (pointers and the stream as void*)
 _SIGNATURES = {
     "glin_refine_count": [_P, _P, _P, _P, _I, _I, _P],
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "glin_refine_mask": [_P, _P, _P, _P, _I, _I, _P],
     "glin_knn_topk": [_P, _P, _P, _P, _I, _I, _I, _P],
     "glin_morton_encode": [_P, _P, _P, _P, _I, _P],
+    "glin_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I] + [_L] * 9 + [_P],
+    "glin_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _I] + [_L] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,165 @@
+"""Attention kernels for Hopper: the prefill's ``flash_attention`` and the
+decode step's ``decode_attention``, over ``csrc/flash_attention.cu`` and
+``csrc/decode_attention.cu`` (sm_90a), each with its plain torch version
+beside it.
+
+Both take the reference's layouts — q (B, Hq, S, D) with k/v (B, Hkv, S, D)
+for flash; q (B, Hq, D) with k/v (B, Hkv, W, D), ``abs_pos`` (B, W) and
+``pos`` (B,) for decode — in fp32 or bf16, and read them through their
+strides (last dimension contiguous): the model hands in transposed views of
+its (B, S, H, D) activations and (B, W, Hkv, D) cache, never a copy. A CUDA
+tensor takes the kernel, a CPU tensor the plain version; each wrapper counts
+its kernel launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .refine import _launch, _route
+
+__all__ = ["NEG_INF", "HEAD_DIMS", "flash_attention", "flash_attention_plain",
+           "decode_attention", "decode_attention_plain"]
+
+NEG_INF = -1e30          # the reference's mask fill (not -inf)
+HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the kernels are built for
+MAX_GROUP = 64           # query heads per kv head the flash kernel takes
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention_plain(q, k, v, window: int = 0):
+    """``repro.kernels.ref.attention_ref`` in torch: fp32 scores, the -1e30
+    fill, fp32 softmax and P.V, the output cast to q's dtype."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    k = k.repeat_interleave(group, dim=1).float()
+    v = v.repeat_interleave(group, dim=1).float()
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * (1.0 / math.sqrt(d))
+    qi = torch.arange(s, device=q.device)[:, None]
+    kj = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = qi >= kj
+    if window > 0:
+        mask &= (qi - kj) < window
+    sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
+
+
+def decode_attention_plain(q, k, v, abs_pos, pos, window: int = 0):
+    """``repro.kernels.ref.decode_attention_ref`` in torch: a slot counts
+    where ``0 <= abs_pos <= pos`` (and ``pos - abs_pos < window`` with a
+    window); the others take the -1e30 fill."""
+    b, hq, d = q.shape
+    group = hq // k.shape[1]
+    k = k.repeat_interleave(group, dim=1).float()
+    v = v.repeat_interleave(group, dim=1).float()
+    sc = torch.einsum("bhd,bhkd->bhk", q.float(), k) * (1.0 / math.sqrt(d))
+    valid = (abs_pos >= 0) & (abs_pos <= pos[:, None])
+    if window > 0:
+        valid &= (pos[:, None] - abs_pos) < window
+    sc = torch.where(valid[:, None, :], sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", p, v).to(q.dtype)
+
+
+def _check_rows(name, t, dtype, shape):
+    """dtype and shape, the last dimension contiguous, and every stride and
+    the base 16-byte aligned (the kernels load 16 bytes a lane)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    vec = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(st % vec for st, n in
+                                zip(t.stride()[:-1], t.shape[:-1]) if n > 1):
+        raise ValueError(f"{name}: needs a contiguous last dimension and "
+                         f"16-byte aligned rows, got strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must be 16-byte aligned")
+
+
+def _check_heads(q, k, d):
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q: dtype {q.dtype}, expected fp32 or bf16")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
+    hq, hkv = q.shape[1], k.shape[1]
+    if hkv < 1 or hq % hkv or hq // hkv > MAX_GROUP:
+        raise ValueError(f"{hq} query heads over {hkv} kv heads: needs a "
+                         f"group of 1..{MAX_GROUP}")
+
+
+def flash_attention(q, k, v, window: int = 0):
+    """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype:
+    causal (``window`` = 0) or sliding-window GQA attention.
+
+    Replaces ``flash_attention_pallas`` (repro/kernels/flash_attention.py).
+    Bound on this card at the prefill's shapes: bytes (q, k, v read once,
+    the output written once). One block per (64-row query tile of the
+    group's heads, kv head, batch row); K/V tiles of 64 keys staged in
+    shared memory; fully masked tiles skipped. The output takes q's layout
+    (``empty_like``), so a transposed view in gives one out.
+    """
+    if not _route(q, k, v):
+        return flash_attention_plain(q, k, v, window)
+    b, hq, s, d = q.shape
+    _check_heads(q, k, d)
+    kv_shape = (b, k.shape[1], s, d)
+    _check_rows("q", q, q.dtype, (b, hq, s, d))
+    _check_rows("k", k, q.dtype, kv_shape)
+    _check_rows("v", v, q.dtype, kv_shape)
+    if k.stride() != v.stride():
+        raise ValueError(f"k and v need one layout: strides {k.stride()} "
+                         f"and {v.stride()}")
+    out = torch.empty_like(q)         # q's layout where q is a dense view
+    if b and s:
+        _launch("glin_flash_attention", q.device, q, k, v, out, b, hq,
+                k.shape[1], s, d, int(window), 1.0 / math.sqrt(d),
+                int(q.dtype == torch.bfloat16), *q.stride()[:3],
+                *k.stride()[:3], *out.stride()[:3])
+        flash_attention.launches += 1
+    return out
+
+
+def decode_attention(q, k, v, abs_pos, pos, window: int = 0):
+    """q (B, Hq, D), k/v (B, Hkv, W, D), abs_pos (B, W) int32 (-1 = empty
+    slot), pos (B,) int32 -> (B, Hq, D) in q's dtype: one query token per
+    row against its ring of W slots.
+
+    Replaces ``decode_attention_pallas`` (repro/kernels/decode_attention.py).
+    Bound on this card: bytes (the slots' K and V). One block per (kv head,
+    batch row); the group's query heads share one pass over the slots, K/V
+    going from device memory straight to registers.
+    """
+    if not _route(q, k, v, abs_pos, pos):
+        return decode_attention_plain(q, k, v, abs_pos, pos, window)
+    b, hq, d = q.shape
+    _check_heads(q, k, d)
+    w = k.shape[2]
+    kv_shape = (b, k.shape[1], w, d)
+    _check_rows("q", q, q.dtype, (b, hq, d))
+    _check_rows("k", k, q.dtype, kv_shape)
+    _check_rows("v", v, q.dtype, kv_shape)
+    if k.stride() != v.stride():
+        raise ValueError(f"k and v need one layout: strides {k.stride()} "
+                         f"and {v.stride()}")
+    for name, t, shape in (("abs_pos", abs_pos, (b, w)), ("pos", pos, (b,))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, expected "
+                             f"int32 {shape}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: needs a contiguous last dimension")
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    if b and w:
+        _launch("glin_decode_attention", q.device, q, k, v, abs_pos, pos,
+                out, b, hq, k.shape[1], w, d, int(window),
+                1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+                *q.stride()[:2], *k.stride()[:3], abs_pos.stride(0))
+        decode_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+decode_attention.launches = 0

@@ -4,14 +4,15 @@ The port's counterpart of the reference's ``repro.kernels.ops``. Each
 function takes ``use_kernel`` (the reference's ``use_pallas``): with it, a
 CUDA tensor launches the hand-written kernel and a CPU tensor takes the
 kernel's plain version, as the wrappers do; without it, the plain version
-runs on any device. Every function accepts any Q, N and B.
+runs on any device. Every function accepts any Q, N and B, and the
+attention functions any S and W.
 """
 from __future__ import annotations
 
-from . import knn, morton, refine
+from . import attention, knn, morton, refine
 
 __all__ = ["morton_encode", "refine_mask", "refine_count", "refine_compact",
-           "knn_topk"]
+           "knn_topk", "flash_attention", "decode_attention"]
 
 
 def morton_encode(qx, qy, use_kernel: bool = True):
@@ -55,3 +56,20 @@ def knn_topk(d, ids, *, k: int, use_kernel: bool = True):
     if not use_kernel:
         return knn.knn_topk_plain(d, ids, k)
     return knn.knn_topk(d, ids, k)
+
+
+def flash_attention(q, k, v, *, window: int = 0, use_kernel: bool = True):
+    """Causal (optionally sliding-window) GQA attention.
+    q (B,Hq,S,D); k,v (B,Hkv,S,D) -> (B,Hq,S,D) in q's dtype."""
+    if not use_kernel:
+        return attention.flash_attention_plain(q, k, v, window)
+    return attention.flash_attention(q, k, v, window)
+
+
+def decode_attention(q, k, v, abs_pos, pos, *, window: int = 0,
+                     use_kernel: bool = True):
+    """One-token decode attention over a ring KV cache.
+    q (B,Hq,D); k/v (B,Hkv,W,D); abs_pos (B,W) int32; pos (B,) int32."""
+    if not use_kernel:
+        return attention.decode_attention_plain(q, k, v, abs_pos, pos, window)
+    return attention.decode_attention(q, k, v, abs_pos, pos, window)

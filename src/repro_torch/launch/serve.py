@@ -1,0 +1,182 @@
+"""Serving launchers of the port.
+
+``python -m repro_torch.launch.serve lm ...`` — the continuous-batching LM
+demo: ``--slots`` concurrent sequences in a fixed decode batch, each
+arriving request prefilled on its own and its KV cache spliced into a free
+slot (per-sequence positions keep the slots independent); finished
+sequences free their slot; reports the first prefill's time and tokens/s.
+It runs on the card (``--device cuda``, the default) through the
+``flash_attention`` and ``decode_attention`` kernels, or on the CPU with
+``--device cpu`` (the kernels' plain versions).
+
+``python -m repro_torch.launch.serve [spatial] ...`` — the GLIN spatial
+serving tier needs ``serve/server.py``, which is not ported yet (ROADMAP
+queue A7): it exits non-zero. Every flag of the reference's launcher is
+kept, so a command line of one parses in the other.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+from ..configs.base import get_arch
+from ..models import transformer as tf
+
+__all__ = ["SlotServer", "main"]
+
+
+class SlotServer:
+    """Fixed-slot continuous batching around prefill / decode_step."""
+
+    def __init__(self, cfg, params, slots: int, max_ctx: int,
+                 device="cuda"):
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_ctx = max_ctx
+        self.device = torch.device(device)
+        self.cache = tf.init_cache(cfg, slots, max_ctx, self.device)
+        self.active = [False] * slots
+        self.remaining = [0] * slots
+        self.generated: List[List[int]] = [[] for _ in range(slots)]
+
+    def admit(self, slot: int, prompt: np.ndarray, gen_len: int) -> None:
+        """Prefill a request at batch 1 and splice every cache leaf (k, v,
+        abs_pos, pos) into ``slot``."""
+        tokens = torch.as_tensor(np.asarray(prompt)[None, :],
+                                 device=self.device)
+        _, cache1 = tf.prefill(self.params, self.cfg, {"tokens": tokens},
+                               seq_len_cache=self.max_ctx)
+
+        def splice(dst, src):
+            for name, t in dst.items():
+                if isinstance(t, dict):
+                    splice(t, src[name])
+                else:
+                    t[:, slot] = src[name][:, 0]
+
+        splice(self.cache, cache1)
+        self.active[slot] = True
+        self.remaining[slot] = gen_len
+        self.generated[slot] = []
+
+    def step(self, tokens: np.ndarray) -> np.ndarray:
+        """One decode step of every slot; the greedy next tokens (the first
+        maximal index, as ``jnp.argmax``)."""
+        logits, self.cache = tf.decode_step(
+            self.params, self.cfg,
+            {"tokens": torch.as_tensor(np.asarray(tokens),
+                                       device=self.device)}, self.cache)
+        return logits.argmax(dim=-1).cpu().numpy()
+
+
+# --------------------------------------------------------------- spatial mode
+def main_spatial(args) -> int:
+    print("serve spatial: the GLIN spatial serving tier (serve/server.py) "
+          "is not ported yet — ROADMAP queue A7", file=sys.stderr)
+    return 2
+
+
+# -------------------------------------------------------------------- lm mode
+def main_lm(args) -> int:
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    device = torch.device(args.device)
+    rng = np.random.default_rng(args.seed)
+    params = tf.init_params(cfg, args.seed, device=device)
+    server = SlotServer(cfg, params, args.slots, args.max_ctx, device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    queue = [(rng.integers(0, cfg.vocab, args.prompt_len).astype(np.int32),
+              int(rng.integers(8, args.max_ctx - args.prompt_len)))
+             for _ in range(args.requests)]
+    done = 0
+    cur_tokens = np.zeros(args.slots, np.int32)
+    t0 = time.time()
+    decoded = 0
+    prefills = 0
+    while done < args.requests:
+        # admit queued requests into free slots
+        for s in range(args.slots):
+            if not server.active[s] and queue:
+                prompt, gen = queue.pop(0)
+                ta = time.time()
+                server.admit(s, prompt, gen)
+                prefills += 1
+                cur_tokens[s] = prompt[-1]
+                if prefills == 1:
+                    sync()
+                    print(f"[serve] first prefill {time.time()-ta:.2f}s",
+                          flush=True)
+        if not any(server.active):
+            break
+        nxt = server.step(cur_tokens)
+        for s in range(args.slots):
+            if server.active[s]:
+                server.generated[s].append(int(nxt[s]))
+                cur_tokens[s] = nxt[s]
+                server.remaining[s] -= 1
+                decoded += 1
+                if server.remaining[s] <= 0:
+                    server.active[s] = False
+                    done += 1
+    sync()
+    dt = time.time() - t0
+    print(f"[serve] {done} requests, {decoded} tokens in {dt:.1f}s "
+          f"({decoded/max(dt,1e-9):.1f} tok/s, {prefills} prefills) "
+          f"on {device}", flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] not in ("spatial", "lm"):
+        argv = ["spatial"] + argv          # spatial serving is the default
+    ap = argparse.ArgumentParser()
+    sub = ap.add_subparsers(dest="mode", required=True)
+
+    sp = sub.add_parser("spatial", help="GLIN spatial serving tier demo "
+                        "(not ported yet: ROADMAP A7)")
+    sp.add_argument("--dataset", default="cluster")
+    sp.add_argument("--n", type=int, default=50_000)
+    sp.add_argument("--qps", type=float, default=200.0)
+    sp.add_argument("--seconds", type=float, default=5.0)
+    sp.add_argument("--write-frac", type=float, default=0.02)
+    sp.add_argument("--tenants", type=int, default=2)
+    sp.add_argument("--replicas", type=int, default=2)
+    sp.add_argument("--max-queue", type=int, default=2048)
+    sp.add_argument("--min-batch", type=int, default=8)
+    sp.add_argument("--max-batch", type=int, default=4096)
+    sp.add_argument("--workers", type=int, default=None)
+    sp.add_argument("--no-overlap", action="store_true")
+    sp.add_argument("--explain", action="store_true",
+                    help="print the compiled execution plan per relation")
+    sp.add_argument("--seed", type=int, default=0)
+
+    lm = sub.add_parser("lm", help="continuous-batching LM demo")
+    lm.add_argument("--arch", default="granite_3_2b")
+    # as the reference's: store_true with default True, so always reduced
+    lm.add_argument("--reduced", action="store_true", default=True)
+    lm.add_argument("--slots", type=int, default=4)
+    lm.add_argument("--requests", type=int, default=12)
+    lm.add_argument("--prompt-len", type=int, default=32)
+    lm.add_argument("--max-ctx", type=int, default=128)
+    lm.add_argument("--seed", type=int, default=0)
+    lm.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+
+    args = ap.parse_args(argv)
+    return main_spatial(args) if args.mode == "spatial" else main_lm(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

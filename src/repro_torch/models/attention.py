@@ -1,0 +1,94 @@
+"""Attention for the dense family: GQA / MQA / MHA with RoPE, causal or
+sliding-window.
+
+* :func:`attention_full`   — the whole sequence (prefill and the full
+  forward), computed by the ``flash_attention`` kernel.
+* :func:`attention_decode` — one token against the layer's ring KV cache,
+  computed by the ``decode_attention`` kernel. It writes the new token's
+  K/V, its absolute position and the advanced ``pos`` into the cache IN
+  PLACE (the reference returns a new cache; ``index_put_`` here in place of
+  ``.at[].set``).
+* :func:`init_decode_cache` / :func:`cache_window` — the cache.
+
+Both kernels read the model's layouts through strides: q/k/v (B, S, H, D)
+and the cache (B, W, Hkv, D) go in as transposed views; nothing is copied.
+On CPU tensors the kernels' wrappers take their plain versions.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..kernels import attention as katt
+from .layers import apply_rot, dense
+
+__all__ = ["attention_full", "attention_decode", "cache_window",
+           "init_decode_cache"]
+
+
+def _project_qkv(x, p, cfg, rot):
+    """q, k, v (B,S,H,Dh); ``rot``: ``layers.rope_tables`` of the tokens'
+    positions."""
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = dense(x, p["wq"]).view(b, s, hq, dh)
+    k = dense(x, p["wk"]).view(b, s, hkv, dh)
+    v = dense(x, p["wv"]).view(b, s, hkv, dh)
+    return apply_rot(q, *rot), apply_rot(k, *rot), v
+
+
+def attention_full(x, p, cfg, rot
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B,S,d), ``rot`` the positions' rope tables -> (output (B,S,d),
+    {k, v (B,S,Hkv,Dh)}, the rope'd K/V).
+
+    The probabilities stay fp32 through P.V (the reference's XLA path casts
+    them to the activation dtype first; in fp32 the two are equal)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg, rot)
+    out = katt.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), cfg.window)
+    out = out.transpose(1, 2).reshape(b, s, cfg.attn_dim)
+    return dense(out, p["wo"]), {"k": k, "v": v}
+
+
+def cache_window(cfg, seq_len: int) -> int:
+    """Slots kept in the decode cache: W for SWA archs, full context else."""
+    return min(cfg.window, seq_len) if cfg.window > 0 else seq_len
+
+
+def attention_decode(x, p, cfg, cache, rot) -> torch.Tensor:
+    """x (B,1,d); cache: the layer's {k, v (B,W,Hkv,Dh), abs_pos (B,W)
+    absolute position of each slot (-1 = empty), pos (B,) absolute position
+    of the new token}, updated in place; ``rot`` the rope tables of ``pos``.
+    Returns the output (B,1,d)."""
+    b = x.shape[0]
+    pos = cache["pos"]
+    q, k_new, v_new = _project_qkv(x, p, cfg, rot)
+    k, v, abs_pos = cache["k"], cache["v"], cache["abs_pos"]
+    slot = (pos % k.shape[1]).long()        # ring slot (== pos when W >= ctx)
+    bidx = torch.arange(b, device=x.device)
+    k.index_put_((bidx, slot), k_new[:, 0])
+    v.index_put_((bidx, slot), v_new[:, 0])
+    abs_pos.index_put_((bidx, slot), pos)
+    out = katt.decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                                abs_pos, pos, cfg.window)
+    pos.add_(1)
+    return dense(out.reshape(b, 1, cfg.attn_dim), p["wo"])
+
+
+def init_decode_cache(cfg, batch: int, seq_len: int, dtype, device
+                      ) -> Dict[str, torch.Tensor]:
+    """Per-layer KV cache, stacked: k/v (L, B, W, Hkv, Dh) zeros, abs_pos
+    (L, B, W) -1 (empty), pos (L, B) 0."""
+    w = cache_window(cfg, seq_len)
+    nl = cfg.n_layers
+    kv = (nl, batch, w, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(kv, dtype=dtype, device=device),
+        "v": torch.zeros(kv, dtype=dtype, device=device),
+        "abs_pos": torch.full((nl, batch, w), -1, dtype=torch.int32,
+                              device=device),
+        "pos": torch.zeros((nl, batch), dtype=torch.int32, device=device),
+    }

@@ -1,14 +1,19 @@
 """The CUDA kernels on the card: each against its plain version on the same
-inputs, and the facade's kernel paths (window queries and kNN) against its
-host path.
+inputs, the facade's kernel paths (window queries and kNN) against its
+host path, and the LM's decode through both attention kernels against its
+full forward.
 
 Every test here is marked ``gpu`` and skips without a card (decided inside
 the ``cuda`` fixture). The file imports only the port, so it needs nothing
 of the reference: ``PYTHONPATH=src python -m pytest -m gpu
-tests/test_torch_*.py``. Tolerance: none — the
-kernels are built with ``--fmad=false`` and must reproduce the plain
-versions' bounds, slot lists, hit layouts and counts exactly.
+tests/test_torch_*.py``. Tolerance: none for the GLIN kernels — they are
+built with ``--fmad=false`` and must reproduce the plain versions' bounds,
+slot lists, hit layouts and counts exactly; the attention kernels sum in
+another order than the plain versions (online softmax over key tiles), so
+2e-5 in fp32 and 3e-2 in bf16 (absolute), as the reference's kernel tests.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,9 +24,12 @@ from repro_torch.core.engine import EngineConfig, QueryBatch, SpatialIndex
 from repro_torch.core.geometry import mbrs_of_verts
 from repro_torch.core.index import GLINConfig
 from repro_torch.core.relations import get_relation
+from repro_torch.configs import get_arch
+from repro_torch.kernels import attention as katt
 from repro_torch.kernels import knn as kk
 from repro_torch.kernels import morton as km
 from repro_torch.kernels import refine as kr
+from repro_torch.models import transformer as tf
 
 RELATIONS = ("intersects", "contains", "covers", "within", "touches",
              "crosses", "dwithin:0.004")
@@ -236,3 +244,124 @@ def test_knn_facade_kernel_matches_sort_and_host(store, cuda, k):
         np.testing.assert_array_equal(got, want)
         np.testing.assert_allclose(res["kernel"].distances[i],
                                    host.distances[i], rtol=1e-4, atol=1e-7)
+
+
+ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _att_err(a, p):
+    torch.cuda.synchronize()
+    assert a.dtype == p.dtype and a.shape == p.shape
+    return float((a.float() - p.float()).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,group,s,d,window", [
+    (1, 8, 4, 512, 64, 0), (2, 2, 1, 100, 64, 0), (2, 2, 8, 100, 64, 64),
+    (1, 1, 48, 70, 128, 0), (3, 2, 3, 130, 128, 64), (1, 4, 4, 1, 64, 0),
+    (2, 1, 2, 33, 16, 0), (1, 2, 2, 65, 256, 16), (1, 2, 4, 40, 32, 1)])
+def test_flash_kernel_matches_plain(cuda, dtype, b, hkv, group, s, d, window):
+    g = torch.Generator(device=cuda).manual_seed(s * 7 + d)
+    q = torch.randn(b, hkv * group, s, d, device=cuda, generator=g).to(dtype)
+    k = torch.randn(b, hkv, s, d, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, hkv, s, d, device=cuda, generator=g).to(dtype)
+    n0 = katt.flash_attention.launches
+    a = katt.flash_attention(q, k, v, window)
+    assert katt.flash_attention.launches == n0 + 1
+    assert _att_err(a, katt.flash_attention_plain(q, k, v, window)) < (
+        ATT_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_transposed_views(cuda, dtype):
+    """The model's (B, S, H, D) activations go in as transposed views; the
+    output keeps that layout."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(2, 77, 8, 64, device=cuda, generator=g).to(dtype)
+    k = torch.randn(2, 77, 2, 64, device=cuda, generator=g).to(dtype)
+    v = torch.randn(2, 77, 2, 64, device=cuda, generator=g).to(dtype)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    a = katt.flash_attention(qt, kt, vt, 0)
+    assert a.transpose(1, 2).is_contiguous()
+    assert _att_err(a, katt.flash_attention_plain(
+        qt.contiguous(), kt.contiguous(), vt.contiguous(), 0)) < ATT_TOL[dtype]
+
+
+def _decode_inputs(cuda, dtype, b, hkv, group, w, d, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, hkv * group, d, device=cuda, generator=g).to(dtype)
+    # the model's cache layout (B, W, Hkv, D), handed in transposed
+    k = torch.randn(b, w, hkv, d, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, w, hkv, d, device=cuda, generator=g).to(dtype)
+    pos = torch.randint(0, 3 * w, (b,), device=cuda, generator=g,
+                        dtype=torch.int32)
+    slots = torch.arange(w, device=cuda, dtype=torch.int32)[None]
+    ap = slots + w * torch.div(pos[:, None] - slots, w, rounding_mode="floor")
+    ap = torch.where(ap <= pos[:, None], ap, -1).to(torch.int32)
+    ap[0] = -1                               # a ring with no live slot
+    if b > 1:
+        ap[1, ::5] = -1                      # scattered empty slots
+    return q, k.transpose(1, 2), v.transpose(1, 2), ap, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,group,w,d,window", [
+    (8, 8, 4, 1024, 64, 0), (3, 2, 1, 70, 64, 0), (3, 2, 8, 70, 64, 64),
+    (2, 1, 48, 100, 128, 0), (3, 8, 3, 300, 128, 128), (1, 2, 4, 1, 64, 0),
+    (2, 2, 4, 33, 16, 0), (2, 1, 2, 65, 256, 16), (4, 4, 5, 129, 32, 7)])
+def test_decode_kernel_matches_plain(cuda, dtype, b, hkv, group, w, d,
+                                     window):
+    q, k, v, ap, pos = _decode_inputs(cuda, dtype, b, hkv, group, w, d,
+                                      w * 3 + d)
+    n0 = katt.decode_attention.launches
+    a = katt.decode_attention(q, k, v, ap, pos, window)
+    assert katt.decode_attention.launches == n0 + 1
+    assert _att_err(a, katt.decode_attention_plain(q, k, v, ap, pos,
+                                                   window)) < ATT_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_decode_kernel_on_an_empty_current_ring(cuda):
+    """Every slot empty (abs_pos -1) while pos is current: both versions
+    average all W values, as the reference's all -1e30 softmax does."""
+    q, k, v, ap, pos = _decode_inputs(cuda, torch.float32, 2, 2, 4, 96, 64,
+                                      11)
+    ap.fill_(-1)
+    a = katt.decode_attention(q, k, v, ap, pos, 0)
+    mean = v.float().mean(2).repeat_interleave(4, dim=1)
+    assert _att_err(a, katt.decode_attention_plain(q, k, v, ap, pos, 0)) < (
+        2e-5)
+    assert float((a - mean).abs().max()) < 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,window", [("float32", 0), ("float32", 16),
+                                          ("bfloat16", 0)])
+def test_lm_decode_matches_forward_through_kernels(cuda, dtype, window):
+    """Reduced granite_3_2b on the card: prefill + 6 decode steps through
+    both kernels equal the full forward, with one flash launch per layer
+    per prefill and one decode launch per layer per step. bf16 logits of
+    magnitude ~5: 0.25, as the CPU tests' bf16 case."""
+    cfg = dataclasses.replace(get_arch("granite_3_2b").reduced(),
+                              dtype=dtype, window=window)
+    params = tf.init_params(cfg, 3, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 46), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(3))
+    tol = (2e-4, 1e-3) if dtype == "float32" else (0.25, 0.0)
+    n0 = katt.flash_attention.launches
+    last, cache = tf.prefill(params, cfg, {"tokens": toks[:, :40]},
+                             seq_len_cache=46)
+    assert katt.flash_attention.launches == n0 + cfg.n_layers
+    full, _ = tf.forward(params, cfg, {"tokens": toks[:, :40]})
+    torch.testing.assert_close(last, full[:, -1], atol=tol[0], rtol=tol[1])
+    for t in range(6):
+        n0 = katt.decode_attention.launches
+        dec, cache = tf.decode_step(params, cfg, {"tokens": toks[:, 40 + t]},
+                                    cache)
+        assert katt.decode_attention.launches == n0 + cfg.n_layers
+        full, _ = tf.forward(params, cfg, {"tokens": toks[:, :41 + t]})
+        torch.testing.assert_close(dec, full[:, -1], atol=max(tol[0], 5e-4),
+                                   rtol=max(tol[1], 1e-2))
