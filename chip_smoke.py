@@ -42,10 +42,20 @@ Phases (any failure raises, and the script exits non-zero):
    128-slot windowed ring that wraps), decode against the full forward (bf16
    and fp32 weights), and the kernel path against the plain path
    (teacher-forced prefill + 32 decode steps of 2 requests);
-9. one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+9. SSM serving: ``mamba2_2p7b`` at full width in bf16 (seed 0) behind the
+   same ``SlotServer`` with the same traffic — prefill and decode ms,
+   tokens/s, peak memory, the busy share of profiled decode steps and of a
+   prefill; then the ``ssd_scan`` kernel against its plain version (y and
+   the final state) on layer 0's inputs of a real prefill and on synthetic
+   ones (dt in [0.001, 0.1], a in [-1, -0.1]: slow decay, so a wrong carry
+   across tiles shows), bf16 and fp32; 128 decode steps after a 384-token
+   prefill against one 512-token forward, and the kernel path against the
+   plain path (prefill + 32 decode steps of 2 requests), each in fp32 and
+   in bf16 (the bf16 paths held against the fp32 weights' result);
+10. one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
-Launch counters are zeroed just before each of phases 5, 6, 7 and 8's
-serving run and read just after: every kernel of that path must have
+Launch counters are zeroed just before each of phases 5, 6, 7, 8's and 9's
+serving runs and read just after: every kernel of that path must have
 launched, and a kernel's ``launches`` in the last line is its count from its
 path.
 """
@@ -91,12 +101,38 @@ ATT_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # summation order only.
 LM_BF16_REL = 0.1
 LM_FP32_TOL = (2e-3, 1e-3)   # atol, rtol
+SSM_ARCH = "mamba2_2p7b"
+SSM_SLOTS, SSM_CTX, SSM_REQUESTS, SSM_PROMPT = 8, 1024, 16, 512
+SSM_FORWARD_PROMPT = 384     # + 128 decode steps against one 512 forward
+SSM_TEACHER_STEPS = 32       # kernel path vs plain path, teacher-forced
+# bf16 logits of two paths through mamba2_2p7b: every layer rounds to bf16
+# and the paths' difference grows with depth (~1% of the logits' range at
+# 2 layers, ~2% at 4, in the reference as in the port, from the same
+# weights: tests/test_torch_ssm_drift.py). Each path is held to its
+# counterpart within SSM_BF16_DRIFT_RATIO times how far the counterpart's
+# bf16 run strays from its fp32 run (two paths each no further from fp32
+# than that lie within twice it: the reference's own pairs stay within
+# 1.21x at full width, 2 to 16 layers), at every depth of SSM_DEPTHS and the full 64; at SSM_REL_DEPTH
+# layers also within phase 8's LM_BF16_REL of the range.
+SSM_BF16_DRIFT_RATIO = 2.0
+SSM_DEPTHS = (8, 16, 32)     # first layers of the same weights, + all 64
+SSM_REL_DEPTH = 8
+# ssd_scan vs its plain version: the kernel tiles 64 steps where the plain
+# version takes chunk 128, so fp32 differs by summation order — the
+# reference's chunk-invariance tolerance (atol, rtol), its relative part
+# taken of the magnitude of the terms each output sums (ssd of |x|, dt, a,
+# |b|, |c|: summation error grows with them, and on real inputs y's terms
+# reach ~1e3 and cancel); a bf16 y is two roundings of such values, one
+# bf16 step (2^-7 of |y|) more
+SSD_TOL = (2e-4, 1e-3)
+SSD_BF16_STEP = 2.0 ** -7
 _CU = "src/repro_torch/kernels/csrc/"
 CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
         "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
         "morton_encode": _CU + "morton.cu", "refine_mask": _CU + "refine.cu",
         "flash_attention": _CU + "flash_attention.cu",
-        "decode_attention": _CU + "decode_attention.cu"}
+        "decode_attention": _CU + "decode_attention.cu",
+        "ssd_scan": _CU + "ssd_scan.cu"}
 REPLACES = {"refine_count": "src/repro/kernels/refine.py:391",
             "refine_compact": "src/repro/kernels/refine.py:415",
             "refine_fused": "src/repro/kernels/refine.py:466",
@@ -104,7 +140,8 @@ REPLACES = {"refine_count": "src/repro/kernels/refine.py:391",
             "morton_encode": "src/repro/kernels/morton.py:40",
             "refine_mask": "src/repro/kernels/refine.py:368",
             "flash_attention": "src/repro/kernels/flash_attention.py:79",
-            "decode_attention": "src/repro/kernels/decode_attention.py:64"}
+            "decode_attention": "src/repro/kernels/decode_attention.py:64",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:64"}
 
 
 def log(obj):
@@ -234,6 +271,7 @@ def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
     return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
             else "operations", "bytes": int(nbytes), "ops": int(ops)}
 
+
 def queued_ms(fn, reps: int = 20) -> float:
     """Device time per call of ``fn``, every kernel it launches included,
     without the host's launch work: the stream first spins (~0.1 s,
@@ -259,6 +297,104 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def serve(server, cfg, counters, requests: int, prompt_len: int, ctx: int):
+    """Drive ``server`` as ``main_lm`` does: ``requests`` prompts of
+    ``prompt_len`` tokens with ``main_lm``'s generation lengths (numpy seed
+    0), admitted into free slots, every slot stepped, finished requests
+    retired. Zeroes every launch counter (and the peak memory) just before
+    the first admit. CUDA events time each admit (the prefill) and each
+    step."""
+    import numpy as np
+    import torch
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    slots = server.slots
+    rng = np.random.default_rng(0)
+    queue = [(rng.integers(0, cfg.vocab, prompt_len).astype(np.int32),
+              int(rng.integers(8, ctx - prompt_len)))
+             for _ in range(requests)]
+    prompts = [p for p, _ in queue]
+    gens = [g for _, g in queue]
+    owner = [None] * slots
+    outputs = {}
+    cur = np.zeros(slots, np.int32)
+    prefill_ms, step_ms, active_hist = [], [], []
+    decoded = 0
+    pending = list(range(requests))
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t_run = time.perf_counter()
+    while pending or any(server.active):
+        for s in range(slots):
+            if not server.active[s] and pending:
+                r = pending.pop(0)
+                a, b = events()
+                a.record()
+                server.admit(s, prompts[r], gens[r])
+                b.record()
+                b.synchronize()
+                prefill_ms.append(a.elapsed_time(b))
+                owner[s], cur[s] = r, prompts[r][-1]
+        a, b = events()
+        a.record()
+        nxt = server.step(cur)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        active_hist.append(sum(server.active))
+        for s in range(slots):
+            if server.active[s]:
+                server.generated[s].append(int(nxt[s]))
+                cur[s] = nxt[s]
+                server.remaining[s] -= 1
+                decoded += 1
+                if server.remaining[s] <= 0:
+                    server.active[s] = False
+                    outputs[owner[s]] = list(server.generated[s])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    if sorted(outputs) != list(range(requests)) or any(
+            len(outputs[r]) != gens[r] or min(outputs[r]) < 0
+            or max(outputs[r]) >= cfg.vocab for r in outputs):
+        raise RuntimeError(f"{cfg.name} serving: a request's tokens are "
+                           "missing or out of the vocabulary")
+    return types.SimpleNamespace(
+        prompts=prompts, gens=gens, outputs=outputs, cur=cur,
+        prefill_ms=prefill_ms, step_ms=step_ms, active_hist=active_hist,
+        decoded=decoded, wall=wall)
+
+
+def serving_line(run, slots, ctx, prompt_len, base_mem, launches) -> dict:
+    """The serving run's end-to-end numbers (peak memory since ``serve``
+    reset it)."""
+    import torch
+
+    requests = len(run.prompts)
+    return {
+        "requests": requests, "slots": slots, "max_ctx": ctx,
+        "prompt_len": prompt_len, "generated_tokens": run.decoded,
+        "decode_steps": len(run.step_ms), "wall_s": run.wall,
+        "tokens_per_s": run.decoded / run.wall,
+        "prefill_ms_median": statistics.median(run.prefill_ms),
+        "prefill_ms_first": run.prefill_ms[0],
+        "prefill_ms_min": min(run.prefill_ms),
+        "prefill_ms_max": max(run.prefill_ms),
+        "decode_step_ms_median": statistics.median(run.step_ms),
+        "decode_step_ms_full_batch_median": statistics.median(
+            [t for t, n in zip(run.step_ms, run.active_hist) if n == slots]
+            or [float("nan")]),
+        "decode_step_ms_min": min(run.step_ms),
+        "prefill_s_total": sum(run.prefill_ms) / 1e3,
+        "decode_s_total": sum(run.step_ms) / 1e3,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "memory_before_model_bytes": base_mem,
+        "launches": launches}
+
+
 def lm_phase(katt, counters) -> tuple:
     """8. LM serving on the port: returns ({kernel: result line}, {kernel:
     launches of the serving run})."""
@@ -272,14 +408,6 @@ def lm_phase(katt, counters) -> tuple:
     from repro_torch.launch.serve import SlotServer
     from repro_torch.models import attention as mattn
     from repro_torch.models import transformer as tf
-
-    def leaves(tree):
-        for t in tree.values():
-            yield from leaves(t) if isinstance(t, dict) else (t,)
-
-    def events():
-        return (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
 
     cfg = get_arch(LM_ARCH)
     torch.cuda.synchronize()
@@ -301,84 +429,20 @@ def lm_phase(katt, counters) -> tuple:
                       "init_s": time.perf_counter() - t0}})
 
     # ------------------------------------------------ serve 16 requests
-    rng = np.random.default_rng(0)
-    queue = [(rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32),
-              int(rng.integers(8, LM_CTX - LM_PROMPT)))
-             for _ in range(LM_REQUESTS)]
-    prompts = [p for p, _ in queue]
-    gens = [g for _, g in queue]
-    owner = [None] * LM_SLOTS
-    outputs = {}
-    cur = np.zeros(LM_SLOTS, np.int32)
-    prefill_ms, step_ms, active_hist = [], [], []
-    decoded = 0
-    pending = list(range(LM_REQUESTS))
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    t_run = time.perf_counter()
-    while pending or any(server.active):
-        for s in range(LM_SLOTS):
-            if not server.active[s] and pending:
-                r = pending.pop(0)
-                a, b = events()
-                a.record()
-                server.admit(s, prompts[r], gens[r])
-                b.record()
-                b.synchronize()
-                prefill_ms.append(a.elapsed_time(b))
-                owner[s], cur[s] = r, prompts[r][-1]
-        a, b = events()
-        a.record()
-        nxt = server.step(cur)
-        b.record()
-        b.synchronize()
-        step_ms.append(a.elapsed_time(b))
-        active_hist.append(sum(server.active))
-        for s in range(LM_SLOTS):
-            if server.active[s]:
-                server.generated[s].append(int(nxt[s]))
-                cur[s] = nxt[s]
-                server.remaining[s] -= 1
-                decoded += 1
-                if server.remaining[s] <= 0:
-                    server.active[s] = False
-                    outputs[owner[s]] = list(server.generated[s])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_run
+    run = serve(server, cfg, counters, LM_REQUESTS, LM_PROMPT, LM_CTX)
+    prompts, outputs, cur = run.prompts, run.outputs, run.cur
     launches = {"flash_attention": katt.flash_attention.launches,
                 "decode_attention": katt.decode_attention.launches}
     log({"path": "lm serving", "launches": {
         k: fn.launches for k, fn in counters.items()}})
-    steps = len(step_ms)
+    steps = len(run.step_ms)
     if launches != {"flash_attention": cfg.n_layers * LM_REQUESTS,
                     "decode_attention": cfg.n_layers * steps}:
         raise RuntimeError(f"lm serving: launches {launches}, expected "
                            f"{cfg.n_layers} per prefill ({LM_REQUESTS}) and "
                            f"per decode step ({steps})")
-    if sorted(outputs) != list(range(LM_REQUESTS)) or any(
-            len(outputs[r]) != gens[r] or min(outputs[r]) < 0
-            or max(outputs[r]) >= cfg.vocab for r in outputs):
-        raise RuntimeError("lm serving: a request's tokens are missing or "
-                           "out of the vocabulary")
-    log({"lm_serving": {
-        "requests": LM_REQUESTS, "slots": LM_SLOTS, "max_ctx": LM_CTX,
-        "prompt_len": LM_PROMPT, "generated_tokens": decoded,
-        "decode_steps": steps, "wall_s": wall,
-        "tokens_per_s": decoded / wall,
-        "prefill_ms_median": statistics.median(prefill_ms),
-        "prefill_ms_first": prefill_ms[0],
-        "prefill_ms_min": min(prefill_ms), "prefill_ms_max": max(prefill_ms),
-        "decode_step_ms_median": statistics.median(step_ms),
-        "decode_step_ms_full_batch_median": statistics.median(
-            [t for t, n in zip(step_ms, active_hist) if n == LM_SLOTS]
-            or [float("nan")]),
-        "decode_step_ms_min": min(step_ms),
-        "prefill_s_total": sum(prefill_ms) / 1e3,
-        "decode_s_total": sum(step_ms) / 1e3,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-        "memory_before_model_bytes": base_mem,
-        "launches": launches}})
+    log({"lm_serving": serving_line(run, LM_SLOTS, LM_CTX, LM_PROMPT,
+                                    base_mem, launches)})
     prof_wall, dev, n_kernels = profiled(lambda: server.step(cur), reps=4)
     busy = sum(dev.values())
     log({"lm_decode_profile": {
@@ -569,6 +633,316 @@ def lm_phase(katt, counters) -> tuple:
     return results, launches
 
 
+def ssd_bound(x, dt, b, chunk: int) -> dict:
+    """The least time for ``ssd_scan`` on these inputs: C B^T once per
+    chunk (shared by the heads), and per head and chunk W X, C state and
+    the state update, over the fp32 rate; x, dt, a, B, C read once, y and
+    the fp32 final state written once. The causal mask leaves C B^T and
+    W X only their lower triangle, ch (ch + 1) / 2 of the ch^2 pairs."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    ch = min(chunk, s)
+    nc = -(-s // ch)
+    tri = ch * (ch + 1) // 2
+    ops = bsz * nc * 2 * tri * n + bsz * h * nc * (
+        2 * tri * p + 4 * ch * n * p)
+    nbytes = (2 * x.numel() * x.element_size() + bsz * h * n * p * 4
+              + dt.numel() * 4 + h * 4 + 2 * b.numel() * b.element_size())
+    return bound(nbytes, ops)
+
+
+def ssd_errors(got, want, mag) -> tuple:
+    """(max abs error, worst share of the bound): the bound per element is
+    atol + rtol * mag (the magnitude of the terms the element sums), plus
+    one bf16 step of |plain| for a bf16 output."""
+    atol, rtol = SSD_TOL
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise RuntimeError(f"ssd_scan: {got.dtype} {tuple(got.shape)} "
+                           f"against {want.dtype} {tuple(want.shape)}")
+    d = (got.float() - want.float()).abs()
+    lim = atol + rtol * mag
+    if str(got.dtype) == "torch.bfloat16":
+        lim = lim + SSD_BF16_STEP * want.float().abs()
+    return float(d.max()), float((d / lim).max())
+
+
+def ssm_phase(kssd, counters) -> tuple:
+    """9. SSM serving on the port: returns ({"ssd_scan": result line},
+    {"ssd_scan": launches of the serving run})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import SlotServer
+    from repro_torch.models import ssm as mssm
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch(SSM_ARCH)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    server = SlotServer(cfg, params, SSM_SLOTS, SSM_CTX, DEVICE)
+    torch.cuda.synchronize()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in leaves(server.cache))
+    log({"lm_ssm_model": {
+        "arch": SSM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "d_inner": cfg.d_inner, "ssm_heads": cfg.ssm_heads,
+        "ssm_head_dim": cfg.ssm_head_dim, "ssm_state": cfg.ssm_state,
+        "conv_width": cfg.conv_width, "vocab": cfg.vocab,
+        "dtype": cfg.dtype, "ssd_chunk": cfg.ssd_chunk,
+        "params": sum(t.numel() for t in leaves(params)),
+        "param_count": cfg.param_count(),
+        "weight_bytes": sum(t.numel() * t.element_size()
+                            for t in leaves(params)),
+        "cache_bytes": cache_bytes,
+        "cache_bytes_per_slot": cache_bytes // SSM_SLOTS,
+        "init_s": time.perf_counter() - t0}})
+
+    # ------------------------------------------------ serve 16 requests
+    run = serve(server, cfg, counters, SSM_REQUESTS, SSM_PROMPT, SSM_CTX)
+    prompts, cur = run.prompts, run.cur
+    got = {k: fn.launches for k, fn in counters.items()}
+    log({"path": "lm ssm serving", "launches": got})
+    launches = {"ssd_scan": got["ssd_scan"]}
+    if launches["ssd_scan"] != cfg.n_layers * SSM_REQUESTS or any(
+            n for k, n in got.items() if k != "ssd_scan"):
+        raise RuntimeError(f"ssm serving: launches {got}, expected "
+                           f"ssd_scan {cfg.n_layers} per prefill "
+                           f"({SSM_REQUESTS}) and nothing else")
+    log({"lm_ssm_serving": serving_line(run, SSM_SLOTS, SSM_CTX, SSM_PROMPT,
+                                        base_mem, launches)})
+    for what, fn, reps in (("decode", lambda: server.step(cur), 4),
+                           ("prefill", lambda: server.admit(
+                               0, prompts[0], 1), 1)):
+        prof_wall, dev, n_kernels = profiled(fn, reps=reps)
+        busy = sum(dev.values())
+        log({f"lm_ssm_{what}_profile": {
+            "calls": reps, "wall_ms_per_call": prof_wall,
+            "device_ms_per_call": busy, "device_kernels_per_call": n_kernels,
+            "device_busy_share": busy / prof_wall if dev else None,
+            "top_kernels": dict(sorted(dev.items(),
+                                       key=lambda kv: -kv[1])[:8])}})
+
+    # ------------------------------- the kernel against its plain version
+    # the model reaches the kernel as ``models.ssm.kssd.ssd_scan``: a
+    # stand-in module there keeps layer 0's inputs of a real prefill (the
+    # views into the convolution's output, as the kernel reads them)
+    cap = []
+
+    def grab(*args, **kw):
+        if not cap:
+            cap.extend(args[:5])
+        return kssd.ssd_scan(*args, **kw)
+
+    try:
+        mssm.kssd = types.SimpleNamespace(ssd_scan=grab)
+        server.admit(0, prompts[0], 1)
+    finally:
+        mssm.kssd = kssd
+    x, dt, a, bm, cm = cap
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    synth = (torch.randn(x.shape, device=DEVICE, generator=g),
+             torch.rand(dt.shape, device=DEVICE, generator=g) * 0.099 + 0.001,
+             -(torch.rand(a.shape, device=DEVICE, generator=g) * 0.9 + 0.1),
+             torch.randn(bm.shape, device=DEVICE, generator=g),
+             torch.randn(cm.shape, device=DEVICE, generator=g))
+
+    def as_dtype(args, dtype):
+        return (args[0].to(dtype), args[1], args[2], args[3].to(dtype),
+                args[4].to(dtype))
+
+    cases = [("real bf16", (x, dt, a, bm, cm)),
+             ("real fp32", as_dtype((x, dt, a, bm, cm), torch.float32)),
+             ("synthetic bf16", as_dtype(synth, torch.bfloat16)),
+             ("synthetic fp32", synth)]
+    chunk = cfg.ssd_chunk
+    result = None
+    for case, args in cases:
+        y, st = kssd.ssd_scan(*args, chunk, return_state=True)
+        want_y, want_st = kssd.ssd_scan_plain(*args, chunk, return_state=True)
+        mag_y, mag_st = kssd.ssd_scan_plain(
+            args[0].float().abs(), args[1], args[2], args[3].float().abs(),
+            args[4].float().abs(), chunk, return_state=True)
+        ey, shy = ssd_errors(y, want_y, mag_y)
+        es, shs = ssd_errors(st, want_st, mag_st)
+        line = {"name": f"ssd_scan[{case}]",
+                "shape": {"x": list(x.shape), "b": list(bm.shape)},
+                "strides": {"x": list(args[0].stride()),
+                            "b": list(args[3].stride())},
+                "max_abs_err": ey, "state_max_abs_err": es,
+                "worst_share_of_bound": max(shy, shs),
+                "y_max_abs": float(want_y.float().abs().max()),
+                "y_terms_max_abs": float(mag_y.abs().max()),
+                "state_max_abs": float(want_st.abs().max()),
+                "tolerance": {"atol": SSD_TOL[0],
+                              "rtol_of_terms": SSD_TOL[1],
+                              "rtol_of_y": (SSD_BF16_STEP if "bf16" in case
+                                            else 0.0)}}
+        if not (max(shy, shs) <= 1 and torch.isfinite(y.float()).all()
+                and torch.isfinite(st).all()):
+            raise RuntimeError(f"ssd_scan[{case}]: off its plain version "
+                               f"({line})")
+        if case == "real bf16":       # the main path's inputs: timed
+            line.update({
+                "kernel_ms": queued_ms(lambda: kssd.ssd_scan(
+                    *args, chunk, return_state=True), 50),
+                "event_ms": cuda_ms(lambda: kssd.ssd_scan(
+                    *args, chunk, return_state=True), 25),
+                "plain_ms": queued_ms(lambda: kssd.ssd_scan_plain(
+                    *args, chunk, return_state=True), 20),
+                "plain_event_ms": cuda_ms(lambda: kssd.ssd_scan_plain(
+                    *args, chunk, return_state=True), 10),
+                "library_ms": None,
+                **ssd_bound(x, dt, bm, chunk)})
+            result = line
+        log(line)
+    del cap, synth, cases
+
+    # ----------------- decode against the full forward, through the kernel
+    toks = torch.from_numpy(prompts[0]).to(DEVICE)[None]
+
+    def decode_path(prm, c):
+        """Prefill SSM_FORWARD_PROMPT tokens, then teacher-force the rest of
+        the 512-token prompt one decode step at a time: the logits of
+        positions SSM_FORWARD_PROMPT - 1 .. 511, one row per step."""
+        m = SSM_FORWARD_PROMPT
+        n0 = kssd.ssd_scan.launches
+        last, cache = tf.prefill(prm, c, {"tokens": toks[:, :m]})
+        out = [last]
+        for t in range(m, toks.shape[1]):
+            last, cache = tf.decode_step(prm, c, {"tokens": toks[:, t]},
+                                         cache)
+            out.append(last)
+        if kssd.ssd_scan.launches - n0 != c.n_layers:
+            raise RuntimeError("decode path: the kernel did not run")
+        return torch.cat(out)
+
+    def forward_path(prm, c):
+        """One forward over all 512 tokens: the same positions' logits."""
+        full, _ = tf.forward(prm, c, {"tokens": toks})
+        return full[0, SSM_FORWARD_PROMPT - 1:]
+
+    def teacher_paths(prm, c, n_steps):
+        """Prefill + n decode steps of 2 requests, the same tokens fed to
+        the kernel path and to the plain path (every ssd_scan call by the
+        plain version): {path: logits (n_steps + 1, 2, V)}."""
+        gen = np.random.default_rng(1)
+        two = torch.from_numpy(np.stack(prompts[:2])).to(DEVICE)
+        feed = torch.from_numpy(gen.integers(0, c.vocab, (n_steps, 2)).astype(
+            np.int32)).to(DEVICE)
+        runs = {}
+        for path in ("kernel", "plain"):
+            n0 = kssd.ssd_scan.launches
+            if path == "plain":
+                mssm.kssd = types.SimpleNamespace(
+                    ssd_scan=kssd.ssd_scan_plain)
+            try:
+                logits, cache = tf.prefill(prm, c, {"tokens": two})
+                out = [logits]
+                for t in range(n_steps):
+                    logits, cache = tf.decode_step(prm, c,
+                                                   {"tokens": feed[t]}, cache)
+                    out.append(logits)
+                runs[path] = torch.stack(out)
+            finally:
+                mssm.kssd = kssd
+            n = kssd.ssd_scan.launches - n0
+            if n != (c.n_layers if path == "kernel" else 0):
+                raise RuntimeError(f"the {path} path launched {n} ssd_scan "
+                                   "kernels")
+        return runs
+
+    def errs(a_, b_):
+        """Per step: the largest |a - b| and b's largest magnitude."""
+        return [(max_err(x_, y_), float(y_.abs().max()))
+                for x_, y_ in zip(a_, b_)]
+
+    # fp32 weights (the bf16 weights upcast: the same function) give the
+    # decode path, the forward and the kernel and plain paths without bf16
+    # rounding: held to each other at LM_FP32_TOL, and the anchor of the
+    # bf16 checks
+    del server
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(params, lambda t: t.float())
+    atol32, rtol32 = LM_FP32_TOL
+    fwd32 = forward_path(params32, cfg32)
+    dec32 = decode_path(params32, cfg32)
+    teach32 = teacher_paths(params32, cfg32, SSM_TEACHER_STEPS)
+    report = {
+        "decode_vs_forward[fp32]": [
+            (e, atol32 + rtol32 * r) for e, r in errs(dec32, fwd32)],
+        "kernel_vs_plain[fp32]": [
+            (e, atol32 + rtol32 * r)
+            for e, r in errs(teach32["kernel"], teach32["plain"])]}
+
+    def first(prm, c, n):
+        """The model cut to its first n layers (views of the weights)."""
+        return ({**prm, "blocks": tree_map(prm["blocks"], lambda t: t[:n])},
+                dataclasses.replace(c, n_layers=n))
+
+    # bf16 against depth: the decode path against the forward, each bf16
+    # path's limit SSM_BF16_DRIFT_RATIO times the forward's largest
+    # distance to its fp32 run
+    for n in SSM_DEPTHS + (cfg.n_layers,):
+        if n == cfg.n_layers:
+            f32 = fwd32
+        else:
+            f32 = forward_path(*first(params32, cfg32, n))
+        f16 = forward_path(*first(params, cfg, n))
+        d16 = decode_path(*first(params, cfg, n))
+        gap = errs(d16, f16)
+        drift = max(e for e, _ in errs(f16, f32))
+        rng = float(f32.abs().max())
+        tag = "" if n == cfg.n_layers else f", {n} layers"
+        report[f"decode_vs_forward[bf16{tag}]"] = [
+            (e, SSM_BF16_DRIFT_RATIO * drift) for e, _ in gap]
+        if n == SSM_REL_DEPTH:
+            report[f"decode_vs_forward[bf16{tag}, share of range]"] = [
+                (e, LM_BF16_REL * r) for e, r in gap]
+        log({"lm_ssm_bf16_depth": n, "logits_range": rng,
+             "gap_max": max(e for e, _ in gap), "gap_first": gap[0][0],
+             "forward_drift": drift,
+             "decode_drift": max(e for e, _ in errs(d16, f32)),
+             "gap_share_of_range": max(e for e, _ in gap) / rng,
+             "drift_share_of_range": drift / rng,
+             "gap_over_drift": max(e for e, _ in gap) / drift})
+        del f16, d16
+    del params32
+    torch.cuda.empty_cache()
+    teach16 = teacher_paths(params, cfg, SSM_TEACHER_STEPS)
+    drift = max(e for e, _ in errs(teach16["plain"], teach32["plain"]))
+    report["kernel_vs_plain[bf16]"] = [
+        (e, SSM_BF16_DRIFT_RATIO * drift)
+        for e, _ in errs(teach16["kernel"], teach16["plain"])]
+    log({"lm_ssm_bf16_teacher": "kernel_vs_plain", "plain_drift": drift,
+         "kernel_drift": max(e for e, _ in errs(teach16["kernel"],
+                                                teach32["kernel"]))})
+    failed = []
+    for what, errs_ in report.items():
+        log({"lm_ssm_check": what, "steps": len(errs_) - 1,
+             "max_abs_err": max(e for e, _ in errs_),
+             "limit": min(lim for _, lim in errs_),
+             "per_step": [round(e, 6) for e, _ in errs_]})
+        bad = [i for i, (e, lim) in enumerate(errs_) if not e <= lim]
+        if bad:
+            failed.append(f"ssm {what}: logits off at steps {bad}: "
+                          f"{[errs_[i] for i in bad]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    torch.cuda.empty_cache()
+    return {"ssd_scan": result}, launches
+
+
+def leaves(tree):
+    """Every tensor of a nested dict."""
+    for t in tree.values():
+        yield from leaves(t) if isinstance(t, dict) else (t,)
+
+
 def tree_map(tree, fn):
     """``fn`` on every tensor of a nested dict."""
     return {k: tree_map(t, fn) if isinstance(t, dict) else fn(t)
@@ -602,6 +976,7 @@ def main() -> int:
     from repro_torch.kernels import morton as km
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import refine as kr
+    from repro_torch.kernels import ssd as kssd
 
     r = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                        text=True, timeout=60)
@@ -897,7 +1272,8 @@ def main() -> int:
                 "morton_encode": km.morton_encode,
                 "refine_mask": kr.refine_mask,
                 "flash_attention": katt.flash_attention,
-                "decode_attention": katt.decode_attention}
+                "decode_attention": katt.decode_attention,
+                "ssd_scan": kssd.ssd_scan}
     window_kernels = ("refine_count", "refine_compact", "refine_fused")
     def read_path(path, kernels, keep=None):
         """The counts of one path's run; every kernel of the path must have
@@ -1117,7 +1493,12 @@ def main() -> int:
     results.update(lm_results)
     launches.update(lm_launches)
 
-    # ------------------------------------------------------------- 9. report
+    # ------------------------------------------------------ 9. SSM serving
+    ssm_results, ssm_launches = ssm_phase(kssd, counters)
+    results.update(ssm_results)
+    launches.update(ssm_launches)
+
+    # ------------------------------------------------------------ 10. report
     entries = []
     for k in counters:
         r_ = results[k]

@@ -1,4 +1,4 @@
-"""Architecture configurations of the LM serving slice: the dense family."""
+"""Architecture configurations of the LM serving slice: the dense and SSM families."""
 from .base import ARCH_IDS, ArchConfig, get_arch
 
 __all__ = ["ARCH_IDS", "ArchConfig", "get_arch"]

@@ -4,8 +4,9 @@ variant and ``get_arch``.
 The port's own copy of the reference's ``configs/base.py`` (which the port
 must not import): the dataclass is the same field for field, so a config
 means the same thing in both packages. ``get_arch`` knows only the dense
-configurations this port serves; the other architectures of the reference's
-pool raise ``NotImplementedError`` naming the slice that brings their family.
+and SSM configurations this port serves; the other architectures of the
+reference's pool raise ``NotImplementedError`` naming the slice that brings
+their family.
 """
 from __future__ import annotations
 
@@ -139,14 +140,13 @@ class ArchConfig:
         )
 
 
-# the dense configurations this port serves (modules of this package)
-ARCH_IDS = ["granite_3_2b", "phi4_mini_3p8b", "codeqwen1p5_7b", "granite_34b"]
+# the configurations this port serves (modules of this package)
+ARCH_IDS = ["granite_3_2b", "phi4_mini_3p8b", "codeqwen1p5_7b", "granite_34b",
+            "mamba2_2p7b"]
 
 # the reference's other architectures, with the slice that ports their family
-_NEXT = "the next slice (kernel B9 ssd_scan, mamba2_2p7b serving)"
 _LATER = "a later slice (ROADMAP A10)"
 UNPORTED = {
-    "mamba2_2p7b": f"family 'ssm' (Mamba-2 SSD) comes with {_NEXT}",
     "hymba_1p5b": f"family 'hybrid' (attention + SSM heads) comes with {_LATER}",
     "mixtral_8x22b": f"family 'moe' comes with {_LATER}",
     "qwen3_moe_235b": f"family 'moe' (with qk_norm) comes with {_LATER}",

@@ -7,6 +7,7 @@ refine   GLIN refine stage: candidate count, run compaction, the fused
 knn      the kNN rank's (distance, id) top-k
 morton   Z-address encoding of grid coordinates
 attention  the LM's prefill (flash) and decode attention
+ssd      the Mamba-2 SSD chunked scan of the SSM prefill
 ops      the kernel-level entry point (one function per kernel, with a
          ``use_kernel`` switch to the plain version)
 """
@@ -15,7 +16,8 @@ from .knn import knn_topk
 from .morton import morton_encode
 from .refine import (MAX_COMPACT_BUDGET, refine_compact, refine_count,
                      refine_fused, refine_mask)
+from .ssd import ssd_scan
 
 __all__ = ["MAX_COMPACT_BUDGET", "refine_count", "refine_compact",
            "refine_fused", "refine_mask", "knn_topk", "morton_encode",
-           "flash_attention", "decode_attention"]
+           "flash_attention", "decode_attention", "ssd_scan"]

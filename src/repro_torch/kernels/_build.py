@@ -47,6 +47,7 @@ _SIGNATURES = {
     "glin_morton_encode": [_P, _P, _P, _P, _I, _P],
     "glin_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I] + [_L] * 9 + [_P],
     "glin_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _I] + [_L] * 6 + [_P],
+    "glin_ssd_scan": [_P] * 7 + [_I] * 6 + [_L] * 9 + [_P],
 }
 
 _lock = threading.Lock()

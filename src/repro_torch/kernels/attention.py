@@ -63,19 +63,27 @@ def decode_attention_plain(q, k, v, abs_pos, pos, window: int = 0):
     return torch.einsum("bhk,bhkd->bhd", p, v).to(q.dtype)
 
 
-def _check_rows(name, t, dtype, shape):
-    """dtype and shape, the last dimension contiguous, and every stride and
-    the base 16-byte aligned (the kernels load 16 bytes a lane)."""
+def _check_strided(name, t, dtype, shape):
+    """dtype and shape, and the last dimension contiguous (the other
+    strides are free: the kernels take them as arguments)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: needs a contiguous last dimension, got "
+                         f"strides {t.stride()}")
+
+
+def _check_rows(name, t, dtype, shape):
+    """:func:`_check_strided`, and every stride and the base 16-byte
+    aligned (the kernels load 16 bytes a lane)."""
+    _check_strided(name, t, dtype, shape)
     vec = 16 // t.element_size()
-    if t.stride(-1) != 1 or any(st % vec for st, n in
-                                zip(t.stride()[:-1], t.shape[:-1]) if n > 1):
-        raise ValueError(f"{name}: needs a contiguous last dimension and "
-                         f"16-byte aligned rows, got strides {t.stride()}")
+    if any(st % vec for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1):
+        raise ValueError(f"{name}: needs 16-byte aligned rows, got strides "
+                         f"{t.stride()}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data must be 16-byte aligned")
 

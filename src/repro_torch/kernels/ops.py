@@ -5,14 +5,14 @@ function takes ``use_kernel`` (the reference's ``use_pallas``): with it, a
 CUDA tensor launches the hand-written kernel and a CPU tensor takes the
 kernel's plain version, as the wrappers do; without it, the plain version
 runs on any device. Every function accepts any Q, N and B, and the
-attention functions any S and W.
+attention and SSD functions any S and W.
 """
 from __future__ import annotations
 
-from . import attention, knn, morton, refine
+from . import attention, knn, morton, refine, ssd
 
 __all__ = ["morton_encode", "refine_mask", "refine_count", "refine_compact",
-           "knn_topk", "flash_attention", "decode_attention"]
+           "knn_topk", "flash_attention", "decode_attention", "ssd_scan"]
 
 
 def morton_encode(qx, qy, use_kernel: bool = True):
@@ -73,3 +73,14 @@ def decode_attention(q, k, v, abs_pos, pos, *, window: int = 0,
     if not use_kernel:
         return attention.decode_attention_plain(q, k, v, abs_pos, pos, window)
     return attention.decode_attention(q, k, v, abs_pos, pos, window)
+
+
+def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, use_kernel: bool = True):
+    """Mamba-2 SSD scan. x (B,S,H,P), dt (B,S,H), a (H,), b/c (B,S,N) ->
+    y (B,S,H,P). The reference's chunk rule: ``min(chunk, S)``, or S where
+    that does not divide S."""
+    s = x.shape[1]
+    ch = min(chunk, s) if s and s % min(chunk, s) == 0 else s
+    if not use_kernel:
+        return ssd.ssd_scan_plain(x, dt, a, b, c, max(ch, 1))
+    return ssd.ssd_scan(x, dt, a, b, c, max(ch, 1))

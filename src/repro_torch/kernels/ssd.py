@@ -1,0 +1,113 @@
+"""The Mamba-2 SSD chunked scan for Hopper: ``ssd_scan`` over
+``csrc/ssd_scan.cu`` (sm_90a), with its plain torch version beside it.
+
+Layouts are the reference's: x (B, S, H, P) in fp32 or bf16, dt (B, S, H)
+fp32 (after softplus), a (H,) fp32 (negative), b/c (B, S, N) in x's dtype;
+y (B, S, H, P) in x's dtype and, with ``return_state``, the final state
+(B, H, N, P) fp32. The kernel reads x, dt, b and c through their strides
+(last dimension contiguous): the model hands in views of its convolution's
+output, never a copy. A CUDA tensor takes the kernel, a CPU tensor the plain
+version; ``ssd_scan.launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .attention import _check_strided as _check
+from .refine import _launch, _route
+
+__all__ = ["MAX_STATE", "ssd_scan", "ssd_scan_plain"]
+
+MAX_STATE = 256          # the largest N the kernel takes (shared memory)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def ssd_scan_plain(x, dt, a, b, c, chunk: int = 128,
+                   return_state: bool = False):
+    """``repro.models.ssm.ssd_chunked`` in torch, over every head at once:
+    fp32 throughout, the causal mask selected before ``exp``, y cast to x's
+    dtype. An S that ``chunk`` does not divide gets a zero-padded last chunk
+    (dt = 0 and zero x, b, c: the state and the real outputs stay as they
+    are). Returns y, or (y, final state (B, H, N, P) fp32)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    ch = max(1, min(int(chunk), s))
+    pad = (-s) % ch
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        bf = F.pad(bf, (0, 0, 0, pad))
+        cf = F.pad(cf, (0, 0, 0, pad))
+    nc = (s + pad) // ch
+    xc = xf.reshape(bsz, nc, ch, h, p)
+    dtc = dtf.reshape(bsz, nc, ch, h)
+    bc = bf.reshape(bsz, nc, ch, n)
+    cc = cf.reshape(bsz, nc, ch, n)
+
+    scores = torch.einsum("bcln,bcmn->bclm", cc, bc)        # shared by heads
+    g = torch.cumsum(dtc * a.float(), dim=2)                # (B,NC,L,H)
+    gtot = g[:, :, -1]                                      # (B,NC,H)
+    li = torch.arange(ch, device=x.device)
+    causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
+    delta = torch.where(causal, g[:, :, :, None, :] - g[:, :, None, :, :],
+                        float("-inf"))                      # (B,NC,L,M,H)
+    w = scores[..., None] * torch.exp(delta) * dtc[:, :, None, :, :]
+    y = torch.einsum("bclmh,bcmhp->bclhp", w, xc)
+
+    # chunk summaries U_c = B^T (e^{gtot-g} dt x), carried across chunks
+    xw = xc * (torch.exp(gtot[:, :, None, :] - g) * dtc)[..., None]
+    u = torch.einsum("bcln,bclhp->bchnp", bc, xw)           # (B,NC,H,N,P)
+    decay = torch.exp(gtot)                                 # (B,NC,H)
+    state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    prev = []
+    for i in range(nc):
+        prev.append(state)
+        state = state * decay[:, i, :, None, None] + u[:, i]
+    prev = torch.stack(prev, 1)                             # pre-chunk states
+    y = y + torch.einsum("bcln,bchnp->bclhp", cc, prev) * torch.exp(g)[..., None]
+    y = y.reshape(bsz, nc * ch, h, p)[:, :s].to(x.dtype)
+    return (y, state) if return_state else y
+
+
+def ssd_scan(x, dt, a, b, c, chunk: int = 128, return_state: bool = False):
+    """x (B, S, H, P), dt (B, S, H) fp32, a (H,) fp32, b/c (B, S, N) ->
+    y (B, S, H, P) in x's dtype, or (y, final state (B, H, N, P) fp32).
+
+    Replaces ``ssd_scan_pallas`` (repro/kernels/ssd_scan.py) and adds the
+    final state, which ``ssd_chunked`` returns and the decode cache needs.
+    Bound on this card at the serving shape: operations (fp32 on the CUDA
+    cores). One block per (batch row, head, 32 columns of P) walks 64-step
+    tiles in order with the state in shared memory; the kernel's tile is
+    its own, so ``chunk`` sets only the plain version's chunk (the chunked
+    algorithm computes the same function for any chunk). Any S.
+    """
+    if not _route(x, dt, a, b, c):
+        return ssd_scan_plain(x, dt, a, b, c, chunk, return_state)
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x: dtype {x.dtype}, expected fp32 or bf16")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"state size {n}: the kernel takes 1..{MAX_STATE}")
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk} must be positive")
+    _check("x", x, x.dtype, (bsz, s, h, p))
+    _check("dt", dt, torch.float32, (bsz, s, h))
+    _check("a", a, torch.float32, (h,))
+    _check("b", b, x.dtype, (bsz, s, n))
+    _check("c", c, x.dtype, (bsz, s, n))
+    y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    if not s:
+        state.zero_()                 # the state of an empty sequence
+    elif bsz and h and p:             # the kernel writes every element
+        _launch("glin_ssd_scan", x.device, x, dt, a, b, c, y, state, bsz, s,
+                h, p, n, int(x.dtype == torch.bfloat16), *x.stride()[:3],
+                *dt.stride()[:2], *b.stride()[:2], *c.stride()[:2])
+        ssd_scan.launches += 1
+    return (y, state) if return_state else y
+
+
+ssd_scan.launches = 0

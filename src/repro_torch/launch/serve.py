@@ -2,11 +2,13 @@
 
 ``python -m repro_torch.launch.serve lm ...`` — the continuous-batching LM
 demo: ``--slots`` concurrent sequences in a fixed decode batch, each
-arriving request prefilled on its own and its KV cache spliced into a free
-slot (per-sequence positions keep the slots independent); finished
-sequences free their slot; reports the first prefill's time and tokens/s.
-It runs on the card (``--device cuda``, the default) through the
-``flash_attention`` and ``decode_attention`` kernels, or on the CPU with
+arriving request prefilled on its own and its cache (a dense model's KV
+ring, an SSM's conv window and state) spliced into a free slot
+(per-sequence positions keep the slots independent); finished sequences
+free their slot; reports the first prefill's time and tokens/s. ``--arch``
+picks a dense config (through the ``flash_attention`` and
+``decode_attention`` kernels) or ``mamba2_2p7b`` (through ``ssd_scan``). It
+runs on the card (``--device cuda``, the default), or on the CPU with
 ``--device cpu`` (the kernels' plain versions).
 
 ``python -m repro_torch.launch.serve [spatial] ...`` — the GLIN spatial
@@ -47,7 +49,7 @@ class SlotServer:
 
     def admit(self, slot: int, prompt: np.ndarray, gen_len: int) -> None:
         """Prefill a request at batch 1 and splice every cache leaf (k, v,
-        abs_pos, pos) into ``slot``."""
+        abs_pos, pos; or conv, state) into ``slot`` along axis 1."""
         tokens = torch.as_tensor(np.asarray(prompt)[None, :],
                                  device=self.device)
         _, cache1 = tf.prefill(self.params, self.cfg, {"tokens": tokens},

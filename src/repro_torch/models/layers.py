@@ -1,14 +1,26 @@
-"""Shared transformer layers in PyTorch: RMSNorm, rotary embedding and the
-dense projection, with the reference's rounding points.
+"""Shared transformer layers in PyTorch: the parameter leaf, RMSNorm, rotary
+embedding and the dense projection, with the reference's rounding points.
 
 Weights keep the reference's ``(in, out)`` layout, so :func:`dense` is
 ``x @ w`` and carried weights need no transpose.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional, Tuple
+
 import torch
 
-__all__ = ["he_init", "rms_norm", "rope_tables", "apply_rot", "dense"]
+__all__ = ["Leaf", "he_init", "rms_norm", "rope_tables", "apply_rot", "dense"]
+
+
+class Leaf(NamedTuple):
+    """One parameter of the tree: He-normal over ``fan_in`` inputs, or the
+    constant ``fill`` where ``fan_in`` is None; in ``dtype``, or the model's
+    dtype where that is None."""
+    shape: Tuple[int, ...]
+    fan_in: Optional[int] = None
+    fill: float = 1.0
+    dtype: Optional[torch.dtype] = None
 
 
 def he_init(shape, in_axis_size: int, dtype, generator) -> torch.Tensor:

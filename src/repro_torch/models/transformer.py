@@ -1,11 +1,12 @@
-"""The dense decoder stack in PyTorch: parameters, the full forward, prefill
-and the decode step — the reference's ``models/transformer.py`` for the
-``dense`` family (attention + SwiGLU or GELU MLP, tied or untied head).
+"""The decoder stack in PyTorch: parameters, the full forward, prefill and
+the decode step — the reference's ``models/transformer.py`` for the
+``dense`` family (attention + SwiGLU or GELU MLP, tied or untied head) and
+the ``ssm`` family (the Mamba-2 mixer alone: no attention, no MLP).
 
 Parameters are a dict of tensors shaped as the reference's pytree: per-layer
 weights stacked on a leading layer axis (``params["blocks"]["attn"]["wq"]``
 is (L, d, Hq*Dh)), dense weights (in, out). The stack is a Python loop over
-layer views. The families this slice does not port — ``moe``, ``ssm``,
+layer views. The families this port does not serve yet — ``moe``,
 ``hybrid``, ``vlm`` (M-RoPE), ``audio`` (``embed_stub``), ``qk_norm``,
 meta tokens — raise ``NotImplementedError``; training (remat, the loss)
 waits for a later slice.
@@ -18,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from . import attention as attn
-from .layers import dense, he_init, rms_norm, rope_tables
+from . import ssm
+from .layers import Leaf, dense, he_init, rms_norm, rope_tables
 
 __all__ = ["check_supported", "param_shapes", "init_params", "forward", "prefill",
            "decode_step", "init_cache"]
@@ -29,17 +31,19 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what this slice does not port."""
     why = None
-    if cfg.family == "ssm" or cfg.has_ssm:
-        why = ("the SSM (Mamba-2 SSD) path comes with the next slice (kernel "
-               "B9 ssd_scan, mamba2_2p7b serving)")
-    elif cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         why = f"family {cfg.family!r} comes with a later slice (ROADMAP A10)"
     elif cfg.is_moe or cfg.qk_norm or cfg.mrope or cfg.meta_tokens or (
             cfg.frontend != "text"):
         why = ("MoE, qk_norm, M-RoPE, meta tokens and stub frontends come "
                "with a later slice (ROADMAP A10)")
-    elif not cfg.has_attention or cfg.d_ff <= 0:
-        why = "a dense config needs attention and an MLP"
+    elif cfg.family == "dense" and (not cfg.has_attention or cfg.has_ssm
+                                    or cfg.d_ff <= 0):
+        why = "a dense config needs attention and an MLP, and no SSM"
+    elif cfg.family == "ssm" and (cfg.has_attention or not cfg.has_ssm
+                                  or cfg.d_ff > 0):
+        why = ("an ssm config is the Mamba-2 mixer alone (attention + SSM "
+               "heads are the hybrid family: a later slice, ROADMAP A10)")
     if why:
         raise NotImplementedError(f"{cfg.name}: {why}")
 
@@ -52,27 +56,32 @@ def dtype_of(cfg) -> torch.dtype:
 # Parameters
 # ---------------------------------------------------------------------------
 def param_shapes(cfg) -> Dict[str, Any]:
-    """The parameter tree's leaves as (shape, fan_in); fan_in None marks a
-    norm scale (ones). The reference's ``init_params`` tree, leaf for leaf."""
+    """The parameter tree's :class:`~.layers.Leaf` s (shape, fan-in or fill,
+    dtype): the reference's ``init_params`` tree, leaf for leaf."""
     check_supported(cfg)
     nl, d, f, v = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
     a, kv = cfg.attn_dim, cfg.kv_dim
-    mlp = {"wu": ((nl, d, f), d), "wd": ((nl, f, d), f)}
-    if cfg.mlp_gated:
-        mlp["wg"] = ((nl, d, f), d)
-    tree: Dict[str, Any] = {
-        "embed": ((v, d), d), "final_norm": ((d,), None),
-        "blocks": {"ln1": ((nl, d), None),
-                   "attn": {"wq": ((nl, d, a), d), "wk": ((nl, d, kv), d),
-                            "wv": ((nl, d, kv), d), "wo": ((nl, a, d), a)},
-                   "ln2": ((nl, d), None), "mlp": mlp}}
+    blocks: Dict[str, Any] = {"ln1": Leaf((nl, d))}
+    if cfg.has_ssm:
+        blocks["ssm"] = ssm.ssm_param_shapes(cfg)
+    else:
+        mlp = {"wu": Leaf((nl, d, f), d), "wd": Leaf((nl, f, d), f)}
+        if cfg.mlp_gated:
+            mlp["wg"] = Leaf((nl, d, f), d)
+        blocks.update(
+            attn={"wq": Leaf((nl, d, a), d), "wk": Leaf((nl, d, kv), d),
+                  "wv": Leaf((nl, d, kv), d), "wo": Leaf((nl, a, d), a)},
+            ln2=Leaf((nl, d)), mlp=mlp)
+    tree: Dict[str, Any] = {"embed": Leaf((v, d), d),
+                            "final_norm": Leaf((d,)), "blocks": blocks}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = ((d, v), d)
+        tree["lm_head"] = Leaf((d, v), d)
     return tree
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
-    """Random He-normal weights (norm scales 1), drawn by a
+    """Random He-normal weights (constants where the leaf has a fill: norm
+    scales 1, the SSM's dt_bias 0.5, a_log 0, skip_d 1), drawn by a
     ``torch.Generator`` on ``device``: a full-width model is never built on
     the host. Not the reference's numbers (``jax.random`` differs); carry
     the reference's with ``convert.params_from_reference``."""
@@ -84,10 +93,12 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
         for k, leaf in tree.items():
             if isinstance(leaf, dict):
                 out[k] = make(leaf)
-            elif leaf[1] is None:
-                out[k] = torch.ones(leaf[0], dtype=dtype, device=device)
+            elif leaf.fan_in is None:
+                out[k] = torch.full(leaf.shape, leaf.fill,
+                                    dtype=leaf.dtype or dtype, device=device)
             else:
-                out[k] = he_init(leaf[0], leaf[1], dtype, g)
+                out[k] = he_init(leaf.shape, leaf.fan_in,
+                                 leaf.dtype or dtype, g)
         return out
 
     return make(param_shapes(cfg))
@@ -125,6 +136,18 @@ def _block_decode(x, pl, cfg, cache, rot):
     return x + _mlp_apply(rms_norm(x, pl["ln2"]), pl["mlp"], cfg)
 
 
+def _ssm_block_full(x, pl, cfg, rot):
+    """The ssm family's block: the mixer alone (the reference's
+    ``x + mix / 1``), no MLP."""
+    s_out, cache = ssm.ssm_mixer_full(rms_norm(x, pl["ln1"]), pl["ssm"], cfg)
+    return x + s_out, cache
+
+
+def _ssm_block_decode(x, pl, cfg, cache, rot):
+    return x + ssm.ssm_mixer_decode(rms_norm(x, pl["ln1"]), pl["ssm"], cfg,
+                                    cache)
+
+
 # ---------------------------------------------------------------------------
 # Head
 # ---------------------------------------------------------------------------
@@ -151,19 +174,24 @@ def forward(params, cfg, batch, collect_cache: bool = False,
     """The full-sequence forward without remat (the reference's
     ``forward_train(remat=False)``). batch: {tokens (B,S)[, positions]}.
     Returns (fp32 logits (B,S,V) — (B,1,V) with ``logits_last_only`` —,
-    the per-layer {k, v} list or None)."""
+    the per-layer cache list — {k, v}, or {conv, state} for ssm — or
+    None)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
     b, s = tokens.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(b, s)
-    rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.has_ssm:                     # attention-free: no rope table
+        block, rot = _ssm_block_full, None
+    else:
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=tokens.device)[None].expand(b, s)
+        block = _block_full
+        rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     caches = [] if collect_cache else None
     for pl in _layers(params["blocks"]):
-        x, kv = _block_full(x, pl, cfg, rot)
+        x, kv = block(x, pl, cfg, rot)
         if collect_cache:
             caches.append(kv)
     x = rms_norm(x, params["final_norm"])
@@ -179,9 +207,13 @@ def prefill(params, cfg, batch, seq_len_cache: Optional[int] = None):
     abs_pos (L,B,W), pos (L,B)}}): absolute position p lives in ring slot
     p % W. With W <= S the last W keys are rolled into place; with W > S
     (decode headroom past the prompt) the keys are padded and the empty
-    slots marked -1."""
+    slots marked -1. The ssm family's cache is {"ssm": {conv (L,B,K-1,C),
+    state (L,B,H,N,P) fp32}}, whatever ``seq_len_cache``."""
     logits, caches = forward(params, cfg, batch, collect_cache=True,
                              logits_last_only=True)
+    if cfg.has_ssm:
+        return logits[:, -1], {"ssm": {
+            k: torch.stack([c[k] for c in caches]) for k in ("conv", "state")}}
     k = torch.stack([c["k"] for c in caches])       # (L,B,S,Hkv,Dh)
     v = torch.stack([c["v"] for c in caches])
     nl, b, s_tot = k.shape[:3]
@@ -207,21 +239,28 @@ def prefill(params, cfg, batch, seq_len_cache: Optional[int] = None):
 def decode_step(params, cfg, batch, cache):
     """One decode step. batch: {tokens (B,)}. Returns (fp32 logits (B,V),
     cache) — the same cache dict, updated IN PLACE (each layer's new K/V
-    slot, abs_pos and pos)."""
+    slot, abs_pos and pos; for ssm each layer's conv window and state)."""
     check_supported(cfg)
     x = params["embed"][batch["tokens"].long()][:, None, :]
-    # every layer's pos is the same (prefill sets them together, each step
-    # advances each by one): one rope table serves the whole stack
-    pos = cache["attn"]["pos"][0]
-    rot = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    for pl, lc in zip(_layers(params["blocks"]), _layers(cache["attn"])):
-        x = _block_decode(x, pl, cfg, lc, rot)
+    if cfg.has_ssm:
+        block, rot, layer_caches = _ssm_block_decode, None, cache["ssm"]
+    else:
+        # every layer's pos is the same (prefill sets them together, each
+        # step advances each by one): one rope table serves the whole stack
+        pos = cache["attn"]["pos"][0]
+        block, layer_caches = _block_decode, cache["attn"]
+        rot = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    for pl, lc in zip(_layers(params["blocks"]), _layers(layer_caches)):
+        x = block(x, pl, cfg, lc, rot)
     x = rms_norm(x, params["final_norm"])
     return _lm_head(x[:, 0], params, cfg), cache
 
 
 def init_cache(cfg, batch: int, seq_len: int, device="cuda"):
-    """An empty decode cache for ``batch`` rows of ``seq_len`` context."""
+    """An empty decode cache for ``batch`` rows of ``seq_len`` context (the
+    SSM's cache has no context length)."""
     check_supported(cfg)
+    if cfg.has_ssm:
+        return {"ssm": ssm.init_ssm_cache(cfg, batch, dtype_of(cfg), device)}
     return {"attn": attn.init_decode_cache(cfg, batch, seq_len,
                                            dtype_of(cfg), device)}

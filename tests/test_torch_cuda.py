@@ -1,7 +1,7 @@
 """The CUDA kernels on the card: each against its plain version on the same
 inputs, the facade's kernel paths (window queries and kNN) against its
-host path, and the LM's decode through both attention kernels against its
-full forward.
+host path, and the LM's decode through both attention kernels (dense) or
+the SSD scan (mamba2_2p7b) against its full forward.
 
 Every test here is marked ``gpu`` and skips without a card (decided inside
 the ``cuda`` fixture). The file imports only the port, so it needs nothing
@@ -11,6 +11,10 @@ built with ``--fmad=false`` and must reproduce the plain versions' bounds,
 slot lists, hit layouts and counts exactly; the attention kernels sum in
 another order than the plain versions (online softmax over key tiles), so
 2e-5 in fp32 and 3e-2 in bf16 (absolute), as the reference's kernel tests.
+The SSD scan tiles the sequence in 64 steps where its plain version takes
+the caller's chunk: 2e-4 / 1e-3 (atol / rtol) in fp32, the reference's
+chunk-invariance tolerance, for y and the final state; a bf16 y is two
+roundings of such values, so one bf16 step (2^-7 relative) more.
 """
 import dataclasses
 
@@ -29,6 +33,7 @@ from repro_torch.kernels import attention as katt
 from repro_torch.kernels import knn as kk
 from repro_torch.kernels import morton as km
 from repro_torch.kernels import refine as kr
+from repro_torch.kernels import ssd as kssd
 from repro_torch.models import transformer as tf
 
 RELATIONS = ("intersects", "contains", "covers", "within", "touches",
@@ -362,6 +367,117 @@ def test_lm_decode_matches_forward_through_kernels(cuda, dtype, window):
         dec, cache = tf.decode_step(params, cfg, {"tokens": toks[:, 40 + t]},
                                     cache)
         assert katt.decode_attention.launches == n0 + cfg.n_layers
+        full, _ = tf.forward(params, cfg, {"tokens": toks[:, :41 + t]})
+        torch.testing.assert_close(dec, full[:, -1], atol=max(tol[0], 5e-4),
+                                   rtol=max(tol[1], 1e-2))
+
+
+SSD_TOL = dict(atol=2e-4, rtol=1e-3)
+
+
+def _ssd_inputs(cuda, dtype, b, s, h, p, n, seed, strided=False):
+    """x, dt in [0.001, 0.1], a in [-1, -0.1], b, c (tests/test_kernels.py's
+    ranges). ``strided``: x, b and c are views into one (B, S, H*P + 2N)
+    tensor, as the model's convolution output hands them in."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(b, s, h * p, device=cuda, generator=g)
+    dt = torch.rand(b, s, h, device=cuda, generator=g) * 0.099 + 0.001
+    a = -(torch.rand(h, device=cuda, generator=g) * 0.9 + 0.1)
+    bm = torch.randn(b, s, n, device=cuda, generator=g)
+    cm = torch.randn(b, s, n, device=cuda, generator=g)
+    if strided:
+        x, bm, cm = torch.cat([x, bm, cm], -1).to(dtype).split([h * p, n, n],
+                                                               -1)
+    else:
+        x, bm, cm = x.to(dtype), bm.to(dtype), cm.to(dtype)
+    return x.reshape(b, s, h, p), dt, a, bm, cm
+
+
+def _ssd_close(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = dict(SSD_TOL)
+    if got.dtype == torch.bfloat16:
+        tol["rtol"] += 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 128, 2, 16, 8, 32), (2, 256, 3, 32, 16, 64), (2, 256, 1, 64, 32, 128),
+    (2, 40, 8, 16, 16, 128), (1, 512, 80, 64, 128, 128),
+    (1, 100, 3, 64, 128, 100), (3, 1, 2, 16, 8, 128),
+    (1, 65, 2, 40, 256, 64)])
+def test_ssd_kernel_matches_plain(cuda, dtype, b, s, h, p, n, chunk):
+    """y and the final state: the reference's sweep, the reduced widths (P
+    16, N 16), the serving shape, S that the 64-step tile does not divide
+    (100, 1, 65), P not a multiple of 32 and the largest N."""
+    args = _ssd_inputs(cuda, dtype, b, s, h, p, n, s * 7 + n)
+    n0 = kssd.ssd_scan.launches
+    y, state = kssd.ssd_scan(*args, chunk, return_state=True)
+    assert kssd.ssd_scan.launches == n0 + 1
+    want_y, want_state = kssd.ssd_scan_plain(*args, chunk, return_state=True)
+    _ssd_close(y, want_y)
+    _ssd_close(state, want_state)
+    assert torch.equal(kssd.ssd_scan(*args, chunk), y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_reads_strided_views(cuda, dtype):
+    """x, b and c as views into the convolution's output (rows of H*P + 2N
+    elements) give what contiguous copies give."""
+    args = _ssd_inputs(cuda, dtype, 2, 130, 4, 32, 16, 3, strided=True)
+    assert not args[0].is_contiguous() and not args[3].is_contiguous()
+    y, state = kssd.ssd_scan(*args, return_state=True)
+    dense = [t.contiguous() for t in args]
+    y2, state2 = kssd.ssd_scan(*dense, return_state=True)
+    assert torch.equal(y, y2) and torch.equal(state, state2)
+    want_y, want_state = kssd.ssd_scan_plain(*dense, return_state=True)
+    _ssd_close(y, want_y)
+    _ssd_close(state, want_state)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, a, bm, cm = _ssd_inputs(cuda, torch.float32, 1, 8, 2, 16, 8, 1)
+    with pytest.raises(TypeError):
+        kssd.ssd_scan(x, dt.double(), a, bm, cm)
+    with pytest.raises(TypeError):
+        kssd.ssd_scan(x, dt, a, bm.bfloat16(), cm)
+    with pytest.raises(ValueError):
+        kssd.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                      a, bm, cm)
+    with pytest.raises(ValueError):
+        kssd.ssd_scan(x, dt, a, bm.expand(1, 8, 8).transpose(1, 2), cm)
+    big = torch.zeros(1, 8, kssd.MAX_STATE + 1, device=cuda)
+    with pytest.raises(ValueError):
+        kssd.ssd_scan(x, dt, a, big, big)
+    with pytest.raises(ValueError):
+        kssd.ssd_scan(x, dt, a.cpu(), bm, cm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_decode_matches_forward_through_kernel(cuda, dtype):
+    """Reduced mamba2_2p7b on the card: prefill + 6 decode steps (the
+    prefill's SSD through the kernel, one launch per layer) equal the full
+    forward. bf16 logits of magnitude ~5: 0.25, as the CPU tests' bf16
+    case."""
+    cfg = dataclasses.replace(get_arch("mamba2_2p7b").reduced(), dtype=dtype)
+    params = tf.init_params(cfg, 3, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 46), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(3))
+    tol = (2e-4, 1e-3) if dtype == "float32" else (0.25, 0.0)
+    n0 = kssd.ssd_scan.launches
+    last, cache = tf.prefill(params, cfg, {"tokens": toks[:, :40]})
+    assert kssd.ssd_scan.launches == n0 + cfg.n_layers
+    full, _ = tf.forward(params, cfg, {"tokens": toks[:, :40]})
+    torch.testing.assert_close(last, full[:, -1], atol=tol[0], rtol=tol[1])
+    for t in range(6):
+        dec, cache = tf.decode_step(params, cfg, {"tokens": toks[:, 40 + t]},
+                                    cache)
         full, _ = tf.forward(params, cfg, {"tokens": toks[:, :41 + t]})
         torch.testing.assert_close(dec, full[:, -1], atol=max(tol[0], 5e-4),
                                    rtol=max(tol[1], 1e-2))
