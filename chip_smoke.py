@@ -41,7 +41,11 @@ Phases (any failure raises, and the script exits non-zero):
    from layer 0 of a real prefill and a real decode step (bf16, fp32, and a
    128-slot windowed ring that wraps), decode against the full forward (bf16
    and fp32 weights), and the kernel path against the plain path
-   (teacher-forced prefill + 32 decode steps of 2 requests);
+   (teacher-forced prefill + 32 decode steps of 2 requests); for the two
+   bf16 cases also the launch (blocks, tokens per flash block, the blocks
+   that share a decode row's slots), each kernel's registers, shared memory
+   and spills as ptxas printed them, and the tensor-core instructions in
+   the flash kernel's SASS (``cuobjdump -sass``; not measured without it);
 9. SSM serving: ``mamba2_2p7b`` at full width in bf16 (seed 0) behind the
    same ``SlotServer`` with the same traffic — prefill and decode ms,
    tokens/s, peak memory, the busy share of profiled decode steps and of a
@@ -61,6 +65,7 @@ path.
 """
 import collections
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -293,6 +298,48 @@ def queued_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
+def kernel_resources(key: str):
+    """Registers, static shared memory and spills (ptxas ``-v``) of the
+    built kernel whose mangled name holds ``key``; None when this process
+    loaded an earlier build (ptxas did not run)."""
+    from repro_torch.kernels import _build
+
+    res = _build.kernel_resources()
+    if not res:
+        return None
+    found = {n: r for n, r in res.items() if key in n}
+    if len(found) != 1:
+        raise RuntimeError(f"ptxas lines for {key}: {sorted(found)}")
+    (name, r), = found.items()
+    return {"kernel": name, **r}
+
+
+def sass_tensor_ops(keys: tuple):
+    """{kernel: {"HMMA": n, "HGMMA": n}} over the built library's SASS
+    (``cuobjdump -sass``) for every kernel whose mangled name holds one of
+    ``keys``; None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    r = subprocess.run([tool, "-sass", str(_build.library_path())],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode:
+        raise RuntimeError(f"cuobjdump failed: {r.stderr.strip()}")
+    out, cur = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"HMMA": 0, "HGMMA": 0}) if (
+                any(key in m.group(1) for key in keys)) else None
+        elif cur is not None:
+            for op in cur:
+                cur[op] += bool(re.search(rf"\b{op}\.", line))
+    return out
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -405,6 +452,7 @@ def lm_phase(katt, counters) -> tuple:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
     from repro_torch.launch.serve import SlotServer
     from repro_torch.models import attention as mattn
     from repro_torch.models import transformer as tf
@@ -538,6 +586,35 @@ def lm_phase(katt, counters) -> tuple:
                     q[:, :, None], k, v, attn_mask=mask,
                     enable_gqa=True)[:, :, 0]
             line["live_slots"] = live
+        if name == "flash_attention":
+            shape = katt.flash_plan(b_, k.shape[1], hq // k.shape[1], s_,
+                                    d_, q.dtype)
+            key = shape["kernel"] + (
+                "" if shape["kernel"] == "flash_wgmma_kernel"
+                else f"ILi{d_}E")
+        else:
+            shape = katt.decode_plan(b_, k.shape[1])
+            key = f"decode_split_kernelI13__nv_bfloat16Li{d_}E"
+        report = {"launch": f"{name}[{case}]", **shape,
+                  "resources": kernel_resources(key)}
+        if shape["blocks"] < katt.H100_SMS:
+            raise RuntimeError(f"{name}: {shape['blocks']} blocks on the "
+                               f"card's {katt.H100_SMS} SMs")
+        if name == "flash_attention":
+            report["dynamic_smem_bytes"] = (
+                _build.load().glin_flash_attention_bf16_smem(d_))
+            # every bf16 flash kernel (wgmma at head dim 64, mma.sync at
+            # the others) computes on the tensor cores
+            sass = sass_tensor_ops(("flash_wgmma_kernel", "flash_mma_kernel"))
+            report["sass_tensor_ops"] = (sass if sass is not None
+                                         else "not measured (no cuobjdump)")
+            if sass is not None and (
+                    not any("flash_wgmma_kernel" in f for f in sass)
+                    or any(c["HMMA"] + c["HGMMA"] == 0
+                           for c in sass.values())):
+                raise RuntimeError(f"a bf16 flash kernel without tensor-core "
+                                   f"instructions in its SASS: {sass}")
+        log(report)
         lib_err = max_err(lib(), want)
         line.update({
             "kernel_ms": queued_ms(lambda: kern(*args, window), 50),

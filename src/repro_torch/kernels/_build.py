@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,8 +46,13 @@ _SIGNATURES = {
     "glin_refine_mask": [_P, _P, _P, _P, _I, _I, _P],
     "glin_knn_topk": [_P, _P, _P, _P, _I, _I, _I, _P],
     "glin_morton_encode": [_P, _P, _P, _P, _I, _P],
-    "glin_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I] + [_L] * 9 + [_P],
-    "glin_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _I] + [_L] * 6 + [_P],
+    "glin_flash_attention_bf16": [_P] * 4 + [_I] * 6 + [_F, _I] + [_L] * 9
+    + [_P],
+    "glin_flash_attention_fp32": [_P] * 4 + [_I] * 6 + [_F, _I] + [_L] * 9
+    + [_P],
+    "glin_flash_attention_bf16_smem": [_I],
+    "glin_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _I, _I] + [_L] * 6
+    + [_P],
     "glin_ssd_scan": [_P] * 7 + [_I] * 6 + [_L] * 9 + [_P],
 }
 
@@ -122,6 +128,36 @@ def _compile(out: Path) -> None:
     if failed:
         raise RuntimeError("\n".join(failed) + "\n" + build_log)
     os.replace(tmp, out)
+
+
+def kernel_resources(log: Optional[str] = None) -> dict:
+    """Each kernel's resources as ptxas printed them (``-v``) in ``log``
+    (default :data:`build_log`): {mangled name: {"registers",
+    "smem_static_bytes", "spill_stores_bytes", "spill_loads_bytes"}}.
+    Empty when this process loaded an earlier build. Dynamic shared memory
+    is set at launch and is not in ptxas's lines."""
+    out, cur = {}, None
+    for line in (build_log if log is None else log).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"registers": None,
+                                              "smem_static_bytes": 0,
+                                              "spill_stores_bytes": 0,
+                                              "spill_loads_bytes": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores_bytes"] = int(m.group(1))
+            cur["spill_loads_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem_static_bytes"] = int(m.group(1)) if m else 0
+    return out
 
 
 def load() -> ctypes.CDLL:

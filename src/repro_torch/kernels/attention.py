@@ -8,8 +8,9 @@ for flash; q (B, Hq, D) with k/v (B, Hkv, W, D), ``abs_pos`` (B, W) and
 ``pos`` (B,) for decode — in fp32 or bf16, and read them through their
 strides (last dimension contiguous): the model hands in transposed views of
 its (B, S, H, D) activations and (B, W, Hkv, D) cache, never a copy. A CUDA
-tensor takes the kernel, a CPU tensor the plain version; each wrapper counts
-its kernel launches in ``<wrapper>.launches``.
+tensor takes a kernel, a CPU tensor the plain version; each wrapper counts
+its kernel launches in ``<wrapper>.launches``. :func:`flash_plan` and
+:func:`decode_plan` give each launch's shape (entry point, kernel, grid).
 """
 from __future__ import annotations
 
@@ -20,12 +21,20 @@ import torch
 from .refine import _launch, _route
 
 __all__ = ["NEG_INF", "HEAD_DIMS", "flash_attention", "flash_attention_plain",
-           "decode_attention", "decode_attention_plain"]
+           "decode_attention", "decode_attention_plain", "flash_plan",
+           "decode_plan"]
 
 NEG_INF = -1e30          # the reference's mask fill (not -inf)
 HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the kernels are built for
 MAX_GROUP = 64           # query heads per kv head the flash kernel takes
+FLASH_ROWS = 64          # query rows of a flash block: heads x tokens
+DECODE_MAX_SPLIT = 8     # decode blocks that share a row's slots, at most
+H100_SMS = 132           # decode splits a row's slots until a block an SM
 _DTYPES = (torch.float32, torch.bfloat16)
+# the flash entry point of each dtype: the tensor cores for bf16, the CUDA
+# cores for fp32 (TF32 would miss the fp32 tolerance)
+_FLASH_ENTRY = {torch.bfloat16: "glin_flash_attention_bf16",
+                torch.float32: "glin_flash_attention_fp32"}
 
 
 def flash_attention_plain(q, k, v, window: int = 0):
@@ -99,16 +108,61 @@ def _check_heads(q, k, d):
                          f"group of 1..{MAX_GROUP}")
 
 
+def flash_plan(b: int, hkv: int, group: int, s: int, d: int, dtype) -> dict:
+    """The flash launch for these shapes: its entry point and kernel (bf16:
+    wgmma at head dim 64, mma.sync at the others; fp32: the CUDA cores),
+    the tokens of a block (its 64 rows are the group's heads times that
+    many tokens), the blocks of its grid and their threads."""
+    bq = FLASH_ROWS // group
+    bf16 = dtype == torch.bfloat16
+    kernel = ("flash_fp32_kernel" if not bf16 else "flash_wgmma_kernel"
+              if d == 64 else "flash_mma_kernel")
+    return {"entry": _FLASH_ENTRY[dtype], "kernel": kernel,
+            "tokens_per_block": bq, "blocks": -(-s // bq) * hkv * b,
+            "threads": 128 if bf16 else 256}
+
+
+def decode_plan(b: int, hkv: int) -> dict:
+    """The decode launch for these shapes: ``split`` blocks share each
+    (row, kv head)'s slots, doubled from 1 until the grid has a block for
+    every SM of an H100 or the split reaches 8; grid (split, Hkv, B) of 128
+    threads."""
+    split = 1
+    while split < DECODE_MAX_SPLIT and b * hkv * split < H100_SMS:
+        split *= 2
+    return {"split": split, "blocks": split * hkv * b, "threads": 128}
+
+
+# (device, stream) -> the decode kernel's int32 counters, one per (row, kv
+# head): zero before a launch, and its last block of each row sets its
+# counter back to zero, so they are filled once and never reset
+_DECODE_DONE = {}
+
+
+def _decode_done(device, n: int):
+    stream = (torch.cuda.current_stream(device).cuda_stream
+              if device.type == "cuda" else 0)
+    done = _DECODE_DONE.get((device, stream))
+    if done is None or done.numel() < n:
+        done = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _DECODE_DONE[(device, stream)] = done
+    return done
+
+
 def flash_attention(q, k, v, window: int = 0):
     """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype:
     causal (``window`` = 0) or sliding-window GQA attention.
 
     Replaces ``flash_attention_pallas`` (repro/kernels/flash_attention.py).
     Bound on this card at the prefill's shapes: bytes (q, k, v read once,
-    the output written once). One block per (64-row query tile of the
-    group's heads, kv head, batch row); K/V tiles of 64 keys staged in
-    shared memory; fully masked tiles skipped. The output takes q's layout
-    (``empty_like``), so a transposed view in gives one out.
+    the output written once). One entry point per dtype
+    (:func:`flash_plan`): bf16 on the tensor cores, FlashAttention-2 style
+    (wgmma warpgroup products at head dim 64, mma.sync at the others), fp32
+    on the CUDA cores (TF32 would miss the fp32 tolerance). All: one block
+    per (64-row query tile of the group's heads, kv head, batch row); K/V
+    tiles staged in shared memory; fully masked tiles skipped. The output
+    takes q's layout (``empty_like``), so a transposed view in gives one
+    out.
     """
     if not _route(q, k, v):
         return flash_attention_plain(q, k, v, window)
@@ -123,10 +177,10 @@ def flash_attention(q, k, v, window: int = 0):
                          f"and {v.stride()}")
     out = torch.empty_like(q)         # q's layout where q is a dense view
     if b and s:
-        _launch("glin_flash_attention", q.device, q, k, v, out, b, hq,
-                k.shape[1], s, d, int(window), 1.0 / math.sqrt(d),
-                int(q.dtype == torch.bfloat16), *q.stride()[:3],
-                *k.stride()[:3], *out.stride()[:3])
+        plan = flash_plan(b, k.shape[1], hq // k.shape[1], s, d, q.dtype)
+        _launch(plan["entry"], q.device, q, k, v, out, b, hq, k.shape[1], s,
+                d, int(window), 1.0 / math.sqrt(d), plan["tokens_per_block"],
+                *q.stride()[:3], *k.stride()[:3], *out.stride()[:3])
         flash_attention.launches += 1
     return out
 
@@ -137,9 +191,13 @@ def decode_attention(q, k, v, abs_pos, pos, window: int = 0):
     row against its ring of W slots.
 
     Replaces ``decode_attention_pallas`` (repro/kernels/decode_attention.py).
-    Bound on this card: bytes (the slots' K and V). One block per (kv head,
-    batch row); the group's query heads share one pass over the slots, K/V
-    going from device memory straight to registers.
+    Bound on this card: bytes (the live slots' K and V). Each (row, kv
+    head)'s slots are split over ``split`` blocks (:func:`decode_plan`),
+    each streaming its run of live slots through shared memory with the
+    group's query heads in registers and leaving its partial softmax state
+    in a scratch tensor; in the same launch, the last block of the row to
+    finish (counted on per-stream counters that the kernel leaves at zero)
+    merges them.
     """
     if not _route(q, k, v, abs_pos, pos):
         return decode_attention_plain(q, k, v, abs_pos, pos, window)
@@ -161,10 +219,17 @@ def decode_attention(q, k, v, abs_pos, pos, window: int = 0):
             raise ValueError(f"{name}: needs a contiguous last dimension")
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     if b and w:
+        hkv = k.shape[1]
+        split = decode_plan(b, hkv)["split"]
+        # each block's partial softmax state: per head (acc[D], m, l), and
+        # its live flag
+        part = torch.empty(b * hkv * split * (hq // hkv * (d + 2) + 1),
+                           dtype=torch.float32, device=q.device)
         _launch("glin_decode_attention", q.device, q, k, v, abs_pos, pos,
-                out, b, hq, k.shape[1], w, d, int(window),
-                1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
-                *q.stride()[:2], *k.stride()[:3], abs_pos.stride(0))
+                out, part, _decode_done(q.device, b * hkv), b, hq, hkv, w, d,
+                int(window), 1.0 / math.sqrt(d),
+                int(q.dtype == torch.bfloat16), split, *q.stride()[:2],
+                *k.stride()[:3], abs_pos.stride(0))
         decode_attention.launches += 1
     return out
 

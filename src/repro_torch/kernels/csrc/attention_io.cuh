@@ -1,6 +1,8 @@
 // Loads and stores shared by the attention kernels (flash_attention.cu,
 // decode_attention.cu): 16-byte vector loads of fp32 or bf16 rows converted
-// to fp32, and the output cast (round to nearest even, as torch's .to()).
+// to fp32, the output cast (round to nearest even, as torch's .to()), and
+// the asynchronous 16-byte copies (cp.async) that stage K/V tiles in shared
+// memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,6 +42,29 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory to shared memory, asynchronously; with
+// full = false nothing is read and the 16 bytes are zero-filled. No memory
+// clobber (loads may move across this instruction); cp_async_wait and the
+// barriers order the shared memory it writes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace attn_io

@@ -260,13 +260,32 @@ def _att_err(a, p):
     return float((a.float() - p.float()).abs().max())
 
 
+@pytest.fixture
+def entries(monkeypatch):
+    """The entry points the attention wrappers launch, in order (each launch
+    still goes through)."""
+    names, launch = [], katt._launch
+
+    def spy(name, *args):
+        names.append(name)
+        return launch(name, *args)
+    monkeypatch.setattr(katt, "_launch", spy)
+    return names
+
+
+# head dims 16-256 (each through both entry points), groups 1-64 (48 and 64:
+# one token a block), S from 1 to 513 (ragged last tiles, one exactly 64),
+# windows 1, 5, 16 and 40 (shorter than a key tile) and 64
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hkv,group,s,d,window", [
     (1, 8, 4, 512, 64, 0), (2, 2, 1, 100, 64, 0), (2, 2, 8, 100, 64, 64),
     (1, 1, 48, 70, 128, 0), (3, 2, 3, 130, 128, 64), (1, 4, 4, 1, 64, 0),
-    (2, 1, 2, 33, 16, 0), (1, 2, 2, 65, 256, 16), (1, 2, 4, 40, 32, 1)])
-def test_flash_kernel_matches_plain(cuda, dtype, b, hkv, group, s, d, window):
+    (2, 1, 2, 33, 16, 0), (1, 2, 2, 65, 256, 16), (1, 2, 4, 40, 32, 1),
+    (1, 1, 64, 17, 64, 0), (2, 2, 4, 64, 32, 0), (1, 2, 4, 513, 64, 0),
+    (1, 1, 48, 513, 128, 40), (1, 2, 1, 513, 256, 0), (1, 2, 4, 17, 16, 5)])
+def test_flash_kernel_matches_plain(cuda, entries, dtype, b, hkv, group, s,
+                                    d, window):
     g = torch.Generator(device=cuda).manual_seed(s * 7 + d)
     q = torch.randn(b, hkv * group, s, d, device=cuda, generator=g).to(dtype)
     k = torch.randn(b, hkv, s, d, device=cuda, generator=g).to(dtype)
@@ -274,6 +293,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, hkv, group, s, d, window):
     n0 = katt.flash_attention.launches
     a = katt.flash_attention(q, k, v, window)
     assert katt.flash_attention.launches == n0 + 1
+    assert entries == ["glin_flash_attention_bf16" if dtype == torch.bfloat16
+                       else "glin_flash_attention_fp32"]
     assert _att_err(a, katt.flash_attention_plain(q, k, v, window)) < (
         ATT_TOL[dtype])
 
@@ -294,15 +315,23 @@ def test_flash_kernel_reads_transposed_views(cuda, dtype):
         qt.contiguous(), kt.contiguous(), vt.contiguous(), 0)) < ATT_TOL[dtype]
 
 
-def _decode_inputs(cuda, dtype, b, hkv, group, w, d, seed):
+def _decode_inputs(cuda, dtype, b, hkv, group, w, d, seed, fresh=0):
+    """q and a ring cache (the model's layout, handed in transposed). With
+    ``fresh`` = n every row is a new cache at position n: slots 0..n live,
+    the rest empty (n below W / split puts every live slot in the first
+    block of the cluster). Else positions up to 3 W (rings that wrap), row 0
+    with no live slot and row 1 with scattered empty ones."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn(b, hkv * group, d, device=cuda, generator=g).to(dtype)
-    # the model's cache layout (B, W, Hkv, D), handed in transposed
     k = torch.randn(b, w, hkv, d, device=cuda, generator=g).to(dtype)
     v = torch.randn(b, w, hkv, d, device=cuda, generator=g).to(dtype)
+    slots = torch.arange(w, device=cuda, dtype=torch.int32)[None]
+    if fresh:
+        pos = torch.full((b,), fresh, device=cuda, dtype=torch.int32)
+        ap = torch.where(slots <= fresh, slots, -1).repeat(b, 1)
+        return q, k.transpose(1, 2), v.transpose(1, 2), ap.to(torch.int32), pos
     pos = torch.randint(0, 3 * w, (b,), device=cuda, generator=g,
                         dtype=torch.int32)
-    slots = torch.arange(w, device=cuda, dtype=torch.int32)[None]
     ap = slots + w * torch.div(pos[:, None] - slots, w, rounding_mode="floor")
     ap = torch.where(ap <= pos[:, None], ap, -1).to(torch.int32)
     ap[0] = -1                               # a ring with no live slot
@@ -311,16 +340,24 @@ def _decode_inputs(cuda, dtype, b, hkv, group, w, d, seed):
     return q, k.transpose(1, 2), v.transpose(1, 2), ap, pos
 
 
+# the granite shape; W below the split (8) and not a multiple of it; group
+# 48 and 64; every live slot in the first block's run (fresh = 40 of 1024
+# slots over 8 blocks); windowed rings that wrap (W = window = 128 at
+# positions up to 384, as the model's windowed cache)
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hkv,group,w,d,window", [
-    (8, 8, 4, 1024, 64, 0), (3, 2, 1, 70, 64, 0), (3, 2, 8, 70, 64, 64),
-    (2, 1, 48, 100, 128, 0), (3, 8, 3, 300, 128, 128), (1, 2, 4, 1, 64, 0),
-    (2, 2, 4, 33, 16, 0), (2, 1, 2, 65, 256, 16), (4, 4, 5, 129, 32, 7)])
+@pytest.mark.parametrize("b,hkv,group,w,d,window,fresh", [
+    (8, 8, 4, 1024, 64, 0, 0), (3, 2, 1, 70, 64, 0, 0),
+    (3, 2, 8, 70, 64, 64, 0), (2, 1, 48, 100, 128, 0, 0),
+    (3, 8, 3, 300, 128, 128, 0), (1, 2, 4, 1, 64, 0, 0),
+    (2, 2, 4, 33, 16, 0, 0), (2, 1, 2, 65, 256, 16, 0),
+    (4, 4, 5, 129, 32, 7, 0), (2, 2, 4, 5, 32, 0, 0),
+    (2, 1, 64, 40, 64, 0, 0), (8, 8, 4, 1024, 64, 0, 40),
+    (2, 2, 4, 1000, 128, 0, 3), (8, 2, 4, 128, 64, 128, 0)])
 def test_decode_kernel_matches_plain(cuda, dtype, b, hkv, group, w, d,
-                                     window):
+                                     window, fresh):
     q, k, v, ap, pos = _decode_inputs(cuda, dtype, b, hkv, group, w, d,
-                                      w * 3 + d)
+                                      w * 3 + d, fresh)
     n0 = katt.decode_attention.launches
     a = katt.decode_attention(q, k, v, ap, pos, window)
     assert katt.decode_attention.launches == n0 + 1
