@@ -13,25 +13,36 @@ Phases (any failure raises, and the script exits non-zero):
    polygons, 64-vertex rings; fp32-representable coordinates), indexed by
    ``SpatialIndex.build(gs, device="cuda")``;
 4. each kernel against its plain torch version at the main path's shapes
-   (1024 windows at selectivity 1e-4, budget 256; the compact kernel also
-   on a real first kNN rung's squares, at budget 256 and on its fat rows at
-   a budget of at least 4096; the kNN top-k on that rung's (1024, 256)
-   distances and on a wide (1024, 4096) case; the
-   Morton encoding of every record; the mask of 64 windows over every
-   slot), exact equality of every output, with CUDA-event times, the least
-   time the card could take, and the launches that comparison and its
-   timing made;
+   (1024 windows at selectivity 1e-4, budget 256, both prefilters and all
+   seven fused relations; the compact kernel also on the 32 ladder windows
+   at 1e-3 (the long runs) at budgets 256 and 4096, on a real first kNN
+   rung's squares at budget 256 and on its fat rows at a budget of at
+   least 4096, and through ``ops.refine_compact`` in slot-as-leaf mode on
+   64 windows; the kNN top-k on that rung's (1024, 256) distances and on a
+   wide (1024, 4096) case; the Morton encoding of every record; the mask of
+   64 windows over every slot), exact equality of every output, with
+   CUDA-event times, device times from ``torch.profiler``, the least time
+   the card could take, and the launches that comparison and its timing
+   made; the compact and fused lines also carry what the group -> leaf ->
+   slot walk read (``groups_walked``, ``leaves_walked``,
+   ``meeting_leaf_slots``), ``bound_slot_ms`` (the bound of a per-slot
+   pass over every run slot) and, for fused, the compact kernel's time on
+   the same runs (``fused_minus_compact_ms``: the probe and exact stage);
+   the intersects compact line also times the 32 longest and the 32
+   shortest runs alone;
 5. the window path through the facade: every relation with the default
    (fused kernel) plan, against the plain reference composition, the staged
-   kernel path and the fp64 host path; an overflow-ladder batch at
-   selectivity 1e-3; ``count_candidates``; an insert + delete and the
-   republish;
+   kernel path and the fp64 host path; one fused 1024-window batch under
+   ``torch.profiler`` (device busy share, top kernels, host ms); an
+   overflow-ladder batch at selectivity 1e-3; ``count_candidates``; an
+   insert + delete and the republish;
 6. the kNN path through the facade: 1024 points (the windows' centres) at
    k = 10 and 100, the default plan (top-k and compact kernels) against the
    plain two-key sort and, on 64 points, the fp64 host kNN;
 7. the kernel-level ``ops`` entry point: the Morton keys of every record
    against the host's, the candidate mask against the candidate counts, and
-   both against the entry point's plain side (``use_kernel=False``);
+   both, with the slot-as-leaf compaction, against the entry point's plain
+   side (``use_kernel=False``);
 8. LM serving: ``granite_3_2b`` at full width in bf16 (weights drawn on the
    card from seed 0) behind the port's ``SlotServer``: 8 slots, max_ctx
    1024, 16 requests of 512-token prompts with ``main_lm``'s generation
@@ -259,15 +270,73 @@ def compare(name, got, want) -> dict:
 def covered_slots(bounds, n: int) -> int:
     """Slots inside at least one query's run: overlapping runs read the same
     rows, and the bound counts each input byte once."""
+    return union_size(bounds[:, 0].clamp(0, n).long(),
+                      bounds[:, 1].clamp(0, n).long(), n)
+
+
+def union_size(lo, hi, n: int) -> int:
+    """Slots inside at least one of the half-open ranges [lo, hi)."""
     import torch
 
-    s = bounds[:, 0].clamp(0, n).long()
-    e = bounds[:, 1].clamp(0, n).long()
-    ok = e > s
-    d = torch.zeros(n + 1, dtype=torch.int64, device=bounds.device)
-    d.index_add_(0, s[ok], torch.ones_like(s[ok]))
-    d.index_add_(0, e[ok], -torch.ones_like(e[ok]))
+    ok = hi > lo
+    d = torch.zeros(n + 1, dtype=torch.int64, device=lo.device)
+    d.index_add_(0, lo[ok], torch.ones_like(lo[ok]))
+    d.index_add_(0, hi[ok], -torch.ones_like(hi[ok]))
     return int((d.cumsum(0)[:n] > 0).sum())
+
+
+def walk_work(bounds, probe_w, walk) -> dict:
+    """What the compact and fused kernels' group -> leaf -> slot walk reads
+    for these runs (csrc/refine.cu, walk_run), summed over the queries:
+    the group rows of each run, the leaves tested (those of the groups
+    that meet, inside the run), the leaves that meet and their run slots;
+    and the distinct rows of each table, which the bound counts once."""
+    import torch
+
+    from repro_torch.core.geometry import mbr_intersects
+
+    n, nl = walk.rec_leaf.shape[0], walk.leaf_mbr.shape[0]
+    lo = bounds[:, 0].clamp(0, n).long()
+    hi = bounds[:, 1].clamp(0, n).long()
+    live = torch.nonzero(hi > lo).flatten()
+    lo, hi, w = lo[live], hi[live], probe_w[live]
+    l0 = walk.rec_leaf[lo].long().clamp(min=0)
+    l1 = walk.rec_leaf[hi - 1].long().clamp(max=nl - 1)
+    g0, g1 = l0 // 32, l1 // 32
+    ng = (g1 - g0 + 1).clamp(min=0)
+    qg = torch.repeat_interleave(torch.arange(live.numel(),
+                                              device=bounds.device), ng)
+    start = torch.cumsum(ng, 0) - ng
+    gid = g0[qg] + torch.arange(qg.numel(), device=bounds.device) - start[qg]
+    gm = mbr_intersects(walk.group_mbr[gid], w[qg])
+    mq, mg = qg[gm], gid[gm]
+    leaf = mg[:, None] * 32 + torch.arange(32, device=bounds.device)
+    in_run = (leaf >= l0[mq, None]) & (leaf <= l1[mq, None])
+    leafc = leaf.clamp(max=nl - 1)
+    a = torch.maximum(walk.leaf_start[leafc].long(), lo[mq, None])
+    b = torch.minimum(walk.leaf_start[leafc + 1].long(), hi[mq, None])
+    meets = in_run & (a < b) & mbr_intersects(walk.leaf_mbr[leafc],
+                                              w[mq][:, None, :])
+    return {"groups_walked": int(qg.numel()),
+            "leaves_walked": int(in_run.sum()),
+            "meeting_leaves": int(meets.sum()),
+            "meeting_leaf_slots": int((b - a)[meets].sum()),
+            "distinct_groups": int(torch.unique(gid).numel()),
+            "distinct_leaves": int(torch.unique(leaf[in_run]).numel()),
+            "distinct_slots": union_size(a[meets], b[meets], n)}
+
+
+def walk_bytes_ops(ww: dict, q: int) -> tuple:
+    """Bytes and operations the walk needs: each distinct group row (16 B),
+    tested leaf (its 16 B MBR and 4 B start) and record MBR row of a run
+    slot inside a meeting leaf (16 B) read once, plus each query's two
+    rec_leaf reads; 8 operations per MBR test (4 compares, 3 ands, the
+    compaction's add)."""
+    nbytes = (ww["distinct_groups"] * 16 + ww["distinct_leaves"] * 20
+              + ww["distinct_slots"] * 16 + q * 8)
+    ops = 8 * (ww["groups_walked"] + ww["leaves_walked"]
+               + ww["meeting_leaf_slots"])
+    return nbytes, ops
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
@@ -1135,6 +1204,8 @@ def main() -> int:
 
     q = N_WINDOWS
     rel_i, pw_i, b_i, run_i, cov_i = probe("intersects")
+    # the slice of the kernel-level entry point's checks (mask, compact)
+    wm, bm = pw_i[:MASK_WINDOWS].contiguous(), b_i[:MASK_WINDOWS].contiguous()
     n0 = kr.refine_count.launches
     got = kr.refine_count(pw_i, b_i, rm)
     want = kr.refine_count_plain(pw_i, b_i, rm)
@@ -1151,67 +1222,138 @@ def main() -> int:
     results["refine_count"] = line
     log(line)
 
+    walk = snap.leaf_walk
     for prefilter, rel_name in (("intersects", "intersects"),
                                 ("contains", "within")):
         rel, pw, b, run, cov = probe(rel_name)
         args = (pw, b, lm, rm)
+        kw = dict(budget=BUDGET, prefilter=prefilter, leaves=walk)
         n0 = kr.refine_compact.launches
-        got = kr.refine_compact(*args, budget=BUDGET, prefilter=prefilter)
+        got = kr.refine_compact(*args, **kw)
         want = kr.refine_compact_plain(*args, BUDGET, prefilter)
+        ww = walk_work(b, pw, walk)
+        walk_b, walk_o = walk_bytes_ops(ww, q)
         line = {"name": f"refine_compact[{prefilter}]",
                 "shape": [q, snap.num_slots, BUDGET],
                 **compare(f"refine_compact[{prefilter}]", got, want),
-                "kernel_ms": cuda_ms(lambda: kr.refine_compact(
-                    *args, budget=BUDGET, prefilter=prefilter), 25),
+                "kernel_ms": cuda_ms(lambda: kr.refine_compact(*args, **kw),
+                                     25),
+                "device_ms": device_ms(lambda: kr.refine_compact(*args, **kw),
+                                       "compact_kernel"),
                 "plain_ms": cuda_ms(lambda: kr.refine_compact_plain(
                     *args, BUDGET, prefilter), 3, 1),
                 "survivors": int(got[1].sum()), "run_slots": run,
-                "run_max": run_max(b), "covered_slots": cov,
-                **bound(cov * 32 + q * (28 + BUDGET * 4), run * 12)}
+                "run_max": run_max(b), "covered_slots": cov, **ww,
+                **bound(walk_b + q * (24 + 4 + BUDGET * 4), walk_o),
+                "bound_slot_ms": bound(cov * 32 + q * (28 + BUDGET * 4),
+                                       run * 12)["bound_ms"]}
+        if prefilter == "intersects":
+            # does the batch's time follow its longest runs? The kernel on
+            # the 32 windows with the longest runs and on the 32 shortest
+            order = torch.argsort(b[:, 1] - b[:, 0])
+            for tag, rows in (("longest", order[-32:]),
+                              ("shortest", order[:32])):
+                a32 = (pw[rows].contiguous(), b[rows].contiguous(), lm, rm)
+                line[f"{tag}_32_runs_device_ms"] = device_ms(
+                    lambda: kr.refine_compact(*a32, **kw), "compact_kernel")
+                line[f"{tag}_32_run_slots"] = int(
+                    (a32[1][:, 1] - a32[1][:, 0]).clamp(min=0).sum())
         line["launches"] = kr.refine_compact.launches - n0
         log(line)
         results.setdefault("refine_compact", line)
 
-    pod_i = torch.stack([pods.off, pods.nv, pods.kd, pods.bucket], 1)
-    packed = dev._fused_operands(snap)
+    # the compact kernel on the long runs of the 1e-3 ladder windows, at the
+    # main budget and past the fused kernel's bound
+    wl = torch.from_numpy(wins_hi.astype(np.float32)).to(DEVICE)
+    s_l, e_l = dev.batch_query_bounds(snap, wl, "intersects")
+    b_l = torch.stack([s_l, e_l], 1)
+    pw_l = rel_i.probe_window(wl).contiguous()
+    for budget in (BUDGET, 4096):
+        name = f"refine_compact[ladder 1e-3, budget {budget}]"
+        n0 = kr.refine_compact.launches
+        got = kr.refine_compact(pw_l, b_l, lm, rm, budget=budget, leaves=walk)
+        want = kr.refine_compact_plain(pw_l, b_l, lm, rm, budget,
+                                       "intersects")
+        log({"name": name, "shape": [len(wins_hi), snap.num_slots, budget],
+             **compare(name, got, want), "survivors": int(got[1].sum()),
+             "survivors_max": int(got[1].max()), "run_max": run_max(b_l),
+             **walk_work(b_l, pw_l, walk),
+             "launches": kr.refine_compact.launches - n0})
+    # the kernel-level entry point: the reference's signature has only
+    # slot-aligned tables, so the kernel walks each slot as its own leaf
+    n0 = kr.refine_compact.launches
+    got = kops.refine_compact(wm, bm, lm, rm, budget=BUDGET)
+    want = kops.refine_compact(wm, bm, lm, rm, budget=BUDGET,
+                               use_kernel=False)
+    log({"name": "ops.refine_compact[slot-as-leaf]",
+         "shape": [MASK_WINDOWS, snap.num_slots, BUDGET],
+         **compare("ops.refine_compact", got, want),
+         "kernel_ms": cuda_ms(lambda: kops.refine_compact(
+             wm, bm, lm, rm, budget=BUDGET), 10),
+         "survivors": int(got[1].sum()), "run_max": run_max(bm),
+         "launches": kr.refine_compact.launches - n0})
+
+    packed = snap.fused_operands
     for rel_name in FUSED_RELATIONS:
         rel, pw, b, run, cov = probe(rel_name)
         qkeys = torch.stack(dev._raw_query_keys(snap, w, rel), 1)
-        ops = (w, pw, qkeys, *packed, pod_i, pods.pool, lm, rm)
+        ops = (w, pw, qkeys, *packed, pods.headers, pods.pool, lm, rm)
         kw = dict(budget=BUDGET, prefilter=rel.prefilter_kind, code=rel.code,
                   dist=rel.dist,
                   augment=bool(rel.augment) and snap.pw_zmax_hi.shape[0] > 0,
-                  search_steps=snap.search_steps, depth=snap.depth)
+                  search_steps=snap.search_steps, depth=snap.depth,
+                  leaves=walk)
         n0 = kr.refine_fused.launches
         got = kr.refine_fused(*ops, **kw)
-        want = kr.refine_fused_plain(*ops, **kw)
-        # bytes this run needs, each read once: the covered slots' leaf +
+        want = kr.refine_fused_plain(*ops[:15], **{
+            k: v for k, v in kw.items() if k != "leaves"})
+        # bytes this run needs, each read once: the walked group, leaf and
         # record MBR rows, the survivor slots' record ids, the survivor
         # records' pod headers and vertices, the probe's table reads, the
-        # windows/keys in and the hits/counts out; operations: 12 per
-        # query-slot pair, ~70 per survivor vertex tested
-        slots, _ = kr.refine_compact(pw, b, lm, rm, budget=BUDGET,
-                                     prefilter=rel.prefilter_kind)
+        # windows/keys in and the hits/counts out; operations: 8 per MBR
+        # test, ~70 per survivor vertex tested. bound_slot_ms counts every
+        # run slot's leaf + record MBR rows instead (12 operations a slot).
+        ckw = dict(budget=BUDGET, prefilter=rel.prefilter_kind, leaves=walk)
+        slots, _ = kr.refine_compact(pw, b, lm, rm, **ckw)
         taken = slots >= 0
         recs = snap.recs[slots.clamp(min=0)][taken].long()
         urec = torch.unique(recs)
         surv, pair_verts = int(taken.sum()), int(pods.nv[recs].sum())
         probe_bytes = q * 2 * (snap.depth * 24 + (snap.search_steps + 2) * 8
                                + 48)
-        nbytes = (cov * 32 + int(torch.unique(slots[taken]).numel()) * 4
-                  + int(urec.numel()) * 16 + int(pods.nv[urec].sum()) * 8
-                  + probe_bytes + q * (52 + BUDGET * 4))
+        exact_bytes = (int(torch.unique(slots[taken]).numel()) * 4
+                       + int(urec.numel()) * 16
+                       + int(pods.nv[urec].sum()) * 8 + probe_bytes
+                       + q * (52 + BUDGET * 4))
+        ww = walk_work(b, pw, walk)
+        walk_b, walk_o = walk_bytes_ops(ww, q)
         line = {"name": f"refine_fused[{rel_name}]",
                 "shape": [q, snap.num_slots, BUDGET],
                 **compare(f"refine_fused[{rel_name}]", got, want),
                 "kernel_ms": cuda_ms(lambda: kr.refine_fused(*ops, **kw), 25),
-                "plain_ms": cuda_ms(lambda: kr.refine_fused_plain(*ops, **kw),
-                                    2, 1),
+                "device_ms": device_ms(lambda: kr.refine_fused(*ops, **kw),
+                                       "fused_kernel"),
+                "plain_ms": cuda_ms(lambda: kr.refine_fused_plain(
+                    *ops[:15], **{k: v for k, v in kw.items()
+                                  if k != "leaves"}), 2, 1),
+                # the same runs through the compact kernel alone: the rest
+                # of the fused time is the probe and the exact stage
+                "compact_ms": cuda_ms(lambda: kr.refine_compact(
+                    pw, b, lm, rm, **ckw), 25),
+                "compact_device_ms": device_ms(lambda: kr.refine_compact(
+                    pw, b, lm, rm, **ckw), "compact_kernel"),
                 "survivors": surv, "survivor_vertices": pair_verts,
                 "run_slots": run, "run_max": run_max(b),
-                "covered_slots": cov, "hits": int(got[1].clamp(min=0).sum()),
+                "covered_slots": cov, **ww,
+                "hits": int(got[1].clamp(min=0).sum()),
                 "overflow_rows": int((got[1] < 0).sum()),
-                **bound(nbytes, run * 12 + pair_verts * 70)}
+                **bound(walk_b + exact_bytes, walk_o + pair_verts * 70),
+                "bound_slot_ms": bound(cov * 32 + exact_bytes,
+                                       run * 12 + pair_verts * 70)["bound_ms"]}
+        line["fused_minus_compact_ms"] = line["kernel_ms"] - line["compact_ms"]
+        if line["device_ms"] is not None and line["compact_device_ms"]:
+            line["fused_minus_compact_device_ms"] = (
+                line["device_ms"] - line["compact_device_ms"])
         line["launches"] = kr.refine_fused.launches - n0
         log(line)
         results.setdefault("refine_fused", line)
@@ -1245,7 +1387,7 @@ def main() -> int:
                                 fat_budget)):
         args = (pw_sq[rows].contiguous(), b_sq[rows].contiguous(), lm, rm)
         n0 = kr.refine_compact.launches
-        got = kr.refine_compact(*args, budget=budget)
+        got = kr.refine_compact(*args, budget=budget, leaves=walk)
         want = kr.refine_compact_plain(*args, budget, "intersects")
         log({"name": name, "shape": [int(args[0].shape[0]), snap.num_slots,
                                      budget],
@@ -1322,7 +1464,6 @@ def main() -> int:
     results["morton_encode"] = line
 
     # the candidate mask of MASK_WINDOWS windows over every slot
-    wm, bm = pw_i[:MASK_WINDOWS].contiguous(), b_i[:MASK_WINDOWS].contiguous()
     n0 = kr.refine_mask.launches
     got = kr.refine_mask(wm, bm, rm)
     want = kr.refine_mask_plain(wm, bm, rm)
@@ -1417,6 +1558,25 @@ def main() -> int:
         same(main.ids, staged.ids, f"{rel_name} fused vs staged")
         host = run(idx, "host", wins[:HOST_CHECK], rel_name, backend="host")
         same(main.ids[:HOST_CHECK], host.ids, f"{rel_name} fused vs host")
+
+    # where a fused window batch's time goes: the batch unprofiled (three
+    # runs; the least wall) and once under the profiler. host_ms is the
+    # least wall less the device's busy time.
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        idx.query(QueryBatch.window(wins, "intersects"))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall, devt, nk = profiled(
+        lambda: idx.query(QueryBatch.window(wins, "intersects")))
+    busy = sum(devt.values()) if devt else None
+    log({"window_profile": {
+        "relation": "intersects", "queries": len(wins), "wall_ms": walls,
+        "profiled_wall_ms": wall, "device_ms": busy, "device_kernels": nk,
+        "device_busy_share": busy / min(walls) if devt else None,
+        "host_ms": min(walls) - busy if devt else None,
+        "top_kernels": dict(sorted(devt.items(), key=lambda kv: -kv[1])[:8])}})
 
     ladder = run(idx, "ladder", wins_hi, "intersects")
     if ladder.stages[0].escalations < 1:
@@ -1559,10 +1719,16 @@ def main() -> int:
             kops.morton_encode(qx, qy, use_kernel=False))
     compare("ops.refine_mask", mask,
             kops.refine_mask(wm, bm, rm, use_kernel=False))
+    compare("ops.refine_compact", kops.refine_compact(wm, bm, lm, rm,
+                                                      budget=BUDGET),
+            kops.refine_compact(wm, bm, lm, rm, budget=BUDGET,
+                                use_kernel=False))
     torch.cuda.synchronize()
     log({"batch": "ops", "wall_ms": (time.perf_counter() - t0) * 1e3,
          "records": nrec, "mask_windows": MASK_WINDOWS})
-    launches.update(read_path("ops", ("morton_encode", "refine_mask")))
+    launches.update(read_path("ops", ("morton_encode", "refine_mask",
+                                      "refine_compact"),
+                              keep=("morton_encode", "refine_mask")))
 
     # ------------------------------------------------------ 8. LM serving
     torch.cuda.empty_cache()
@@ -1585,7 +1751,10 @@ def main() -> int:
                         "ms": r_["kernel_ms"], "plain_ms": r_["plain_ms"],
                         "bound_ms": r_["bound_ms"],
                         "bound_by": r_["bound_by"],
-                        "library_ms": r_.get("library_ms")})
+                        "library_ms": r_.get("library_ms"),
+                        **{key: r_[key] for key in (
+                            "device_ms", "bound_slot_ms", "leaves_walked",
+                            "groups_walked") if key in r_}})
     log(card_line())
     log({"kernels": entries})
     log({"ok": True, "device": {"platform": "gpu",

@@ -23,8 +23,9 @@ run on the CPU (tests) and on the card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +39,8 @@ from .zorder import (LO_LIMB_SIZE, ZGrid, mbr_to_zinterval_hilo,
 __all__ = ["GLINSnapshot", "HostCapture", "VertexPods", "pack_pods",
            "pods_from_store", "pods_from_numpy", "snapshot_capture",
            "snapshot_from_capture", "snapshot_from_host",
-           "snapshot_from_numpy", "batch_probe", "batch_query_bounds",
+           "snapshot_from_numpy", "leaf_group_mbrs", "batch_probe",
+           "batch_query_bounds",
            "batch_query", "batch_query_fused", "knn_seed_radii",
            "batch_knn_rank"]
 
@@ -118,6 +120,56 @@ class GLINSnapshot:
     def device(self) -> torch.device:
         return self.keys_hi.device
 
+    # Derived tables of the refine kernels, packed on first use and kept for
+    # the snapshot's life (one publish), never per batch. They are not
+    # SNAPSHOT_FIELDS: a snapshot carried from elsewhere derives them too.
+    @functools.cached_property
+    def fused_operands(self) -> Tuple[torch.Tensor, ...]:
+        """The fused kernel's model tables (:func:`_fused_operands`)."""
+        return _fused_operands(self)
+
+    @functools.cached_property
+    def leaf_walk(self):
+        """The compact and fused kernels' walk tables
+        (``kernels.refine.LeafWalk``), with the group rows of
+        :func:`leaf_group_mbrs`."""
+        from ..kernels.refine import LeafWalk
+
+        return LeafWalk(self.rec_leaf, self.leaf_start, self.leaf_mbr,
+                        leaf_group_mbrs(self.leaf_mbr, self.leaf_start))
+
+
+# leaves per group row of the refine kernels' walk (the warp width)
+LEAF_GROUP = 32
+
+
+def leaf_group_mbrs(leaf_mbr: torch.Tensor,
+                    leaf_start: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """(L, 4) f32 leaf MBRs -> (ceil(L / 32), 4) f32 group rows: row g is
+    the min/max union of the MBRs of leaves [32 g, 32 g + 32) that hold a
+    slot (``leaf_start[l] < leaf_start[l + 1]``; every leaf when
+    ``leaf_start`` is None, as in slot-as-leaf mode).
+
+    Exact in fp32 (min and max select, they never round), so a window the
+    row misses meets none of its leaves. Empty leaves are left out, whatever
+    their rows hold, and so is every NaN coordinate: a leaf with one meets
+    no window, since the meets test compares all four. A group with no such
+    leaf gets (+inf, +inf, -inf, -inf), which meets nothing."""
+    n = leaf_mbr.shape[0]
+    g = -(-n // LEAF_GROUP)
+    keep = torch.ones((n, 1), dtype=torch.bool, device=leaf_mbr.device)
+    if leaf_start is not None:
+        keep = (leaf_start[1:n + 1] > leaf_start[:n])[:, None]
+    lo, hi = leaf_mbr[:, :2], leaf_mbr[:, 2:]
+    lo = torch.where(keep & ~torch.isnan(lo), lo, float("inf"))
+    hi = torch.where(keep & ~torch.isnan(hi), hi, float("-inf"))
+    pad = g * LEAF_GROUP - n
+    lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=float("inf"))
+    hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=float("-inf"))
+    return torch.cat([lo.view(g, LEAF_GROUP, 2).amin(dim=1),
+                      hi.view(g, LEAF_GROUP, 2).amax(dim=1)], dim=1)
+
 
 def snapshot_from_numpy(fields: dict, meta: dict, device) -> GLINSnapshot:
     """Build a snapshot from numpy copies of its tables (``fields``: every
@@ -167,6 +219,12 @@ class VertexPods:
     @property
     def num_buckets(self) -> int:
         return int(math.log2(self.max_width)) + 1
+
+    @functools.cached_property
+    def headers(self) -> torch.Tensor:
+        """(N, 4) int32 ``[off, nv, kind, bucket]``: the fused kernel's pod
+        headers, stacked once per payload."""
+        return torch.stack([self.off, self.nv, self.kd, self.bucket], dim=1)
 
 
 def _pow2ceil(x: int) -> int:
@@ -650,8 +708,9 @@ def batch_query(s: GLINSnapshot, windows: torch.Tensor, pods: VertexPods,
     implementation:
 
     * ``"kernel"`` — ``kernels.refine.refine_compact``: interval + leaf-MBR
-      + record-MBR mask with block-wide prefix-sum compaction over each
-      query's own run (the CUDA kernel on a card, its plain version on the
+      + record-MBR tests with block-wide prefix-sum compaction over each
+      query's own run, walked group -> leaf -> slot over the snapshot's
+      ``leaf_walk`` (the CUDA kernel on a card, its plain version on the
       CPU); capless, ``cap`` only bounds the dense fallback.
     * ``"scan"``   — tensor reference semantics: (Q, cap) candidate window
       from the probe run, masked via the slot-aligned MBR tables, compacted
@@ -677,7 +736,7 @@ def batch_query(s: GLINSnapshot, windows: torch.Tensor, pods: VertexPods,
             bounds = torch.stack([start, end], dim=1)
             slots, mbr_counts = kref.refine_compact(
                 probe_w, bounds, s.slot_lmbr, s.slot_rmbr, budget=kb,
-                prefilter=rel.prefilter_kind)
+                prefilter=rel.prefilter_kind, leaves=s.leaf_walk)
             hits, counts = _exact_refine_compacted(rel, windows, s, pods,
                                                    slots)
             overflow = mbr_counts > kb
@@ -809,13 +868,12 @@ def batch_query_fused(s: GLINSnapshot, windows: torch.Tensor,
     if mode == "kernel":
         zmin_hi, zmin_lo, ub_hi, ub_lo = _raw_query_keys(s, windows, rel)
         qkeys = torch.stack([zmin_hi, zmin_lo, ub_hi, ub_lo], dim=1)
-        pod_i = torch.stack([pods.off, pods.nv, pods.kd, pods.bucket], dim=1)
         return kref.refine_fused(
-            windows, probe_w, qkeys, *_fused_operands(s), pod_i, pods.pool,
-            s.slot_lmbr, s.slot_rmbr, budget=kb,
+            windows, probe_w, qkeys, *s.fused_operands, pods.headers,
+            pods.pool, s.slot_lmbr, s.slot_rmbr, budget=kb,
             prefilter=rel.prefilter_kind, code=rel.code, dist=rel.dist,
             augment=bool(rel.augment) and s.pw_zmax_hi.shape[0] > 0,
-            search_steps=s.search_steps, depth=s.depth)
+            search_steps=s.search_steps, depth=s.depth, leaves=s.leaf_walk)
 
     # "reference": the same probe + capless mask + (Q, kb) compaction +
     # exact stage as plain tensor code

@@ -1,4 +1,6 @@
-// Scalar exact-geometry predicates for the fused refine kernel.
+// Exact-geometry predicates for the fused refine kernel, in two forms: the
+// scalar ones (one thread a pair) and, at the end, the warp_* ones (one warp
+// a pair), which the kernel takes for wide rings.
 //
 // Each function decides one (query window, stored geometry) pair by walking
 // the geometry's nv vertices once. They are the per-record form of the
@@ -292,6 +294,208 @@ __device__ inline bool eval_predicate(int code, const Rect& r, const Ring& g,
     case PRED_TOUCHES: return touches(r, g);
     case PRED_CROSSES: return crosses(r, g);
     case PRED_DWITHIN: return sqdist(r, g) <= dist2;
+    default: return false;
+  }
+}
+
+// ------------------------------------------------ warp-cooperative forms
+// The 32 lanes of a warp decide one (window, ring) pair together: lane i
+// walks vertices i, i + 32, ..., and the votes, counts and minima combine
+// across the warp. Every lane must call with the same ring (control flow is
+// warp-uniform). Booleans combine by any/all and crossing counts by an
+// integer sum, so they equal the scalar loop's; the sqdist minima are
+// fminf over finite values, in any order the same; the vertex mean of
+// contains_proper is summed left to right by lane 0, as the scalar loop does.
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ inline int warp_lane() { return threadIdx.x & 31; }
+
+__device__ inline void warp_ray_cast(const Ring& g, float px, float py, bool& odd,
+                                bool& on_edge) {
+  int crossings = 0;
+  bool on = false;
+  for (int i = warp_lane(); i < g.nv; i += 32) {
+    const int j = g.ring_next(i);
+    const float x1 = g.x(i), y1 = g.y(i), x2 = g.x(j), y2 = g.y(j);
+    const bool straddle = (y1 > py) != (y2 > py);
+    const float denom = y2 - y1;
+    const float denom_safe = denom == 0.0f ? 1.0f : denom;
+    const float xint = x1 + (py - y1) / denom_safe * (x2 - x1);
+    if (straddle && px < xint) ++crossings;
+    const float cross = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1);
+    const bool in_box = px >= fminf(x1, x2) && px <= fmaxf(x1, x2) &&
+                        py >= fminf(y1, y2) && py <= fmaxf(y1, y2);
+    if (cross == 0.0f && in_box) on = true;
+  }
+  odd = (__reduce_add_sync(kFullMask, crossings) % 2) == 1;
+  on_edge = __any_sync(kFullMask, on);
+}
+
+__device__ inline bool warp_covers(const Rect& r, const Ring& g) {
+  bool out = false;
+  for (int i = warp_lane(); i < g.nv; i += 32) out = out || !closed_inside(r, g.x(i), g.y(i));
+  return !__any_sync(kFullMask, out);
+}
+
+__device__ inline bool warp_contains_proper(const Rect& r, const Ring& g) {
+  if (!warp_covers(r, g)) return false;
+  bool wit = false;
+  for (int i = warp_lane(); i < g.nv; i += 32) {
+    const float x = g.x(i), y = g.y(i);
+    const int j = g.seg_next(i);
+    const float mx = (x + g.x(j)) * 0.5f;
+    const float my = (y + g.y(j)) * 0.5f;
+    wit = wit || strict_inside(r, x, y) || strict_inside(r, mx, my);
+  }
+  if (__any_sync(kFullMask, wit)) return true;
+  if (g.kind != kPolygon) return false;
+  bool in = false;
+  if (warp_lane() == 0) {
+    float sx = 0.0f, sy = 0.0f;
+    for (int i = 0; i < g.nv; ++i) {
+      sx = sx + g.x(i);
+      sy = sy + g.y(i);
+    }
+    const float cnt = static_cast<float>(g.nv > 1 ? g.nv : 1);
+    in = strict_inside(r, sx / cnt, sy / cnt);
+  }
+  return __shfl_sync(kFullMask, static_cast<int>(in), 0) != 0;
+}
+
+// any polygon edge (closed ring) or kind-aware segment: hit / open votes
+__device__ inline void warp_edge_votes(const Rect& r, const Ring& g, bool ring,
+                                  bool& hit_any, bool& open_any) {
+  bool h = false, o = false;
+  for (int i = warp_lane(); i < g.nv; i += 32) {
+    const int j = ring ? g.ring_next(i) : g.seg_next(i);
+    bool hit, open;
+    seg_hit_open(r, g.x(i), g.y(i), g.x(j), g.y(j), hit, open);
+    h = h || hit;
+    o = o || open;
+  }
+  hit_any = __any_sync(kFullMask, h);
+  open_any = __any_sync(kFullMask, o);
+}
+
+__device__ inline bool warp_within(const Rect& r, const Ring& g) {
+  if (g.kind != kPolygon) return false;
+  bool hit, open;
+  warp_edge_votes(r, g, true, hit, open);
+  if (open) return false;
+  for (int k = 0; k < 5; ++k) {
+    float px, py;
+    bool odd, on;
+    rect_point(r, k, px, py);
+    warp_ray_cast(g, px, py, odd, on);
+    if (!(odd || on)) return false;
+  }
+  return true;
+}
+
+__device__ inline bool warp_intersects(const Rect& r, const Ring& g) {
+  if (g.kind == kPolygon) {
+    bool hit, open;
+    warp_edge_votes(r, g, true, hit, open);
+    if (hit) return true;
+    for (int k = 0; k < 4; ++k) {
+      float px, py;
+      bool odd, on;
+      rect_point(r, k, px, py);
+      warp_ray_cast(g, px, py, odd, on);
+      if (odd || on) return true;
+    }
+    return false;
+  }
+  bool any = false;
+  for (int i = warp_lane(); i < g.nv; i += 32) {
+    const float x = g.x(i), y = g.y(i);
+    bool h = closed_inside(r, x, y);
+    if (i + 1 < g.nv) {
+      float t0, t1;
+      bool rej;
+      clip_segment(r, x, y, g.x(i + 1) - x, g.y(i + 1) - y, t0, t1, rej);
+      h = h || (t0 <= t1 && !rej);
+    }
+    any = any || h;
+  }
+  return __any_sync(kFullMask, any);
+}
+
+__device__ inline bool warp_interior_intersects(const Rect& r, const Ring& g) {
+  bool hit, open;
+  warp_edge_votes(r, g, false, hit, open);
+  if (open) return true;
+  if (g.kind != kPolygon) return false;
+  float px, py;
+  bool odd, on;
+  rect_point(r, 4, px, py);
+  warp_ray_cast(g, px, py, odd, on);
+  return odd && !on;
+}
+
+__device__ inline bool warp_touches(const Rect& r, const Ring& g) {
+  bool edge_hit, edge_open;
+  warp_edge_votes(r, g, false, edge_hit, edge_open);
+  bool corner_in = false, center_strict = false;
+  for (int k = 0; k < 5; ++k) {
+    float px, py;
+    bool odd, on;
+    rect_point(r, k, px, py);
+    warp_ray_cast(g, px, py, odd, on);
+    if (k < 4)
+      corner_in = corner_in || odd || on;
+    else
+      center_strict = odd && !on;
+  }
+  const bool poly = g.kind == kPolygon;
+  const bool inter = edge_hit || (corner_in && poly);
+  const bool interior = edge_open || (center_strict && poly);
+  return inter && !interior;
+}
+
+__device__ inline bool warp_crosses(const Rect& r, const Ring& g) {
+  return g.kind == kPolyline && warp_interior_intersects(r, g) && !warp_covers(r, g);
+}
+
+__device__ inline float warp_sqdist(const Rect& r, const Ring& g) {
+  if (warp_intersects(r, g)) return 0.0f;
+  float vd2 = 1e30f, sd2 = 1e30f;
+  for (int i = warp_lane(); i < g.nv; i += 32) {
+    const float x = g.x(i), y = g.y(i);
+    const float ddx = fmaxf(fmaxf(r.x0 - x, x - r.x1), 0.0f);
+    const float ddy = fmaxf(fmaxf(r.y0 - y, y - r.y1), 0.0f);
+    vd2 = fminf(vd2, ddx * ddx + ddy * ddy);
+    const int j = g.seg_next(i);
+    const float ex = g.x(j) - x, ey = g.y(j) - y;
+    const float ll = ex * ex + ey * ey;
+    const float ll_safe = ll == 0.0f ? 1.0f : ll;
+    for (int k = 0; k < 4; ++k) {
+      float cx, cy;
+      rect_point(r, k, cx, cy);
+      const float px = cx - x, py = cy - y;
+      float t = (px * ex + py * ey) / ll_safe;
+      t = fminf(fmaxf(t, 0.0f), 1.0f);
+      const float qx = px - t * ex;
+      const float qy = py - t * ey;
+      sd2 = fminf(sd2, qx * qx + qy * qy);
+    }
+  }
+  float d = fminf(vd2, sd2);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) d = fminf(d, __shfl_xor_sync(kFullMask, d, o));
+  return d;
+}
+
+__device__ inline bool warp_eval_predicate(int code, const Rect& r, const Ring& g,
+                                      float dist2) {
+  switch (code) {
+    case PRED_INTERSECTS: return warp_intersects(r, g);
+    case PRED_CONTAINS: return warp_contains_proper(r, g);
+    case PRED_COVERS: return warp_covers(r, g);
+    case PRED_WITHIN: return warp_within(r, g);
+    case PRED_TOUCHES: return warp_touches(r, g);
+    case PRED_CROSSES: return warp_crosses(r, g);
+    case PRED_DWITHIN: return warp_sqdist(r, g) <= dist2;
     default: return false;
   }
 }

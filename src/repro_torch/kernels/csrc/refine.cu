@@ -1,27 +1,32 @@
 // GLIN refine kernels for Hopper (sm_90a): count, compact, fused and mask.
 //
-// Count, compact and fused are per-query walks over the query's own slot
-// run [start, end) of the Z-sorted record table, one thread block per query.
-// The reference TPU kernels (repro/kernels/refine.py) sweep the WHOLE slot
-// table for every query tile and mask slots outside the run, and build a
-// one-hot (rows, slots, budget) scatter because the TPU vector unit has no
-// scatter. Here each block reads only its run and places survivors with a
-// block-wide exclusive prefix sum (warp ballot + popcount, then per-warp
-// offsets in shared memory). The survivor set, its ascending slot order and
-// the total count are the same, because the reference's in-run test zeroes
-// every slot outside the run. The compact kernel writes its survivors
+// compact_kernel replaces refine_compact_pallas and fused_kernel replaces
+// refine_fused_pallas (repro/kernels/refine.py); count_kernel and mask_kernel
+// replace refine_count_pallas and refine_mask_pallas. The TPU kernels sweep
+// the WHOLE slot table for every query tile, mask the slots outside the
+// query's run and place survivors by a one-hot (rows, slots, budget) scatter:
+// a TPU has neither a cheap data-dependent loop nor a scatter.
+//
+// Compact and fused are one thread block per query, walking the query's slot
+// run [start, end) of the Z-sorted record table group -> leaf -> slot
+// (walk_run below). A run averages ~23,000 leaves of ~18 slots at the main
+// path's selectivity, and most of them miss the window: the walk tests the
+// group rows (32 leaves each) of the run, then the leaves of the groups that
+// meet, then the record MBRs of the run slots inside the leaves that meet.
+// What bounds it: latency, one block barrier chain per 256 groups, per 8
+// meeting groups and per 256 slots tested; its bytes are those rows only.
+// The survivor set, its ascending slot order, the total and the overflow
+// code equal a per-slot pass over the run (the reference's in-run test
+// zeroes every slot outside it). The compact kernel writes survivors
 // straight to device memory, so its budget has no bound of its own; the
-// fused kernel keeps them in shared memory (kMaxBudget).
+// fused kernel keeps them in shared memory (kMaxBudget) and then runs the
+// exact predicate over the survivors' vertex pods, ordered by pod width:
+// narrow pods one a thread, wide ones one a warp (geometry.cuh's warp_*
+// forms), so no warp waits on one lane's 64-vertex loop.
 //
-// The mask kernel (the kernel-level ops entry point) writes the whole
-// (Q, N) int8 mask, as refine_mask_pallas did: it is bound by those Q * N
-// output bytes.
-//
-// Bound: bytes. The work is fp32 compares on 16-byte MBR rows, one pass over
-// each run (count: the record MBR; compact/fused: leaf + record MBR), plus,
-// for the fused kernel, the survivors' vertex pods. Loads are float4, and
-// neighbouring threads read neighbouring rows, so each run streams in
-// 512-byte coalesced transactions per warp.
+// Count is one block per query streaming its run's record MBRs; it is bound
+// by those bytes (16 a slot). The mask kernel writes the whole (Q, N) int8
+// mask, as refine_mask_pallas did: it is bound by those Q * N output bytes.
 //
 // Built with --fmad=false: the probe's `slope * key + icpt` and every cross
 // product in geometry.cuh round as separate operations, as the plain torch
@@ -41,6 +46,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBudget = 1024;  // fused survivor list: 4 KB of shared memory
+constexpr int kBins = 64;         // (pod width bucket, kind) keys of the exact stage
+constexpr int kWideBucket = 4;    // pods of 16+ vertices: one warp a survivor
 
 __device__ inline bool mbr_meets(const float4 m, const float4 w) {
   return m.x <= w.z && w.x <= m.z && m.y <= w.w && w.y <= m.w;
@@ -126,43 +133,145 @@ mask_kernel(const float4* __restrict__ win, const int2* __restrict__ bounds,
   }
 }
 
-// ------------------------------------------------------------------ compact
-// One pass over the run: survivors (leaf MBR meets the probe window and the
-// record MBR meets or covers it) go to column = running count + block prefix,
-// written only below the budget; the count is the TOTAL, which may exceed it.
-template <bool kCovers>
-__device__ inline int compact_run(const float4 w, int lo, int hi,
-                                  const float4* __restrict__ lmbr,
-                                  const float4* __restrict__ rmbr, int* out,
-                                  int budget, int* warp_sums) {
-  int running = 0;
-  for (int base = lo; base < hi; base += kThreads) {
-    const int s = base + threadIdx.x;
-    bool keep = false;
-    if (s < hi) {
-      const float4 r = rmbr[s];
-      keep = mbr_meets(lmbr[s], w) && (kCovers ? mbr_covers(r, w) : mbr_meets(r, w));
+// ------------------------------------------------------------------ walk
+// A query's slot run [lo, hi) is walked leaf first: slot_lmbr[s] is
+// leaf_mbr[rec_leaf[s]] by construction (core.device.snapshot_from_capture),
+// so a leaf whose MBR misses the probe window has no survivor in any of its
+// slots, and a group of kGroup leaves whose MBR union misses holds no leaf
+// that meets. Three levels, each in thread order, so the survivors come out
+// in ascending slot order at the running offset, as a per-slot pass would
+// place them:
+//   groups  - one per thread, 256 at a time: the group rows of the run;
+//   leaves  - a warp per meeting group, a lane per leaf: in the run, holding
+//             slots of the run (clipped to [lo, hi)), MBR meets the window;
+//   slots   - the meeting leaves' run slots, flattened by an exclusive sum of
+//             their sizes and tested 256 at a time against the record MBR.
+// Slot-as-leaf mode (kSlotLeaf: the compact kernel under the kernel-level
+// entry point, which has only slot-aligned tables) takes leaf l = slot l and
+// leaf_mbr = the slot-aligned leaf MBRs, with the group rows over 32 slots
+// each.
+constexpr int kGroup = 32;  // leaves per group row: the warp width
+
+struct Walk {
+  const int* rec_leaf;      // (N,) leaf of each slot (unread in slot mode)
+  const int* leaf_start;    // (L+1,) slot offsets (unread in slot mode)
+  const float4* leaf_mbr;   // (L, 4) leaf MBRs (slot mode: (N, 4))
+  const float4* group_mbr;  // (ceil(L / kGroup), 4) unions of kGroup leaves
+  const float4* rmbr;       // (N, 4) record MBRs
+  int num_leaves;           // L (slot mode: N)
+};
+
+struct WalkSmem {
+  int groups[kThreads];      // meeting groups of one 256-group chunk
+  int first[kThreads];       // per thread of a leaf chunk: its leaf's first run slot
+  int offset[kThreads];      // exclusive prefix of the leaves' run slots
+  int warp_sums[kWarps + 1];
+};
+
+// Exclusive prefix of `v` over the block in thread order; `total` gets the
+// block's sum. Every thread of the block must call it.
+__device__ inline int block_exclusive_sum(int v, int* warp_sums, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) warp_sums[warp] = inc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = warp_sums[w];
+      warp_sums[w] = acc;
+      acc += c;
     }
-    int total;
-    const int pos = running + block_exclusive_scan(keep, warp_sums, total);
-    if (keep && pos < budget) out[pos] = s;
-    running += total;
+    warp_sums[kWarps] = acc;
+  }
+  __syncthreads();
+  const int pos = warp_sums[warp] + inc - v;
+  total = warp_sums[kWarps];
+  __syncthreads();
+  return pos;
+}
+
+// Survivors of the run [lo, hi) (leaf MBR meets the probe window, record MBR
+// meets or covers it) go to column = running count, written only below the
+// budget; returns the TOTAL, which may exceed it.
+template <bool kCovers, bool kSlotLeaf>
+__device__ int walk_run(const float4 w, int lo, int hi, const Walk& t, int* out,
+                        int budget, WalkSmem& sm) {
+  if (lo >= hi || t.num_leaves < 1) return 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int l0 = max(kSlotLeaf ? lo : t.rec_leaf[lo], 0);
+  const int l1 = min(kSlotLeaf ? hi - 1 : t.rec_leaf[hi - 1], t.num_leaves - 1);
+  const int g1 = l1 / kGroup;
+  int running = 0;
+  for (int gb = l0 / kGroup; gb <= g1; gb += kThreads) {
+    // groups: exact fp32 min/max unions, so a miss rules out every leaf
+    const int g = gb + threadIdx.x;
+    const bool gm = g <= g1 && mbr_meets(t.group_mbr[g], w);
+    int ng;
+    const int gpos = block_exclusive_scan(gm, sm.warp_sums, ng);
+    if (gm) sm.groups[gpos] = g;
+    __syncthreads();
+    for (int gc = 0; gc < ng; gc += kWarps) {
+      // leaves: the same test as the per-slot pass's on slot_lmbr; an empty
+      // leaf (or one the run's bounds clip to nothing) never counts, whatever
+      // its MBR row holds
+      int a = 0, size = 0;
+      if (gc + warp < ng) {
+        const int l = sm.groups[gc + warp] * kGroup + lane;
+        if (l >= l0 && l <= l1) {
+          const float4 m = t.leaf_mbr[l];
+          a = max(kSlotLeaf ? l : t.leaf_start[l], lo);
+          const int b = min(kSlotLeaf ? l + 1 : t.leaf_start[l + 1], hi);
+          if (a < b && mbr_meets(m, w)) size = b - a;
+        }
+      }
+      int ns;
+      const int off = block_exclusive_sum(size, sm.warp_sums, ns);
+      sm.first[threadIdx.x] = a;
+      sm.offset[threadIdx.x] = off;
+      __syncthreads();
+      // slots: flattened index j lies in the leaf of the last thread whose
+      // offset is <= j (threads without a meeting leaf add 0 and never win)
+      for (int j0 = 0; j0 < ns; j0 += kThreads) {
+        const int j = j0 + threadIdx.x;
+        bool keep = false;
+        int s = 0;
+        if (j < ns) {
+          int k = 0;
+#pragma unroll
+          for (int step = kThreads / 2; step > 0; step >>= 1)
+            if (sm.offset[k + step] <= j) k += step;
+          s = sm.first[k] + (j - sm.offset[k]);
+          const float4 r = t.rmbr[s];
+          keep = kCovers ? mbr_covers(r, w) : mbr_meets(r, w);
+        }
+        int total;
+        const int pos = running + block_exclusive_scan(keep, sm.warp_sums, total);
+        if (keep && pos < budget) out[pos] = s;
+        running += total;
+      }
+    }
   }
   return running;
 }
 
-template <bool kCovers>
+// ------------------------------------------------------------------ compact
+template <bool kCovers, bool kSlotLeaf>
 __global__ void __launch_bounds__(kThreads)
 compact_kernel(const float4* __restrict__ win, const int2* __restrict__ bounds,
-               const float4* __restrict__ lmbr, const float4* __restrict__ rmbr,
-               int* __restrict__ slots, int* __restrict__ counts, int n,
-               int budget) {
-  __shared__ int warp_sums[kWarps + 1];
+               const Walk t, int* __restrict__ slots, int* __restrict__ counts,
+               int n, int budget) {
+  __shared__ WalkSmem sm;
   const int q = blockIdx.x;
   const int2 b = bounds[q];
   int* out = slots + static_cast<int64_t>(q) * budget;
-  const int total = compact_run<kCovers>(win[q], max(b.x, 0), min(b.y, n), lmbr,
-                                         rmbr, out, budget, warp_sums);
+  const int total = walk_run<kCovers, kSlotLeaf>(win[q], max(b.x, 0), min(b.y, n),
+                                                 t, out, budget, sm);
   for (int j = min(total, budget) + threadIdx.x; j < budget; j += kThreads) out[j] = -1;
   if (threadIdx.x == 0) counts[q] = total;
 }
@@ -182,12 +291,11 @@ struct FusedArgs {
   const int4* pw;         // (P, 4) [zmax_hi, zmax_lo, sufmin_hi, sufmin_lo]
   const int4* pod_i;      // (R, 4) [off, nv, kind, bucket]
   const float* pool;      // (V, 2) vertex pods
-  const float4* lmbr;     // (N, 4) slot-aligned leaf MBRs
-  const float4* rmbr;     // (N, 4) slot-aligned record MBRs
+  Walk walk;              // the leaf tables of the walk
   int* hits;              // (Q, budget)
   int* counts;            // (Q,)
   int n, num_leaves, num_pieces, aug_steps, pool_rows;
-  int budget, covers_prefilter, code;
+  int budget, code;
   float dist2;
   int augment, search_steps, depth;
 };
@@ -261,9 +369,10 @@ __device__ int probe_key(const FusedArgs& a, int qh, int ql) {
   return lo;
 }
 
+template <bool kCovers>
 __global__ void __launch_bounds__(kThreads) fused_kernel(const FusedArgs a) {
   __shared__ int surv[kMaxBudget];
-  __shared__ int warp_sums[kWarps + 1];
+  __shared__ WalkSmem sm;
   __shared__ int run[2];
   const int q = blockIdx.x;
 
@@ -277,35 +386,70 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const FusedArgs a) {
   }
   __syncthreads();
 
-  // (b) filter + compact the run into the shared survivor list
-  const float4 pw = a.probe_w[q];
+  // (b) walk the run into the shared survivor list
   const int lo = max(run[0], 0), hi = min(run[1], a.n);
   const int total =
-      a.covers_prefilter
-          ? compact_run<true>(pw, lo, hi, a.lmbr, a.rmbr, surv, a.budget, warp_sums)
-          : compact_run<false>(pw, lo, hi, a.lmbr, a.rmbr, surv, a.budget, warp_sums);
+      walk_run<kCovers, false>(a.probe_w[q], lo, hi, a.walk, surv, a.budget, sm);
   __syncthreads();
 
-  // (c) exact predicate over the survivors, column for column
+  // (c) exact predicate over the survivors, column for column. The
+  // survivors are first ordered by (pod width bucket, kind), so a warp's
+  // lanes take rings of one width and kind: narrow ones (under
+  // 1 << kWideBucket vertices) one a thread, wide ones one a warp, the
+  // lanes splitting its vertices. Each verdict lands in its own column.
   const int taken = min(total, a.budget);
   const float4 wv = a.windows[q];
   const glin::Rect r{wv.x, wv.y, wv.z, wv.w};
   int* out = a.hits + static_cast<int64_t>(q) * a.budget;
-  int found = 0;
-  for (int j = threadIdx.x; j < a.budget; j += kThreads) {
-    int h = -1;
-    if (j < taken) {
-      const int rec = a.recs[surv[j]];
-      const int4 hd = a.pod_i[rec];
-      const glin::Ring g{a.pool, hd.x, hd.y, hd.z, a.pool_rows};
-      if (glin::eval_predicate(a.code, r, g, a.dist2)) {
-        h = rec;
-        ++found;
-      }
-    }
-    out[j] = h;
+  __shared__ int keys[kMaxBudget];
+  __shared__ int order[kMaxBudget];
+  __shared__ int bins[kBins];
+  __shared__ int narrow;
+  for (int i = threadIdx.x; i < kBins; i += kThreads) bins[i] = 0;
+  __syncthreads();
+  for (int j = threadIdx.x; j < taken; j += kThreads) {
+    const int rec = a.recs[surv[j]];
+    const int4 hd = a.pod_i[rec];
+    surv[j] = rec;
+    keys[j] = min(max(hd.w, 0), kBins / 2 - 1) * 2 + (hd.z & 1);
+    atomicAdd(&bins[keys[j]], 1);
   }
-  const int exact_hits = block_sum(found, warp_sums);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int i = 0; i < kBins; ++i) {
+      if (i == 2 * kWideBucket) narrow = acc;
+      const int c = bins[i];
+      bins[i] = acc;
+      acc += c;
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < taken; j += kThreads)
+    order[atomicAdd(&bins[keys[j]], 1)] = j;
+  __syncthreads();
+  int found = 0;
+  for (int t = threadIdx.x; t < narrow; t += kThreads) {
+    const int j = order[t], rec = surv[j];
+    const int4 hd = a.pod_i[rec];
+    const glin::Ring g{a.pool, hd.x, hd.y, hd.z, a.pool_rows};
+    const bool ok = glin::eval_predicate(a.code, r, g, a.dist2);
+    out[j] = ok ? rec : -1;
+    found += ok;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = narrow + warp; t < taken; t += kWarps) {
+    const int j = order[t], rec = surv[j];
+    const int4 hd = a.pod_i[rec];
+    const glin::Ring g{a.pool, hd.x, hd.y, hd.z, a.pool_rows};
+    const bool ok = glin::warp_eval_predicate(a.code, r, g, a.dist2);
+    if (lane == 0) {
+      out[j] = ok ? rec : -1;
+      found += ok;
+    }
+  }
+  for (int j = taken + threadIdx.x; j < a.budget; j += kThreads) out[j] = -1;
+  const int exact_hits = block_sum(found, sm.warp_sums);
   if (threadIdx.x == 0) a.counts[q] = total > a.budget ? -total - 1 : exact_hits;
 }
 
@@ -336,20 +480,28 @@ int glin_refine_mask(const void* windows, const void* bounds, const void* mbrs,
   return static_cast<int>(cudaGetLastError());
 }
 
-int glin_refine_compact(const void* windows, const void* bounds, const void* lmbr,
-                        const void* rmbr, void* slots, void* counts, int q, int n,
-                        int budget, int covers_prefilter, void* stream) {
+int glin_refine_compact(const void* windows, const void* bounds, const void* rec_leaf,
+                        const void* leaf_start, const void* leaf_mbr,
+                        const void* group_mbr, const void* rmbr, void* slots,
+                        void* counts, int q, int n, int num_leaves, int budget,
+                        int covers_prefilter, int slot_leaf, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto w = static_cast<const float4*>(windows);
   auto b = static_cast<const int2*>(bounds);
-  auto l = static_cast<const float4*>(lmbr);
-  auto r = static_cast<const float4*>(rmbr);
-  if (covers_prefilter)
-    compact_kernel<true><<<q, kThreads, 0, s>>>(w, b, l, r, static_cast<int*>(slots),
-                                                static_cast<int*>(counts), n, budget);
+  const Walk t{static_cast<const int*>(rec_leaf), static_cast<const int*>(leaf_start),
+               static_cast<const float4*>(leaf_mbr),
+               static_cast<const float4*>(group_mbr), static_cast<const float4*>(rmbr),
+               num_leaves};
+  auto o = static_cast<int*>(slots);
+  auto c = static_cast<int*>(counts);
+  if (covers_prefilter && slot_leaf)
+    compact_kernel<true, true><<<q, kThreads, 0, s>>>(w, b, t, o, c, n, budget);
+  else if (covers_prefilter)
+    compact_kernel<true, false><<<q, kThreads, 0, s>>>(w, b, t, o, c, n, budget);
+  else if (slot_leaf)
+    compact_kernel<false, true><<<q, kThreads, 0, s>>>(w, b, t, o, c, n, budget);
   else
-    compact_kernel<false><<<q, kThreads, 0, s>>>(w, b, l, r, static_cast<int*>(slots),
-                                                 static_cast<int*>(counts), n, budget);
+    compact_kernel<false, false><<<q, kThreads, 0, s>>>(w, b, t, o, c, n, budget);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,11 +509,12 @@ int glin_refine_fused(const void* windows, const void* probe_w, const void* qkey
                       const void* keys, const void* recs, const void* leaf_i,
                       const void* leaf_f, const void* node_i, const void* node_f,
                       const void* codes, const void* pw, const void* pod_i,
-                      const void* pool, const void* lmbr, const void* rmbr,
+                      const void* pool, const void* rec_leaf, const void* leaf_start,
+                      const void* leaf_mbr, const void* group_mbr, const void* rmbr,
                       void* hits, void* counts, int q, int n, int num_leaves,
                       int num_pieces, int aug_steps, int pool_rows, int budget,
                       int covers_prefilter, int code, float dist2, int augment,
-                      int search_steps, int depth, void* stream) {
+                      int search_steps, int depth, int walk_leaves, void* stream) {
   if (budget < 1 || budget > kMaxBudget) return static_cast<int>(cudaErrorInvalidValue);
   FusedArgs a;
   a.windows = static_cast<const float4*>(windows);
@@ -377,8 +530,10 @@ int glin_refine_fused(const void* windows, const void* probe_w, const void* qkey
   a.pw = static_cast<const int4*>(pw);
   a.pod_i = static_cast<const int4*>(pod_i);
   a.pool = static_cast<const float*>(pool);
-  a.lmbr = static_cast<const float4*>(lmbr);
-  a.rmbr = static_cast<const float4*>(rmbr);
+  a.walk = Walk{static_cast<const int*>(rec_leaf), static_cast<const int*>(leaf_start),
+                static_cast<const float4*>(leaf_mbr),
+                static_cast<const float4*>(group_mbr), static_cast<const float4*>(rmbr),
+                walk_leaves};
   a.hits = static_cast<int*>(hits);
   a.counts = static_cast<int*>(counts);
   a.n = n;
@@ -387,13 +542,16 @@ int glin_refine_fused(const void* windows, const void* probe_w, const void* qkey
   a.aug_steps = aug_steps;
   a.pool_rows = pool_rows;
   a.budget = budget;
-  a.covers_prefilter = covers_prefilter;
   a.code = code;
   a.dist2 = dist2;
   a.augment = augment;
   a.search_steps = search_steps;
   a.depth = depth;
-  fused_kernel<<<q, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (covers_prefilter)
+    fused_kernel<true><<<q, kThreads, 0, s>>>(a);
+  else
+    fused_kernel<false><<<q, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,7 +41,9 @@ def refine_compact(windows, bounds, leaf_mbrs, rec_mbrs, *, budget: int,
     """Mask + compaction: (Q,4) probe windows, (Q,2) i32 slot runs,
     slot-aligned (N,4) leaf/record MBR tables -> (slots (Q, budget) i32
     [-1 padded], counts (Q,) i32 total survivors; ``counts > budget``
-    signals truncation)."""
+    signals truncation). The reference's signature has only slot-aligned
+    tables, so the kernel walks in slot-as-leaf mode (each slot its own
+    leaf, group rows built per call)."""
     if not use_kernel:
         return refine.refine_compact_plain(windows, bounds, leaf_mbrs,
                                            rec_mbrs, budget, prefilter)

@@ -14,6 +14,11 @@ and with its plain torch version beside it:
 * :func:`refine_mask`    — the whole (Q, N) int8 candidate mask (the
   kernel-level ``ops`` entry point; no core path uses it).
 
+Compact and fused walk each run group -> leaf -> slot over the
+:class:`LeafWalk` tables. Compact also walks without them, every slot its
+own leaf (slot-as-leaf mode, for the ``ops`` entry point, which holds only
+slot-aligned tables).
+
 A CUDA tensor always takes the kernel; a CPU tensor always takes the plain
 version (the CPU tests reach the wrappers' layout code that way). Each
 wrapper counts its kernel launches in ``<wrapper>.launches`` — a launch made
@@ -22,22 +27,25 @@ wants the main path's count resets it around that path.
 
 Every plain version processes the whole slot table in query chunks (a
 ``(chunk, N)`` mask of :data:`MASK_CHUNK_ELEMS` elements), so it also runs
-at real store sizes on the card.
+at real store sizes on the card. The plain compact and fused versions test
+every slot against the slot-aligned ``leaf_mbrs``: the per-slot definition
+the walk must reproduce.
 """
 from __future__ import annotations
 
 import math
 from types import SimpleNamespace
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..core import geometry as geom
 
-__all__ = ["MAX_COMPACT_BUDGET", "refine_count", "refine_compact",
-           "refine_fused", "refine_mask", "refine_count_plain",
-           "refine_compact_plain", "refine_fused_plain", "refine_mask_plain",
-           "compact_plain", "fused_probe_plain"]
+__all__ = ["MAX_COMPACT_BUDGET", "LeafWalk", "refine_count",
+           "refine_compact", "refine_fused", "refine_mask",
+           "refine_count_plain", "refine_compact_plain", "refine_fused_plain",
+           "refine_mask_plain", "compact_plain", "fused_probe_plain"]
 
 # The reference package's budget bound (there, its TPU scatter block had to
 # fit fast memory). Kept for the fused kernel and the window ladder so both
@@ -95,6 +103,32 @@ def _launch(name, device, *args):
 
 def _chunk(n: int) -> int:
     return max(1, MASK_CHUNK_ELEMS // max(int(n), 1))
+
+
+class LeafWalk(NamedTuple):
+    """The tables the compact and fused kernels walk a run by (built once
+    per publish: ``core.device.GLINSnapshot.leaf_walk``). The walk equals
+    the per-slot definition when every slot ``s`` of a run lies in
+    ``[leaf_start[rec_leaf[s]], leaf_start[rec_leaf[s] + 1])`` and its
+    slot-aligned leaf MBR is ``leaf_mbr[rec_leaf[s]]``, as a snapshot
+    builds them."""
+
+    rec_leaf: torch.Tensor    # (N,) int32 leaf of each slot, non-decreasing
+    leaf_start: torch.Tensor  # (L+1,) int32 slot offsets
+    leaf_mbr: torch.Tensor    # (L, 4) f32 leaf MBRs
+    group_mbr: torch.Tensor   # (ceil(L / 32), 4) f32 unions of 32 leaves'
+                              # (core.device.leaf_group_mbrs)
+
+
+def _check_walk(leaves: Optional[LeafWalk], n: int) -> None:
+    """The walk operands' dtype and shape, on either device."""
+    if leaves is None:
+        return
+    nl = leaves.leaf_mbr.shape[0]
+    _check("rec_leaf", leaves.rec_leaf, _I32, (n,))
+    _check("leaf_start", leaves.leaf_start, _I32, (nl + 1,))
+    _check("leaf_mbr", leaves.leaf_mbr, _F32, (nl, 4))
+    _check("group_mbr", leaves.group_mbr, _F32, (-(-nl // 32), 4))
 
 
 # ---------------------------------------------------------------- mask
@@ -224,29 +258,36 @@ def refine_compact_plain(windows, bounds, leaf_mbrs, rec_mbrs, budget: int,
 
 
 def refine_compact(windows, bounds, leaf_mbrs, rec_mbrs, *, budget: int,
-                   prefilter: str = "intersects"):
+                   prefilter: str = "intersects",
+                   leaves: Optional[LeafWalk] = None):
     """windows (Q,4) f32 PROBE windows, bounds (Q,2) i32 slot runs,
-    leaf_mbrs/rec_mbrs (N,4) f32 slot-aligned MBR tables -> (slots
-    (Q, budget) i32 [-1 padded, ascending slot order], counts (Q,) i32 TOTAL
-    survivors; ``counts > budget`` means the list is truncated).
+    leaf_mbrs/rec_mbrs (N,4) f32 slot-aligned MBR tables, ``leaves`` the
+    walk's leaf tables (None: each slot its own leaf) -> (slots (Q, budget)
+    i32 [-1 padded, ascending slot order], counts (Q,) i32 TOTAL survivors;
+    ``counts > budget`` means the list is truncated).
 
-    Replaces ``refine_compact_pallas`` (repro/kernels/refine.py). Bound on
-    this card: bytes — each run's leaf and record MBR rows (32 B a slot)
-    read once, plus the (Q, budget) slot list written. One block per query
-    walks its run in 256-slot chunks; survivors take their column from a
-    block-wide exclusive prefix sum (warp ballot + popcount) and are stored
-    directly, in place of the reference's one-hot scatter — so, unlike the
-    fused kernel, any positive budget works (the kNN ladder grows it up to
+    Replaces ``refine_compact_pallas`` (repro/kernels/refine.py). One block
+    per query walks its run group -> leaf -> slot: the group rows of the
+    run, the leaves of the groups that meet, the record MBRs of the run
+    slots inside the leaves that meet. On a card it reads ``leaves`` in
+    place of ``leaf_mbrs``; the plain version tests every slot against
+    ``leaf_mbrs``. What bounds it on this card: latency — a chain of block
+    barriers, one per 256 groups, per 8 meeting groups and per 256 slots
+    tested; the bytes it needs are those rows only. Survivors take their
+    column from a block-wide exclusive prefix sum and are stored directly,
+    in place of the reference's one-hot scatter — so, unlike the fused
+    kernel, any positive budget works (the kNN ladder grows it up to
     ``EngineConfig.max_cap``).
     """
     if prefilter not in PREFILTERS:
         raise ValueError(f"unsupported prefilter {prefilter!r}")
     if budget < 1:
         raise ValueError(f"budget {budget} must be positive")
-    if not _route(windows, bounds, leaf_mbrs, rec_mbrs):
+    q, n = windows.shape[0], leaf_mbrs.shape[0]
+    _check_walk(leaves, n)
+    if not _route(windows, bounds, leaf_mbrs, rec_mbrs, *(leaves or ())):
         return refine_compact_plain(windows, bounds, leaf_mbrs, rec_mbrs,
                                     budget, prefilter)
-    q, n = windows.shape[0], leaf_mbrs.shape[0]
     _check("windows", windows, _F32, (q, 4))
     _check("bounds", bounds, _I32, (q, 2))
     _check("leaf_mbrs", leaf_mbrs, _F32, (n, 4))
@@ -254,9 +295,15 @@ def refine_compact(windows, bounds, leaf_mbrs, rec_mbrs, *, budget: int,
     slots = torch.empty((q, budget), dtype=_I32, device=windows.device)
     counts = torch.empty(q, dtype=_I32, device=windows.device)
     if q:
+        if leaves is None:      # slot-as-leaf: group rows built for the call
+            from ..core.device import leaf_group_mbrs
+
+            walk = (None, None, leaf_mbrs, leaf_group_mbrs(leaf_mbrs), n, 1)
+        else:
+            walk = (*leaves, leaves.leaf_mbr.shape[0], 0)
         _launch("glin_refine_compact", windows.device, windows, bounds,
-                leaf_mbrs, rec_mbrs, slots, counts, q, n, budget,
-                int(prefilter == "contains"))
+                *walk[:4], rec_mbrs, slots, counts, q, n, walk[4], budget,
+                int(prefilter == "contains"), walk[5])
         refine_compact.launches += 1
     return slots, counts
 
@@ -324,33 +371,39 @@ def refine_fused_plain(windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f,
 def refine_fused(windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f, node_i,
                  node_f, codes, pw, pod_i, pool, leaf_mbrs, rec_mbrs, *,
                  budget: int, prefilter: str, code: int, dist: float = 0.0,
-                 augment: bool, search_steps: int, depth: int):
+                 augment: bool, search_steps: int, depth: int,
+                 leaves: Optional[LeafWalk] = None):
     """One-launch probe + compact + exact refine.
 
     Per-query inputs (Q rows): ``windows``/``probe_w`` (Q, 4) f32 raw and
     relation-padded windows, ``qkeys`` (Q, 4) i32 pre-augmentation
-    ``[zmin_hi, zmin_lo, ub_hi, ub_lo]`` keys. Tables (packed by
-    ``core.device._fused_operands``): ``keys`` (N, 2) i32, ``recs`` (N, 1)
-    i32, ``leaf_i`` (L+1, 5) i32 ``[start, dlo_hi, dlo_lo, k0_hi, k0_lo]``,
-    ``leaf_f`` (L+1, 2) f32 ``[slope, icpt]``, ``node_i`` (M, 4) i32
-    ``[dlo_hi, dlo_lo, fanout, child_base]``, ``node_f`` (M, 1) f32,
-    ``codes`` (C, 1) i32, ``pw`` (P, 4) i32 ``[zmax_hi, zmax_lo, sufmin_hi,
-    sufmin_lo]``, ``pod_i`` (R, 4) i32 ``[off, nv, kind, bucket]``, ``pool``
-    (V, 2) f32 vertex pods, ``leaf_mbrs``/``rec_mbrs`` (N, 4) f32. ``code``
-    is the relation's predicate code (``geometry.PRED_*``), ``dist`` the
+    ``[zmin_hi, zmin_lo, ub_hi, ub_lo]`` keys. Tables (packed once per
+    publish: ``core.device.GLINSnapshot.fused_operands``): ``keys`` (N, 2)
+    i32, ``recs`` (N, 1) i32, ``leaf_i`` (L+1, 5) i32 ``[start, dlo_hi,
+    dlo_lo, k0_hi, k0_lo]``, ``leaf_f`` (L+1, 2) f32 ``[slope, icpt]``,
+    ``node_i`` (M, 4) i32 ``[dlo_hi, dlo_lo, fanout, child_base]``,
+    ``node_f`` (M, 1) f32, ``codes`` (C, 1) i32, ``pw`` (P, 4) i32
+    ``[zmax_hi, zmax_lo, sufmin_hi, sufmin_lo]``, ``pod_i`` (R, 4) i32
+    ``[off, nv, kind, bucket]``, ``pool`` (V, 2) f32 vertex pods,
+    ``leaf_mbrs``/``rec_mbrs`` (N, 4) f32 (the plain version tests every
+    slot against ``leaf_mbrs``), ``leaves`` the walk's leaf tables (the
+    kernel needs them; the plain version does not). ``code`` is the
+    relation's predicate code (``geometry.PRED_*``), ``dist`` the
     ``dwithin`` distance.
 
     Returns ``(hits (Q, budget) i32 [record id where the exact predicate
     holds, else -1, column for column over the survivors], counts (Q,) i32
     exact hits, or -(survivors) - 1 when the survivors exceed the budget)``.
 
-    Replaces ``refine_fused_pallas`` (repro/kernels/refine.py). Bound on
-    this card: bytes — each run's leaf and record MBR rows (32 B a slot),
-    the survivors' record ids, pod headers and vertices, and the (Q, budget)
-    hits written. One block per query: threads 0 and 1 run the two probes
-    (a few dozen dependent loads through L2), the block compacts its run
-    into a shared-memory survivor list, then each thread evaluates whole
-    survivors as a scalar loop over their vertices.
+    Replaces ``refine_fused_pallas`` (repro/kernels/refine.py). One block
+    per query: threads 0 and 1 run the two probes (a few dozen dependent
+    loads through L2), the block walks its run as :func:`refine_compact`
+    does into a shared-memory survivor list, orders the survivors by pod
+    width and runs the exact predicate: a thread per survivor under 16
+    vertices, a warp per wider one (its lanes split the vertex loop). What
+    bounds it on this card: latency — the probe's dependent loads, the
+    walk's barrier chain and the vertex loops; the bytes it needs are the
+    walked rows, the survivors' ids, pod headers and vertices.
     """
     if prefilter not in PREFILTERS:
         raise ValueError(f"unsupported prefilter {prefilter!r}")
@@ -363,11 +416,12 @@ def refine_fused(windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f, node_i,
         raise ValueError(f"unknown predicate code {code!r}")
     ops = (windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f, node_i,
            node_f, codes, pw, pod_i, pool, leaf_mbrs, rec_mbrs)
-    if not _route(*ops):
+    q, n = windows.shape[0], keys.shape[0]
+    _check_walk(leaves, n)
+    if not _route(*ops, *(leaves or ())):
         return refine_fused_plain(
             *ops, budget=budget, prefilter=prefilter, code=code, dist=dist,
             augment=augment, search_steps=search_steps, depth=depth)
-    q, n = windows.shape[0], keys.shape[0]
     nl, npw = leaf_i.shape[0], pw.shape[0]
     for name, t, dt, shape in (
             ("windows", windows, _F32, (q, 4)),
@@ -387,15 +441,19 @@ def refine_fused(windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f, node_i,
                          "code and piece row (core.device._fused_operands)")
     if not 0 < search_steps < 30:
         raise ValueError(f"search_steps {search_steps} outside (0, 30)")
+    if leaves is None:
+        raise ValueError("the fused kernel walks the snapshot's leaf tables: "
+                         "pass leaves=GLINSnapshot.leaf_walk")
     hits = torch.empty((q, budget), dtype=_I32, device=windows.device)
     counts = torch.empty(q, dtype=_I32, device=windows.device)
     if q:
         dist2 = float(np.float32(float(dist) ** 2))
         aug_steps = max(1, math.ceil(math.log2(npw + 1)))
-        _launch("glin_refine_fused", windows.device, *ops, hits, counts, q,
-                n, nl - 1, npw, aug_steps, pool.shape[0], budget,
-                int(prefilter == "contains"), code, dist2, int(augment),
-                search_steps, depth)
+        _launch("glin_refine_fused", windows.device, *ops[:13], *leaves,
+                rec_mbrs, hits, counts, q, n, nl - 1, npw, aug_steps,
+                pool.shape[0], budget, int(prefilter == "contains"), code,
+                dist2, int(augment), search_steps, depth,
+                leaves.leaf_mbr.shape[0])
         refine_fused.launches += 1
     return hits, counts
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _leafwalk import slot_walk, spliced_walk
 from repro_torch.core import device as tdev
 from repro_torch.core.datasets import generate, make_query_windows
 from repro_torch.core.engine import EngineConfig, QueryBatch, SpatialIndex
@@ -85,7 +86,8 @@ def test_count_and_compact_kernels_match_plain(store, cuda, prefilter):
     assert torch.equal(got, kr.refine_count_plain(w, bounds, s.slot_rmbr))
     for budget in (7, 64, kr.MAX_COMPACT_BUDGET):
         a = kr.refine_compact(w, bounds, s.slot_lmbr, s.slot_rmbr,
-                              budget=budget, prefilter=prefilter)
+                              budget=budget, prefilter=prefilter,
+                              leaves=s.leaf_walk)
         b = kr.refine_compact_plain(w, bounds, s.slot_lmbr, s.slot_rmbr,
                                     budget, prefilter)
         torch.cuda.synchronize()
@@ -139,12 +141,90 @@ def test_compact_kernel_past_the_fused_budget(store, cuda):
     for budget in (kr.MAX_COMPACT_BUDGET + 1, 4096):
         n0 = kr.refine_compact.launches
         a = kr.refine_compact(w, bounds, s.slot_lmbr, s.slot_rmbr,
-                              budget=budget)
+                              budget=budget, leaves=s.leaf_walk)
         assert kr.refine_compact.launches == n0 + 1
         b = kr.refine_compact_plain(w, bounds, s.slot_lmbr, s.slot_rmbr,
                                     budget, "intersects")
         torch.cuda.synchronize()
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _walk_cases(s, w, seed):
+    """Runs that start and end mid-leaf (some inverted, one empty), the
+    whole table (padding slots and leaves included) and the probe runs."""
+    real = int(s.leaf_start[-1])
+    g = np.random.default_rng(seed)
+    a = g.integers(0, real, w.shape[0])
+    b = g.integers(0, real + 1, w.shape[0])
+    mid = torch.from_numpy(np.stack([a, b], 1).astype(np.int32)).to(w.device)
+    mid[0] = torch.tensor([7, 7])
+    mid[1] = torch.tensor([0, s.num_slots])
+    mid[-2] = torch.tensor([0, s.num_slots])     # the far window: no leaf
+    start, end = tdev.batch_query_bounds(s, w, "intersects")
+    return {"mid-leaf": mid, "probe": torch.stack([start, end], 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prefilter", ["intersects", "contains"])
+def test_compact_walk_matches_plain(store, cuda, prefilter):
+    """The group -> leaf -> slot walk against the per-slot plain version:
+    runs that start and end mid-leaf, the whole table, a window that meets
+    no leaf, survivors past the budget; over the snapshot's leaves, over
+    leaves with empty ones spliced in (NaN, inverted and all-covering rows)
+    and slot-as-leaf (with and without tables)."""
+    gs, wins = store
+    s = _index(gs, cuda).snapshot()
+    w = torch.from_numpy(wins).to(cuda)
+    if prefilter == "contains":   # tiny windows that records can cover
+        c = (w[:, :2] + w[:, 2:]) / 2
+        w = torch.cat([c, c + 1e-5], 1).contiguous()
+    walks = {"leaves": s.leaf_walk, "spliced": spliced_walk(s),
+             "slot tables": slot_walk(s.slot_lmbr), "slot-as-leaf": None}
+    for case, bounds in _walk_cases(s, w, 11).items():
+        for budget in (7, 4096):
+            want = kr.refine_compact_plain(w, bounds, s.slot_lmbr,
+                                           s.slot_rmbr, budget, prefilter)
+            for name, leaves in walks.items():
+                n0 = kr.refine_compact.launches
+                got = kr.refine_compact(w, bounds, s.slot_lmbr, s.slot_rmbr,
+                                        budget=budget, prefilter=prefilter,
+                                        leaves=leaves)
+                assert kr.refine_compact.launches == n0 + 1
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]), (case, budget, name)
+                assert torch.equal(got[1], want[1]), (case, budget, name)
+            if prefilter == "intersects" and budget == 7:
+                assert (want[1] > budget).any()
+                assert int(want[1][-2]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relation", RELATIONS)
+def test_fused_walk_matches_plain(store, cuda, relation):
+    """The fused kernel over the snapshot's leaves and over spliced empty
+    leaves, at a budget that overflows (-(survivors) - 1) and one that does
+    not."""
+    gs, wins = store
+    idx = _index(gs, cuda)
+    s, pods = idx.snapshot(), idx._device_payload()
+    w = torch.from_numpy(wins).to(cuda)
+    rel = get_relation(relation)
+    qk = torch.stack(tdev._raw_query_keys(s, w, rel), 1)
+    ops = (w, rel.probe_window(w).contiguous(), qk, *s.fused_operands,
+           pods.headers, pods.pool, s.slot_lmbr, s.slot_rmbr)
+    for budget in (8, 256):
+        kw = dict(budget=budget, prefilter=rel.prefilter_kind, code=rel.code,
+                  dist=rel.dist,
+                  augment=bool(rel.augment) and s.pw_zmax_hi.shape[0] > 0,
+                  search_steps=s.search_steps, depth=s.depth)
+        want = kr.refine_fused_plain(*ops, **kw)
+        for leaves in (s.leaf_walk, spliced_walk(s)):
+            got = kr.refine_fused(*ops, **kw, leaves=leaves)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+        if budget == 8 and rel.prefilter_kind == "intersects":
+            assert (want[1] < 0).any()
 
 
 def _topk_inputs(q, b, seed, cuda):
