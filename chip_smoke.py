@@ -18,9 +18,9 @@ Phases (any failure raises, and the script exits non-zero):
    at 1e-3 (the long runs) at budgets 256 and 4096, on a real first kNN
    rung's squares at budget 256 and on its fat rows at a budget of at
    least 4096, and through ``ops.refine_compact`` in slot-as-leaf mode on
-   64 windows; the kNN top-k on that rung's (1024, 256) distances and on a
-   wide (1024, 4096) case; the Morton encoding of every record; the mask of
-   64 windows over every slot), exact equality of every output, with
+   64 windows; the kNN top-k on that rung's (1024, 256) distances and on
+   a wide (1024, 4096) case (the block route); the Morton encoding of
+   every record; the mask of 64 windows over every slot), exact equality of every output, with
    CUDA-event times, device times from ``torch.profiler``, the least time
    the card could take, and the launches that comparison and its timing
    made; the compact and fused lines also carry what the group -> leaf ->
@@ -29,7 +29,9 @@ Phases (any failure raises, and the script exits non-zero):
    pass over every run slot) and, for fused, the compact kernel's time on
    the same runs (``fused_minus_compact_ms``: the probe and exact stage);
    the intersects compact line also times the 32 longest and the 32
-   shortest runs alone;
+   shortest runs alone; the count line carries ``device_ms`` and each top-k
+   line its route (``kernels.knn.knn_plan``: a warp a row up to 1024
+   columns, else a block a row);
 5. the window path through the facade: every relation with the default
    (fused kernel) plan, against the plain reference composition, the staged
    kernel path and the fp64 host path; one fused 1024-window batch under
@@ -38,7 +40,9 @@ Phases (any failure raises, and the script exits non-zero):
    insert + delete and the republish;
 6. the kNN path through the facade: 1024 points (the windows' centres) at
    k = 10 and 100, the default plan (top-k and compact kernels) against the
-   plain two-key sort and, on 64 points, the fp64 host kNN;
+   plain two-key sort and, on 64 points, the fp64 host kNN; then one top-k
+   line per (row width, k) the drive launched, with its route, on that
+   shape's inputs from one more batch;
 7. the kernel-level ``ops`` entry point: the Morton keys of every record
    against the host's, the candidate mask against the candidate counts, and
    both, with the slot-as-leaf compaction, against the entry point's plain
@@ -57,11 +61,15 @@ Phases (any failure raises, and the script exits non-zero):
    that share a decode row's slots), each kernel's registers, shared memory
    and spills as ptxas printed them, and the tensor-core instructions in
    the flash kernel's SASS (``cuobjdump -sass``; not measured without it);
+   and the flash kernel at head dim 128 (phi4_mini_3p8b's 24 and 8 heads, a
+   512-token prompt, seeded q/k/v) against its plain version and SDPA;
 9. SSM serving: ``mamba2_2p7b`` at full width in bf16 (seed 0) behind the
    same ``SlotServer`` with the same traffic — prefill and decode ms,
    tokens/s, peak memory, the busy share of profiled decode steps and of a
    prefill; then the ``ssd_scan`` kernel against its plain version (y and
-   the final state) on layer 0's inputs of a real prefill and on synthetic
+   the final state) on layer 0's inputs of a real prefill (with each of its
+   launches' device time from ``torch.profiler``, and beside the bound on
+   the tensor cores the CUDA cores' ``bound_fp32_ms``) and on synthetic
    ones (dt in [0.001, 0.1], a in [-1, -0.1]: slow decay, so a wrong carry
    across tiles shows), bf16 and fp32; 128 decode steps after a 384-token
    prefill against one 512-token forward, and the kernel path against the
@@ -103,6 +111,7 @@ KNN_KS = (10, 100)
 KNN_TOPK_WIDE = (4096, 100)  # (B, k) of the synthetic top-k case
 MASK_WINDOWS = 64            # the (Q, N) int8 mask: 2 MB per window
 LM_ARCH = "granite_3_2b"
+FLASH_D128_ARCH = "phi4_mini_3p8b"   # the flash kernel at head dim 128
 LM_SLOTS, LM_CTX, LM_REQUESTS, LM_PROMPT = 8, 1024, 16, 512
 LM_WINDOW = 128              # the windowed case: a 128-slot ring that wraps
 LM_FORWARD_STEPS = 8         # decode steps held against the full forward
@@ -194,11 +203,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def profiled(fn, reps: int = 1):
+def profiled(fn, reps: int = 1, counts: dict | None = None):
     """Run ``fn`` ``reps`` times under ``torch.profiler`` -> (host wall ms
     per run, {kernel name: device ms per run}, device kernels per run); the
     dict is empty when the profiler sees no device activity (device time
-    then goes unmeasured)."""
+    then goes unmeasured). ``counts``, when given, gets each kernel's
+    recorded launches per run: late in a long process the profiler records
+    only some of the launches (each with its right duration), so device
+    ms per run and busy shares are then lower bounds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -211,25 +223,31 @@ def profiled(fn, reps: int = 1):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    dev, kernels = {}, 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us:
-            dev[e.key] = dev.get(e.key, 0.0) + us / 1e3 / reps
-            kernels += e.count
-    return wall, dev, kernels / reps
+    dev, seen = {}, collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.name] = dev.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
+            seen[e.name] += 1
+    if counts is not None:
+        counts.update({k: n / reps for k, n in seen.items()})
+    return wall, dev, sum(seen.values()) / reps
+
+
+def per_launch(dev: dict, seen: dict) -> dict:
+    """{kernel: device ms per run} for kernels launched once a run: those
+    the profiler recorded at most once a run take the mean of the launches
+    it recorded; the others keep their per-run sum."""
+    return {k: t / seen[k] if seen[k] <= 1 else t for k, t in dev.items()}
 
 
 def device_ms(fn, kernel: str, reps: int = 10):
     """Device time per call of the kernels whose name holds ``kernel`` (the
     event timing of a small kernel also holds the wrapper's host work,
-    since the card waits for the launch); None when unmeasured."""
-    _, dev, _ = profiled(fn, reps)
-    ms = [t for name, t in dev.items() if kernel in name]
+    since the card waits for the launch), by :func:`per_launch`; None when
+    the profiler recorded none."""
+    seen = {}
+    _, dev, _ = profiled(fn, reps, seen)
+    ms = [t for name, t in per_launch(dev, seen).items() if kernel in name]
     return sum(ms) if ms else None
 
 
@@ -701,6 +719,45 @@ def lm_phase(katt, counters) -> tuple:
         log(line)
         results[name] = line
 
+    # head dim 128 (phi4_mini_3p8b, codeqwen1p5_7b, granite_34b run the
+    # mma.sync kernel there): phi4_mini's 24 query and 8 KV heads over a
+    # 512-token prompt, q/k/v drawn from a seeded generator; measured only
+    c128 = get_arch(FLASH_D128_ARCH)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    q, k, v = (torch.randn((1, h_, LM_PROMPT, c128.head_dim), device=DEVICE,
+                           generator=g).bfloat16()
+               for h_ in (c128.n_heads, c128.n_kv_heads, c128.n_kv_heads))
+    got, want = katt.flash_attention(q, k, v), katt.flash_attention_plain(
+        q, k, v)
+    err, tol = max_err(got, want), ATT_TOL["bfloat16"]
+    if not err < tol:
+        raise RuntimeError(f"flash_attention[bf16 D128]: max abs err {err} "
+                           f"from the plain version, tolerance {tol}")
+
+    def lib128():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    log({"name": "flash_attention[bf16 D128]", "arch": FLASH_D128_ARCH,
+         "shape": {"q": list(q.shape), "k": list(k.shape)},
+         "plan": katt.flash_plan(1, c128.n_kv_heads,
+                                 c128.n_heads // c128.n_kv_heads, LM_PROMPT,
+                                 c128.head_dim, q.dtype),
+         "max_abs_err": err, "tolerance": tol,
+         "library_max_abs_err": max_err(lib128(), want),
+         "kernel_ms": queued_ms(lambda: katt.flash_attention(q, k, v), 50),
+         "event_ms": cuda_ms(lambda: katt.flash_attention(q, k, v), 25),
+         "plain_ms": queued_ms(lambda: katt.flash_attention_plain(q, k, v),
+                               20),
+         "library_ms": queued_ms(lib128, 50),
+         "library_event_ms": cuda_ms(lib128, 25),
+         "library_call": "torch.nn.functional.scaled_dot_product_attention "
+                         "(is_causal, enable_gqa)",
+         **bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                 4 * c128.n_heads * c128.head_dim * LM_PROMPT
+                 * (LM_PROMPT + 1) // 2, BF16_OPS_PER_S)})
+    del q, k, v, got, want
+
     # ----------------- decode against the full forward, through the kernels
     def check(got, want, atol, rtol):
         """(max abs error, its limit: atol + rtol * the logits' range)."""
@@ -779,22 +836,38 @@ def lm_phase(katt, counters) -> tuple:
     return results, launches
 
 
-def ssd_bound(x, dt, b, chunk: int) -> dict:
-    """The least time for ``ssd_scan`` on these inputs: C B^T once per
-    chunk (shared by the heads), and per head and chunk W X, C state and
-    the state update, over the fp32 rate; x, dt, a, B, C read once, y and
-    the fp32 final state written once. The causal mask leaves C B^T and
-    W X only their lower triangle, ch (ch + 1) / 2 of the ch^2 pairs."""
+def ssd_work(x, dt, b, chunk: int) -> tuple:
+    """(bytes, C B^T operations, the other operations) of ``ssd_scan`` on
+    these inputs: C B^T once per chunk (shared by the heads), and per head
+    and chunk W X, C state and the state update; x, dt, a, B, C read once,
+    y and the fp32 final state written once. The causal mask leaves C B^T
+    and W X only their lower triangle, ch (ch + 1) / 2 of the ch^2 pairs."""
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     ch = min(chunk, s)
     nc = -(-s // ch)
     tri = ch * (ch + 1) // 2
-    ops = bsz * nc * 2 * tri * n + bsz * h * nc * (
-        2 * tri * p + 4 * ch * n * p)
     nbytes = (2 * x.numel() * x.element_size() + bsz * h * n * p * 4
               + dt.numel() * 4 + h * 4 + 2 * b.numel() * b.element_size())
-    return bound(nbytes, ops)
+    return (nbytes, bsz * nc * 2 * tri * n,
+            bsz * h * nc * (2 * tri * p + 4 * ch * n * p))
+
+
+def ssd_bound(x, dt, b, tile: int) -> dict:
+    """The least time for ``ssd_scan`` on these inputs, counted at the
+    kernel's own chunk ``tile``: the bytes, or the products on the tensor
+    cores at the bf16 rate, each counted once per bf16 part the kernel
+    multiplies (an fp32 operand is split in two: two products against a
+    bf16 operand, three with both fp32; C B^T of bf16 inputs is one),
+    whichever takes longer. ``bound_fp32_ms`` beside it: the same work with
+    each product once on the CUDA cores at the fp32 rate."""
+    nbytes, ops_cb, ops_rest = ssd_work(x, dt, b, tile)
+    parts_cb, parts_rest = (1, 2) if x.dtype.itemsize == 2 else (3, 3)
+    fp32 = bound(nbytes, ops_cb + ops_rest)
+    return {**bound(nbytes, parts_cb * ops_cb + parts_rest * ops_rest,
+                    BF16_OPS_PER_S),
+            "bound_fp32_ms": fp32["bound_ms"], "bound_fp32_by": fp32["bound_by"],
+            "ops_fp32": fp32["ops"]}
 
 
 def ssd_errors(got, want, mag) -> tuple:
@@ -864,12 +937,17 @@ def ssm_phase(kssd, counters) -> tuple:
     for what, fn, reps in (("decode", lambda: server.step(cur), 4),
                            ("prefill", lambda: server.admit(
                                0, prompts[0], 1), 1)):
-        prof_wall, dev, n_kernels = profiled(fn, reps=reps)
+        seen = {}
+        prof_wall, dev, n_kernels = profiled(fn, reps, seen)
         busy = sum(dev.values())
         log({f"lm_ssm_{what}_profile": {
             "calls": reps, "wall_ms_per_call": prof_wall,
             "device_ms_per_call": busy, "device_kernels_per_call": n_kernels,
             "device_busy_share": busy / prof_wall if dev else None,
+            # the SSD kernels: (ms, launches recorded) per call, of the
+            # layers' launches (one each a prefill)
+            "ssd_kernels": {re.sub(r"^.*::|<.*$|\(.*$", "", k): [t, seen[k]]
+                            for k, t in dev.items() if "ssd_" in k},
             "top_kernels": dict(sorted(dev.items(),
                                        key=lambda kv: -kv[1])[:8])}})
 
@@ -933,7 +1011,22 @@ def ssm_phase(kssd, counters) -> tuple:
             raise RuntimeError(f"ssd_scan[{case}]: off its plain version "
                                f"({line})")
         if case == "real bf16":       # the main path's inputs: timed
+            seen = {}
+            _, dev_ssd, _ = profiled(lambda: kssd.ssd_scan(
+                *args, chunk, return_state=True), 20, seen)
+            # one launch of each phase a call
+            dev_ssd = per_launch(dev_ssd, seen)
+            phases = collections.Counter()
+            per_call = collections.Counter()
+            for k, t in dev_ssd.items():
+                if "ssd_" in k:
+                    name = re.sub(r"^.*::|<.*$|\(.*$", "", k)
+                    phases[name] += t
+                    per_call[name] += seen[k]
             line.update({
+                "phase_device_ms": dict(phases) or "not measured",
+                "phase_recorded_per_call": dict(per_call),
+                "device_ms": sum(phases.values()) if phases else None,
                 "kernel_ms": queued_ms(lambda: kssd.ssd_scan(
                     *args, chunk, return_state=True), 50),
                 "event_ms": cuda_ms(lambda: kssd.ssd_scan(
@@ -943,7 +1036,7 @@ def ssm_phase(kssd, counters) -> tuple:
                 "plain_event_ms": cuda_ms(lambda: kssd.ssd_scan_plain(
                     *args, chunk, return_state=True), 10),
                 "library_ms": None,
-                **ssd_bound(x, dt, bm, chunk)})
+                **ssd_bound(x, dt, bm, kssd.TILE)})
             result = line
         log(line)
     del cap, synth, cases
@@ -1113,6 +1206,7 @@ def main() -> int:
     from repro_torch.core.engine import (EngineConfig, QueryBatch,
                                          SpatialIndex)
     from repro_torch.core import engine as eng_mod
+    from repro_torch.core import exec as exec_mod
     from repro_torch.core.relations import get_relation
     from repro_torch.core.zorder import (ZGrid, morton_encode_np,
                                          split_hilo_np)
@@ -1212,6 +1306,8 @@ def main() -> int:
     line = {"name": "refine_count", "shape": [q, snap.num_slots],
             **compare("refine_count", got, want),
             "kernel_ms": cuda_ms(lambda: kr.refine_count(pw_i, b_i, rm), 25),
+            "device_ms": device_ms(lambda: kr.refine_count(pw_i, b_i, rm),
+                                   "count_kernel"),
             "plain_ms": cuda_ms(lambda: kr.refine_count_plain(pw_i, b_i, rm),
                                 3, 1),
             "run_slots": run_i, "run_max": run_max(b_i),
@@ -1398,16 +1494,21 @@ def main() -> int:
     rung_d = dev._sqdist_over(cw, pods, rung_hits.clamp(min=0), valid)
     rung_i = torch.where(valid, rung_hits, kk.ID_PAD)
     g = torch.Generator(device=DEVICE).manual_seed(3)
-    wb, wk = KNN_TOPK_WIDE
-    wide_d = torch.randint(0, 64, (q, wb), device=DEVICE,
-                           generator=g).float() / 8     # many ties
-    wide_i = torch.randint(0, 1 << 20, (q, wb), device=DEVICE,
-                           generator=g, dtype=torch.int32)
-    dead = torch.rand((q, wb), device=DEVICE, generator=g) < 0.25
-    wide_d[dead] = float("inf")                         # inf tails
-    wide_i[dead] = kk.ID_PAD
-    wide_i[:, 1::7] = wide_i[:, ::7][:, :wide_i[:, 1::7].shape[1]]
-    wide_d[:, 1::7] = wide_d[:, ::7][:, :wide_d[:, 1::7].shape[1]]  # dups
+
+    def synthetic_rows(b):
+        """(d, ids) of q rows of b columns: distances in eighths (many
+        ties), a quarter +inf tails with ID_PAD, every seventh column a
+        duplicate of the pair before it."""
+        d = torch.randint(0, 64, (q, b), device=DEVICE,
+                          generator=g).float() / 8
+        ids = torch.randint(0, 1 << 20, (q, b), device=DEVICE, generator=g,
+                            dtype=torch.int32)
+        dead = torch.rand((q, b), device=DEVICE, generator=g) < 0.25
+        d[dead] = float("inf")
+        ids[dead] = kk.ID_PAD
+        ids[:, 1::7] = ids[:, ::7][:, :ids[:, 1::7].shape[1]]
+        d[:, 1::7] = d[:, ::7][:, :d[:, 1::7].shape[1]]
+        return d, ids
 
     def packed_topk(d, ids, k):
         """The nearest PyTorch call: (d bits << 32 | id) packed into int64
@@ -1416,9 +1517,9 @@ def main() -> int:
         key = (d.view(torch.int32).long() << 32) | ids.long()
         return torch.topk(key, k, dim=1, largest=False, sorted=True).values
 
-    for name, (d, ids, k) in (("knn_topk", (rung_d, rung_i, k0)),
-                              ("knn_topk[wide]", (wide_d, wide_i, wk))):
-        n0 = kk.knn_topk.launches
+    def topk_line(name, d, ids, k) -> dict:
+        """The top-k kernel on (d, ids): its route, exact equality with the
+        plain version and with the packed torch.topk, times and bound."""
         got = kk.knn_topk(d, ids, k)
         want = kk.knn_topk_plain(d, ids, k)
         lib = packed_topk(d, ids, k)
@@ -1426,8 +1527,8 @@ def main() -> int:
                 and torch.equal((lib >> 32).int().view(torch.float32),
                                 got[0])):
             raise RuntimeError(f"{name}: packed torch.topk disagrees")
-        b = d.shape[1]
-        line = {"name": name, "shape": [q, b, k],
+        rows, b = d.shape
+        return {"name": name, "shape": [rows, b, k], **kk.knn_plan(b),
                 **compare(name, got, want),
                 "kernel_ms": cuda_ms(lambda: kk.knn_topk(d, ids, k), 25),
                 "plain_ms": cuda_ms(lambda: kk.knn_topk_plain(d, ids, k), 10),
@@ -1435,9 +1536,21 @@ def main() -> int:
                 "library_call": "int64 pack of (d bits << 32 | id), then "
                                 "torch.topk: two calls",
                 "device_ms": device_ms(lambda: kk.knn_topk(d, ids, k),
-                                       "knn_topk_kernel"),
+                                       "knn_"),
+                "queued_ms": queued_ms(lambda: kk.knn_topk(d, ids, k), 50),
+                "library_device_ms": device_ms(
+                    lambda: packed_topk(d, ids, k), ""),
+                "library_queued_ms": queued_ms(
+                    lambda: packed_topk(d, ids, k), 50),
                 "live_columns": int((d < float("inf")).sum()),
-                **bound(q * b * 8 + q * k * 8, q * b * 2)}
+                **bound(rows * b * 8 + rows * k * 8, rows * b * 2)}
+
+    for name, (d, ids, k) in (
+            ("knn_topk", (rung_d, rung_i, k0)),
+            ("knn_topk[wide]", (*synthetic_rows(KNN_TOPK_WIDE[0]),
+                                KNN_TOPK_WIDE[1]))):
+        n0 = kk.knn_topk.launches
+        line = topk_line(name, d, ids, k)
         line["launches"] = kk.knn_topk.launches - n0
         log(line)
         results.setdefault("knn_topk", line)
@@ -1630,7 +1743,17 @@ def main() -> int:
         facade.query(QueryBatch.knn(pts[:HOST_CHECK], KNN_KS[0]))
     for fn in counters.values():
         fn.launches = 0
+    # the (B, k) of every top-k launch the drive makes: each rank of the
+    # kNN stage pads its hit columns to at least k before the top-k
+    real_rank, topk_shapes = exec_mod.batch_knn_rank, collections.Counter()
+
+    def shape_rank(windows, pods_, hits, radius, k, impl="sort", **kw):
+        if impl == "kernel":
+            topk_shapes[(max(hits.shape[1], k), k)] += 1
+        return real_rank(windows, pods_, hits, radius, k, impl, **kw)
+
     eng_mod.batch_query = counting_batch_query
+    exec_mod.batch_knn_rank = shape_rank
     try:
         for k in KNN_KS:
             knn, wall_ms = {}, {}
@@ -1697,8 +1820,31 @@ def main() -> int:
                                            key=lambda kv: -kv[1])[:8])}})
     finally:
         eng_mod.batch_query = plain_batch_query
+        exec_mod.batch_knn_rank = real_rank
     launches.update(read_path("knn", ("knn_topk", "refine_compact"),
                               keep=("knn_topk",)))
+    # one line per (B, k) the drive launched, on the inputs of that shape's
+    # first launch in one more batch per k (after the counts were read: the
+    # wrapper counts into the stand-in that core.device calls meanwhile)
+    grabbed, real_topk = {}, kk.knn_topk
+
+    def grab_topk(d, ids, k):
+        grabbed.setdefault((d.shape[1], k), (d.clone(), ids.clone()))
+        return real_topk(d, ids, k)
+
+    grab_topk.launches = 0
+    kk.knn_topk = grab_topk
+    try:
+        for k in KNN_KS:
+            idx.query(QueryBatch.knn(pts, k))
+    finally:
+        kk.knn_topk = real_topk
+    for (b, k), n in sorted(topk_shapes.items()):
+        if (b, k) not in grabbed:
+            raise RuntimeError(f"knn_topk (B {b}, k {k}) did not recur")
+        log({**topk_line(f"knn_topk[drive B {b}, k {k}]", *grabbed[(b, k)],
+                         k), "drive_launches": n})
+    del grabbed
 
     # ------------------------------------------------ 7. the ops entry point
     for fn in counters.values():

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "glin_refine_compact": [_P] * 9 + [_I] * 6 + [_P],
     "glin_refine_fused": [_P] * 20 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
     "glin_refine_mask": [_P, _P, _P, _P, _I, _I, _P],
-    "glin_knn_topk": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "glin_knn_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "glin_morton_encode": [_P, _P, _P, _P, _I, _P],
     "glin_flash_attention_bf16": [_P] * 4 + [_I] * 6 + [_F, _I] + [_L] * 9
     + [_P],
@@ -53,7 +53,7 @@ _SIGNATURES = {
     "glin_flash_attention_bf16_smem": [_I],
     "glin_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _I, _I] + [_L] * 6
     + [_P],
-    "glin_ssd_scan": [_P] * 7 + [_I] * 6 + [_L] * 9 + [_P],
+    "glin_ssd_scan": [_P] * 10 + [_I] * 6 + [_L] * 9 + [_P],
 }
 
 _lock = threading.Lock()

@@ -12,9 +12,23 @@ import torch
 
 from .refine import _F32, _I32, _check, _launch, _route
 
-__all__ = ["ID_PAD", "knn_topk", "knn_topk_plain"]
+__all__ = ["ID_PAD", "WARP_MAX_PER_LANE", "knn_plan", "knn_topk",
+           "knn_topk_plain"]
 
 ID_PAD = 2**31 - 1       # id padding: sorts after every real record id
+WARP_MAX_PER_LANE = 32   # a warp's widest row: 32 lanes x 32 columns
+
+
+def knn_plan(b: int) -> dict:
+    """The launch for rows of ``b`` columns: a warp a row (``per_lane``
+    columns in each lane's registers, a power of two) up to
+    ``32 * WARP_MAX_PER_LANE`` columns, else a block a row."""
+    per_lane = 1
+    while 32 * per_lane < b:
+        per_lane *= 2
+    if per_lane <= WARP_MAX_PER_LANE:
+        return {"route": "warp", "per_lane": per_lane}
+    return {"route": "block", "per_lane": 0}
 
 
 def knn_topk_plain(d, ids, k: int):
@@ -44,8 +58,11 @@ def knn_topk(d, ids, k: int):
     Replaces ``knn_topk_pallas`` (repro/kernels/refine.py), and returns what
     its reference, the two-key sort, returns (the Pallas body drops
     duplicate pairs). Bound on this card: bytes — the (Q, B) pairs read
-    once, the (Q, k) pairs written. One block per row takes k rounds of a
-    block-wide argmin over (distance, id, lane) above the last round's pick.
+    once, the (Q, k) pairs written. Rows up to ``32 * WARP_MAX_PER_LANE``
+    columns take a warp each, whose lanes hold their columns sorted in
+    registers and pop the least head k times; a wider row takes a block, k
+    rounds of a block-wide argmin over (distance, id, column)
+    (:func:`knn_plan`).
     """
     if k < 1:
         raise ValueError(f"k must be positive, got {k}")
@@ -57,7 +74,8 @@ def knn_topk(d, ids, k: int):
     out_d = torch.empty((q, k), dtype=_F32, device=d.device)
     out_i = torch.empty((q, k), dtype=_I32, device=d.device)
     if q:
-        _launch("glin_knn_topk", d.device, d, ids, out_d, out_i, q, b, k)
+        _launch("glin_knn_topk", d.device, d, ids, out_d, out_i, q, b, k,
+                knn_plan(b)["per_lane"])
         knn_topk.launches += 1
     return out_d, out_i
 

@@ -17,9 +17,10 @@ import torch.nn.functional as F
 from .attention import _check_strided as _check
 from .refine import _launch, _route
 
-__all__ = ["MAX_STATE", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["MAX_STATE", "TILE", "ssd_scan", "ssd_scan_plain", "ssd_scratch"]
 
 MAX_STATE = 256          # the largest N the kernel takes (shared memory)
+TILE = 64                # the kernel's chunk (steps)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -77,11 +78,14 @@ def ssd_scan(x, dt, a, b, c, chunk: int = 128, return_state: bool = False):
 
     Replaces ``ssd_scan_pallas`` (repro/kernels/ssd_scan.py) and adds the
     final state, which ``ssd_chunked`` returns and the decode cache needs.
-    Bound on this card at the serving shape: operations (fp32 on the CUDA
-    cores). One block per (batch row, head, 32 columns of P) walks 64-step
-    tiles in order with the state in shared memory; the kernel's tile is
-    its own, so ``chunk`` sets only the plain version's chunk (the chunked
-    algorithm computes the same function for any chunk). Any S.
+    Chunk-parallel on the tensor cores (``csrc/ssd_scan.cu``): C B^T once
+    per chunk with each chunk's state contribution, the pass over the
+    chunks, then y per chunk: three launches on the current stream (one
+    call, one count in ``launches``). Bound on this card at the serving
+    shape: bytes (the products take less on the tensor cores). The kernel's
+    chunk is 64 steps (:data:`TILE`) whatever ``chunk``, which sets only the
+    plain version's (the chunked algorithm computes the same function for
+    any chunk). Any S.
     """
     if not _route(x, dt, a, b, c):
         return ssd_scan_plain(x, dt, a, b, c, chunk, return_state)
@@ -102,12 +106,26 @@ def ssd_scan(x, dt, a, b, c, chunk: int = 128, return_state: bool = False):
     state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
     if not s:
         state.zero_()                 # the state of an empty sequence
-    elif bsz and h and p:             # the kernel writes every element
-        _launch("glin_ssd_scan", x.device, x, dt, a, b, c, y, state, bsz, s,
-                h, p, n, int(x.dtype == torch.bfloat16), *x.stride()[:3],
-                *dt.stride()[:2], *b.stride()[:2], *c.stride()[:2])
+    elif bsz and h and p:             # the kernels write every element
+        scratch = ssd_scratch(bsz, s, h, p, n)
+        _launch("glin_ssd_scan", x.device, x, dt, a, b, c, y, state,
+                *(torch.empty(shape, dtype=torch.float32, device=x.device)
+                  for shape in scratch.values()),
+                bsz, s, h, p, n, int(x.dtype == torch.bfloat16),
+                *x.stride()[:3], *dt.stride()[:2], *b.stride()[:2],
+                *c.stride()[:2])
         ssd_scan.launches += 1
     return (y, state) if return_state else y
+
+
+def ssd_scratch(bsz: int, s: int, h: int, p: int, n: int) -> dict:
+    """The kernels' 4-byte scratch shapes: C B^T per chunk (``cb``), each
+    chunk's state contribution, then the state before it as bf16 hi + lo
+    words, in (P, N16) rows (``ut``), and each chunk's g_tot (``gtot``);
+    NC = ceil(S / TILE), N16 = N rounded up to 16."""
+    nc, n16 = -(-s // TILE), -(-n // 16) * 16
+    return {"cb": (bsz, nc, TILE, TILE), "ut": (bsz, h, nc, p, n16),
+            "gtot": (bsz, h, nc)}
 
 
 ssd_scan.launches = 0

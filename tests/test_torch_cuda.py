@@ -247,8 +247,12 @@ def _topk_inputs(q, b, seed, cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,b,k", [(5, 37, 5), (1024, 256, 10),
                                    (4, 130, 150), (3, 1, 4),
-                                   (8, 4096, 100), (3, 1 << 20, 10)])
+                                   (8, 4096, 100), (3, 1 << 20, 10),
+                                   (9, 32 * kk.WARP_MAX_PER_LANE, 100),
+                                   (9, 32 * kk.WARP_MAX_PER_LANE + 1, 100)])
 def test_knn_topk_kernel_matches_plain(cuda, q, b, k):
+    """Both routes (kernels.knn.knn_plan) on either side of the boundary: a
+    warp a row up to 32 * WARP_MAX_PER_LANE columns, else a block a row."""
     d, ids = _topk_inputs(q, b, q * 7 + b, cuda)
     n0 = kk.knn_topk.launches
     a = kk.knn_topk(d, ids, k)
@@ -525,11 +529,15 @@ def _ssd_close(got, want):
     (2, 128, 2, 16, 8, 32), (2, 256, 3, 32, 16, 64), (2, 256, 1, 64, 32, 128),
     (2, 40, 8, 16, 16, 128), (1, 512, 80, 64, 128, 128),
     (1, 100, 3, 64, 128, 100), (3, 1, 2, 16, 8, 128),
-    (1, 65, 2, 40, 256, 64)])
+    (1, 65, 2, 40, 256, 64), (2, 1100, 2, 72, 24, 128),
+    (1, 70, 3, 20, 12, 64)])
 def test_ssd_kernel_matches_plain(cuda, dtype, b, s, h, p, n, chunk):
     """y and the final state: the reference's sweep, the reduced widths (P
     16, N 16), the serving shape, S that the 64-step tile does not divide
-    (100, 1, 65), P not a multiple of 32 and the largest N."""
+    (100, 1, 65), P not a multiple of 32 and the largest N; 18 chunks (the
+    pass loads 8 chunks at a time) with P over two 64-column blocks and N
+    not a multiple of 16; P and N that are not multiples of 8 (bf16 inputs
+    staged element by element, not by 16-byte copies)."""
     args = _ssd_inputs(cuda, dtype, b, s, h, p, n, s * 7 + n)
     n0 = kssd.ssd_scan.launches
     y, state = kssd.ssd_scan(*args, chunk, return_state=True)
