@@ -29,14 +29,19 @@ Phases (any failure raises, and the script exits non-zero):
    pass over every run slot) and, for fused, the compact kernel's time on
    the same runs (``fused_minus_compact_ms``: the probe and exact stage);
    the intersects compact line also times the 32 longest and the 32
-   shortest runs alone; the count line carries ``device_ms`` and each top-k
-   line its route (``kernels.knn.knn_plan``: a warp a row up to 1024
-   columns, else a block a row);
+   shortest runs alone; the count kernel walks the same way (the snapshot's
+   leaf tables, and a second line in slot-as-leaf mode on the 64 mask
+   windows), its lines with the walk's counts and, for the first,
+   ``bound_slot_ms``; the mask also at an awkward shape (63 windows over
+   2,002,941 slots: rows of every alignment, runs past both ends); each
+   top-k line carries its route (``kernels.knn.knn_plan``: a warp a row up
+   to 1024 columns, else a block a row);
 5. the window path through the facade: every relation with the default
    (fused kernel) plan, against the plain reference composition, the staged
    kernel path and the fp64 host path; one fused 1024-window batch under
    ``torch.profiler`` (device busy share, top kernels, host ms); an
-   overflow-ladder batch at selectivity 1e-3; ``count_candidates``; an
+   overflow-ladder batch at selectivity 1e-3; ``count_candidates`` (three
+   batches, one count launch each, and one under ``torch.profiler``); an
    insert + delete and the republish;
 6. the kNN path through the facade: 1024 points (the windows' centres) at
    k = 10 and 100, the default plan (top-k and compact kernels) against the
@@ -45,8 +50,8 @@ Phases (any failure raises, and the script exits non-zero):
    shape's inputs from one more batch;
 7. the kernel-level ``ops`` entry point: the Morton keys of every record
    against the host's, the candidate mask against the candidate counts, and
-   both, with the slot-as-leaf compaction, against the entry point's plain
-   side (``use_kernel=False``);
+   the keys, the mask, the counts and the compaction (both in slot-as-leaf
+   mode) against the entry point's plain side (``use_kernel=False``);
 8. LM serving: ``granite_3_2b`` at full width in bf16 (weights drawn on the
    card from seed 0) behind the port's ``SlotServer``: 8 slots, max_ctx
    1024, 16 requests of 512-token prompts with ``main_lm``'s generation
@@ -1298,27 +1303,62 @@ def main() -> int:
 
     q = N_WINDOWS
     rel_i, pw_i, b_i, run_i, cov_i = probe("intersects")
-    # the slice of the kernel-level entry point's checks (mask, compact)
+    # the slice of the kernel-level entry point's checks (mask, compact,
+    # slot-as-leaf count)
     wm, bm = pw_i[:MASK_WINDOWS].contiguous(), b_i[:MASK_WINDOWS].contiguous()
+    walk = snap.leaf_walk
     n0 = kr.refine_count.launches
-    got = kr.refine_count(pw_i, b_i, rm)
+    got = kr.refine_count(pw_i, b_i, rm, leaves=walk)
     want = kr.refine_count_plain(pw_i, b_i, rm)
+    ww = walk_work(b_i, pw_i, walk)
+    walk_b, walk_o = walk_bytes_ops(ww, q)
+
+    def count_i_call():
+        return kr.refine_count(pw_i, b_i, rm, leaves=walk)
+
     line = {"name": "refine_count", "shape": [q, snap.num_slots],
             **compare("refine_count", got, want),
-            "kernel_ms": cuda_ms(lambda: kr.refine_count(pw_i, b_i, rm), 25),
-            "device_ms": device_ms(lambda: kr.refine_count(pw_i, b_i, rm),
-                                   "count_kernel"),
+            "kernel_ms": cuda_ms(count_i_call, 25),
+            "device_ms": device_ms(count_i_call, "count_kernel"),
+            "queued_ms": queued_ms(count_i_call),
             "plain_ms": cuda_ms(lambda: kr.refine_count_plain(pw_i, b_i, rm),
                                 3, 1),
             "run_slots": run_i, "run_max": run_max(b_i),
-            "covered_slots": cov_i,
-            **bound(cov_i * 16 + q * 28, run_i * 8)}
+            "covered_slots": cov_i, **ww,
+            # the walk's rows, windows and bounds in, counts out
+            **bound(walk_b + q * 28, walk_o),
+            "bound_slot_ms": bound(cov_i * 16 + q * 28, run_i * 8)["bound_ms"]}
     line["launches"] = kr.refine_count.launches - n0
     count_i = got.cpu().numpy()
     results["refine_count"] = line
     log(line)
+    # slot-as-leaf mode (ops.refine_count): each slot its own leaf, the
+    # record MBRs as leaf rows, group rows built in every call (timed in
+    # kernel_ms and queued_ms, not in device_ms nor the bound)
+    slots_n = torch.arange(snap.num_slots + 1, dtype=torch.int32,
+                           device=DEVICE)
+    swalk = kr.LeafWalk(slots_n[:-1], slots_n, rm, dev.leaf_group_mbrs(rm))
+    n0 = kr.refine_count.launches
+    got = kr.refine_count(wm, bm, rm)
+    sw = walk_work(bm, wm, swalk)
+    log({"name": "refine_count[slot-as-leaf]",
+         "shape": [MASK_WINDOWS, snap.num_slots],
+         **compare("refine_count[slot-as-leaf]", got,
+                   kr.refine_count_plain(wm, bm, rm)),
+         "kernel_ms": cuda_ms(lambda: kr.refine_count(wm, bm, rm), 10),
+         "device_ms": device_ms(lambda: kr.refine_count(wm, bm, rm),
+                                "count_kernel"),
+         "queued_ms": queued_ms(lambda: kr.refine_count(wm, bm, rm)),
+         "run_max": run_max(bm), **sw,
+         # the group and leaf rows (the record MBRs) once, windows and
+         # bounds in, counts out; no rec_leaf or leaf_start read
+         **bound(sw["distinct_groups"] * 16 + sw["distinct_leaves"] * 16
+                 + MASK_WINDOWS * 28,
+                 8 * (sw["groups_walked"] + sw["leaves_walked"]
+                      + sw["meeting_leaf_slots"])),
+         "launches": kr.refine_count.launches - n0})
+    del slots_n, swalk
 
-    walk = snap.leaf_walk
     for prefilter, rel_name in (("intersects", "intersects"),
                                 ("contains", "within")):
         rel, pw, b, run, cov = probe(rel_name)
@@ -1586,6 +1626,7 @@ def main() -> int:
             "kernel_ms": cuda_ms(lambda: kr.refine_mask(wm, bm, rm), 25),
             "device_ms": device_ms(lambda: kr.refine_mask(wm, bm, rm),
                                    "mask_kernel"),
+            "queued_ms": queued_ms(lambda: kr.refine_mask(wm, bm, rm)),
             "plain_ms": cuda_ms(lambda: kr.refine_mask_plain(wm, bm, rm), 5),
             "candidates": int(got.sum()),
             **bound(nslot * 16 + MASK_WINDOWS * (24 + nslot),
@@ -1593,7 +1634,30 @@ def main() -> int:
     line["launches"] = kr.refine_mask.launches - n0
     log(line)
     results["refine_mask"] = line
-    del got, want
+    # the kernel's edges at the same scale: n not a multiple of 16 (rows
+    # of every alignment, a tail thread), q not a multiple of the 16-row
+    # chunk, runs from below 0 and past n
+    na, qa = nslot - 3, MASK_WINDOWS - 1
+    wa, ba, ra = wm[:qa].clone(), bm[:qa].clone(), rm[:na]
+    ba[0] = torch.tensor([-9, na + 9])
+    ba[1] = torch.tensor([na - 100_000, na + 40])
+    inf = float("inf")
+    wa[1] = torch.tensor([-inf, -inf, inf, inf])   # meets every slot
+    n0 = kr.refine_mask.launches
+    got = kr.refine_mask(wa, ba, ra)
+    want = kr.refine_mask_plain(wa, ba, ra)
+    if not (bool(got[1, -3:].all()) and torch.equal(
+            got.sum(1, dtype=torch.int32), kr.refine_count(wa, ba, ra))):
+        raise RuntimeError("refine_mask[awkward]: tail or row sums wrong")
+    log({"name": f"refine_mask[awkward q {qa}, n {na}]", "shape": [qa, na],
+         **compare("refine_mask[awkward]", got, want),
+         "kernel_ms": cuda_ms(lambda: kr.refine_mask(wa, ba, ra), 10),
+         "device_ms": device_ms(lambda: kr.refine_mask(wa, ba, ra),
+                                "mask_kernel"),
+         "candidates": int(got.sum()),
+         **bound(na * 16 + qa * (24 + na), qa * na * 6),
+         "launches": kr.refine_mask.launches - n0})
+    del got, want, wa, ba
 
     # -------------------------------------------- 5. the window path
     counters = {"refine_count": kr.refine_count,
@@ -1698,12 +1762,26 @@ def main() -> int:
     same(ladder.ids, run(idx, "host", wins_hi, "intersects",
                          backend="host").ids, "ladder vs host")
 
-    t0 = time.perf_counter()
-    counts = idx.count_candidates(wins, "intersects")
+    walls, n0 = [], kr.refine_count.launches
+    for _ in range(3):
+        t0 = time.perf_counter()
+        counts = idx.count_candidates(wins, "intersects")
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(counts, count_i):
+            raise RuntimeError("count_candidates differs from refine_count")
+    if kr.refine_count.launches - n0 != 3:
+        raise RuntimeError("count_candidates did not launch one count "
+                           "kernel a call")
+    # where its time goes: the probe bounds' torch arithmetic, the kernel
+    wall, devt, nk = profiled(
+        lambda: idx.count_candidates(wins, "intersects"))
+    busy = sum(devt.values()) if devt else None
     log({"batch": "count_candidates", "queries": len(wins),
-         "wall_ms": (time.perf_counter() - t0) * 1e3})
-    if not np.array_equal(counts, count_i):
-        raise RuntimeError("count_candidates differs from refine_count")
+         "wall_ms": walls, "profiled_wall_ms": wall, "device_ms": busy,
+         "device_kernels": nk,
+         "count_kernel_ms": sum(t for k, t in devt.items()
+                                if "count_kernel" in k) if devt else None,
+         "device_busy_share": busy / min(walls) if devt else None})
 
     hit0 = run(idx, "fused", wins, "intersects")
     victim = int(hit0.ids[1][0])
@@ -1856,8 +1934,8 @@ def main() -> int:
             and np.array_equal(lo.cpu().numpy(), want_lo)):
         raise RuntimeError("ops.morton_encode differs from the host keys")
     mask = kops.refine_mask(wm, bm, rm)
-    if not torch.equal(mask.sum(1, dtype=torch.int32),
-                       kops.refine_count(wm, bm, rm)):
+    ops_count = kops.refine_count(wm, bm, rm)
+    if not torch.equal(mask.sum(1, dtype=torch.int32), ops_count):
         raise RuntimeError("ops.refine_mask row sums differ from "
                            "ops.refine_count")
     # the entry point's plain side (use_kernel=False) on the same inputs
@@ -1865,6 +1943,8 @@ def main() -> int:
             kops.morton_encode(qx, qy, use_kernel=False))
     compare("ops.refine_mask", mask,
             kops.refine_mask(wm, bm, rm, use_kernel=False))
+    compare("ops.refine_count", ops_count,
+            kops.refine_count(wm, bm, rm, use_kernel=False))
     compare("ops.refine_compact", kops.refine_compact(wm, bm, lm, rm,
                                                       budget=BUDGET),
             kops.refine_compact(wm, bm, lm, rm, budget=BUDGET,
@@ -1873,7 +1953,7 @@ def main() -> int:
     log({"batch": "ops", "wall_ms": (time.perf_counter() - t0) * 1e3,
          "records": nrec, "mask_windows": MASK_WINDOWS})
     launches.update(read_path("ops", ("morton_encode", "refine_mask",
-                                      "refine_compact"),
+                                      "refine_count", "refine_compact"),
                               keep=("morton_encode", "refine_mask")))
 
     # ------------------------------------------------------ 8. LM serving
@@ -1899,8 +1979,8 @@ def main() -> int:
                         "bound_by": r_["bound_by"],
                         "library_ms": r_.get("library_ms"),
                         **{key: r_[key] for key in (
-                            "device_ms", "bound_slot_ms", "leaves_walked",
-                            "groups_walked") if key in r_}})
+                            "device_ms", "queued_ms", "bound_slot_ms",
+                            "leaves_walked", "groups_walked") if key in r_}})
     log(card_line())
     log({"kernels": entries})
     log({"ok": True, "device": {"platform": "gpu",

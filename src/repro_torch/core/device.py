@@ -130,7 +130,7 @@ class GLINSnapshot:
 
     @functools.cached_property
     def leaf_walk(self):
-        """The compact and fused kernels' walk tables
+        """The count, compact and fused kernels' walk tables
         (``kernels.refine.LeafWalk``), with the group rows of
         :func:`leaf_group_mbrs`."""
         from ..kernels.refine import LeafWalk

@@ -740,8 +740,9 @@ class SpatialIndex:
     def count_candidates(self, windows, relation: str = "intersects"
                          ) -> np.ndarray:
         """MBR-level candidate counts per window (selectivity estimation)
-        through ``kernels.refine.refine_count`` — the CUDA kernel on a CUDA
-        index, its plain version on the CPU."""
+        through ``kernels.refine.refine_count`` — the CUDA kernel walking the
+        snapshot's leaf tables on a CUDA index, its plain version on the
+        CPU."""
         from ..kernels.refine import refine_count
 
         base = get_relation(relation).base_name()
@@ -755,7 +756,7 @@ class SpatialIndex:
         # MBR-level counting uses the padded probe window so dwithin-style
         # relations count the candidates their refine step will actually see
         counts = refine_count(base_rel.probe_window(wt).contiguous(), bounds,
-                              snap.slot_rmbr)
+                              snap.slot_rmbr, leaves=snap.leaf_walk)
         return counts.cpu().numpy()
 
     # ----------------------------------------------------- execution support

@@ -40,7 +40,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # argument types of the C entry points (pointers and the stream as void*)
 _SIGNATURES = {
-    "glin_refine_count": [_P, _P, _P, _P, _I, _I, _P],
+    "glin_refine_count": [_P] * 8 + [_I] * 4 + [_P],
     "glin_refine_compact": [_P] * 9 + [_I] * 6 + [_P],
     "glin_refine_fused": [_P] * 20 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
     "glin_refine_mask": [_P, _P, _P, _P, _I, _I, _P],

@@ -7,12 +7,13 @@
 // query's run and place survivors by a one-hot (rows, slots, budget) scatter:
 // a TPU has neither a cheap data-dependent loop nor a scatter.
 //
-// Compact and fused are one thread block per query, walking the query's slot
-// run [start, end) of the Z-sorted record table group -> leaf -> slot
-// (walk_run below). A run averages ~23,000 leaves of ~18 slots at the main
-// path's selectivity, and most of them miss the window: the walk tests the
-// group rows (32 leaves each) of the run, then the leaves of the groups that
-// meet, then the record MBRs of the run slots inside the leaves that meet.
+// Count, compact and fused are one thread block per query, walking the
+// query's slot run [start, end) of the Z-sorted record table group -> leaf
+// -> slot (walk_run below). A run averages ~23,000 leaves of ~18 slots at
+// the main path's selectivity, and most of them miss the window: the walk
+// tests the group rows (32 leaves each) of the run, then the leaves of the
+// groups that meet, then the record MBRs of the run slots inside the leaves
+// that meet.
 // What bounds it: latency, one block barrier chain per 256 groups, per 8
 // meeting groups and per 256 slots tested; its bytes are those rows only.
 // The survivor set, its ascending slot order, the total and the overflow
@@ -24,9 +25,17 @@
 // narrow pods one a thread, wide ones one a warp (geometry.cuh's warp_*
 // forms), so no warp waits on one lane's 64-vertex loop.
 //
-// Count is one block per query streaming its run's record MBRs; it is bound
-// by those bytes (16 a slot). The mask kernel writes the whole (Q, N) int8
-// mask, as refine_mask_pallas did: it is bound by those Q * N output bytes.
+// Count walks each run as compact does and keeps only the total (no
+// survivor list): its bytes are the walk's rows, not every run slot. The
+// per-slot definition it must equal tests record MBRs alone, with no leaf
+// test, so skipping a leaf whose MBR misses is exact only because every
+// real slot's record MBR lies inside its leaf's MBR, as a snapshot builds
+// them (count_kernel states the condition).
+//
+// The mask kernel writes the whole (Q, N) int8 mask, as refine_mask_pallas
+// did: it is bound by those Q * N output bytes, written 16 a thread and row
+// in one streaming store, with rows whose run misses a thread's slots
+// written as zeros untested.
 //
 // Built with --fmad=false: the probe's `slope * key + icpt` and every cross
 // product in geometry.cuh round as separate operations, as the plain torch
@@ -97,39 +106,135 @@ __device__ inline int block_sum(int v, int* warp_sums) {
   return total;  // valid in thread 0
 }
 
-// ------------------------------------------------------------------ count
-__global__ void __launch_bounds__(kThreads)
-count_kernel(const float4* __restrict__ win, const int2* __restrict__ bounds,
-             const float4* __restrict__ mbrs, int* __restrict__ out, int n) {
-  __shared__ int warp_sums[kWarps];
-  const int q = blockIdx.x;
-  const float4 w = win[q];
-  const int2 b = bounds[q];
-  const int lo = max(b.x, 0), hi = min(b.y, n);
-  int c = 0;
-  for (int s = lo + threadIdx.x; s < hi; s += kThreads) c += mbr_meets(mbrs[s], w);
-  const int total = block_sum(c, warp_sums);
-  if (threadIdx.x == 0) out[q] = total;
-}
-
 // ------------------------------------------------------------------ mask
 // The (Q, N) int8 candidate mask: slot in [start, end) AND record MBR meets
-// the window. Blocks tile the slots along x and a group of kMaskRows query
-// rows along y: each thread reads its slot's MBR once and writes one byte
-// per row, neighbouring threads on neighbouring bytes.
-constexpr int kMaskRows = 16;
+// the window. A block holds a tile of kMaskTile slots and kMaskRows query
+// rows. Its threads stage the tile's record MBRs (and the kMaskSlots before
+// it) through shared memory with coalesced loads, each row read once per
+// block, then each thread takes kMaskSlots consecutive slots into
+// registers and, for every row, writes their kMaskSlots bytes in one
+// 16-byte streaming store: a warp fills four whole 128-byte lines. A row
+// whose run misses the thread's slots writes zeros untested. A row whose
+// base is not 16-byte aligned (n not a multiple of 16) shifts every store
+// d bytes down to an aligned address: the previous thread's last d bytes
+// (a shuffle; for lane 0 a ballot of the warp's tests of those slots) with
+// its own first 16 - d. Only the row's first thread (its first 16 - d
+// bytes) and the last lane before the row's end (its last d) write byte by
+// byte, as does every lane of a warp that holds the row's last slot.
+constexpr int kMaskThreads = 128;
+constexpr int kMaskSlots = 16;                            // slots a thread
+constexpr int kMaskTile = kMaskThreads * kMaskSlots;      // 2048: 32 KB of MBRs
+constexpr int kMaskRows = 64;                             // query rows a block
 
-__global__ void __launch_bounds__(kThreads)
+// Shared slot of staged element e (slot t0 - kMaskSlots + e): thread t
+// reads elements 16 (t + 1) .. 16 (t + 1) + 15, so without the swizzle the
+// eight threads of a 16-byte access phase would all hit the same bank group.
+__device__ inline int mask_swizzle(int e) { return e ^ ((e >> 4) & 7); }
+
+__device__ inline int8_t mask_byte(const uint32_t (&v)[4], int i) {
+  return static_cast<int8_t>((v[i >> 2] >> (8 * (i & 3))) & 0xffu);
+}
+
+// The 16 bytes that start d (1..15) bytes before this lane's first slot:
+// the previous lane's last d bytes, then this lane's first 16 - d. As the
+// 256-bit little-endian (cur:prev), shifted right by 128 - 8 d bits.
+__device__ inline int4 straddle(const uint32_t (&prev)[4], const uint32_t (&cur)[4],
+                                int d) {
+  const uint32_t w[8] = {prev[0], prev[1], prev[2], prev[3],
+                         cur[0],  cur[1],  cur[2],  cur[3]};
+  const int bits = 128 - 8 * d, k = bits >> 5, r = bits & 31;
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t lo = w[j], hi = w[j + 1];  // w[j + k], w[j + k + 1] by selects
+#pragma unroll
+    for (int c = 1; c < 4; ++c)
+      if (k == c) {
+        lo = w[j + c];
+        hi = w[j + c + 1];
+      }
+    o[j] = __funnelshift_r(lo, hi, r);
+  }
+  return make_int4(o[0], o[1], o[2], o[3]);
+}
+
+__global__ void __launch_bounds__(kMaskThreads)
 mask_kernel(const float4* __restrict__ win, const int2* __restrict__ bounds,
             const float4* __restrict__ mbrs, int8_t* __restrict__ out, int q, int n) {
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= n) return;
-  const float4 m = mbrs[s];
-  const int r1 = min(q, (static_cast<int>(blockIdx.y) + 1) * kMaskRows);
-  for (int r = blockIdx.y * kMaskRows; r < r1; ++r) {
-    const int2 b = bounds[r];
-    out[static_cast<int64_t>(r) * n + s] =
-        static_cast<int8_t>(s >= b.x && s < b.y && mbr_meets(m, win[r]));
+  __shared__ float4 tile[kMaskTile + kMaskSlots];
+  __shared__ float4 sw[kMaskRows];
+  __shared__ int2 sb[kMaskRows];
+  const int r0 = blockIdx.x * kMaskRows, rows = min(kMaskRows, q - r0);
+  const int t0 = blockIdx.y * kMaskTile;
+  if (threadIdx.x < rows) {
+    sw[threadIdx.x] = win[r0 + threadIdx.x];
+    const int2 b = bounds[r0 + threadIdx.x];
+    sb[threadIdx.x] = make_int2(max(b.x, 0), min(b.y, n));  // runs clipped to [0, n)
+  }
+  for (int e = threadIdx.x; e < kMaskTile + kMaskSlots; e += kMaskThreads) {
+    const int s = t0 - kMaskSlots + e;
+    if (s >= 0 && s < n) tile[mask_swizzle(e)] = mbrs[s];
+  }
+  __syncthreads();
+  // no early exit past n: every lane meets the shuffles below
+  const int lane = threadIdx.x & 31;
+  const int s0 = t0 + threadIdx.x * kMaskSlots;
+  const int cnt = max(0, min(kMaskSlots, n - s0));
+  // whether every lane of this warp (of the next warp) holds kMaskSlots
+  // slots below n, by arithmetic: warp-uniform without a vote
+  const int warp_end = t0 + ((static_cast<int>(threadIdx.x) | 31) + 1) * kMaskSlots;
+  const bool full = warp_end <= n;
+  const bool next_full = warp_end + 32 * kMaskSlots <= n;
+  float4 m[kMaskSlots];
+#pragma unroll
+  for (int i = 0; i < kMaskSlots; ++i)
+    m[i] = tile[mask_swizzle((threadIdx.x + 1) * kMaskSlots + i)];  // past n: never kept
+  for (int r = 0; r < rows; ++r) {
+    const int2 b = sb[r];
+    const float4 w = sw[r];
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (b.x < s0 + cnt && s0 < b.y) {
+#pragma unroll
+      for (int i = 0; i < kMaskSlots; ++i) {  // slot s0 + i is byte i of the store
+        const int s = s0 + i;
+        const bool keep = s >= b.x && s < b.y && mbr_meets(m[i], w);
+        v[i >> 2] |= static_cast<uint32_t>(keep) << (8 * (i & 3));
+      }
+    }
+    int8_t* p = out + static_cast<int64_t>(r0 + r) * n + s0;
+    const int d = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);  // one per row
+    if (full && d == 0) {
+      __stcs(reinterpret_cast<int4*>(p), make_int4(v[0], v[1], v[2], v[3]));
+      continue;
+    }
+    if (!full) {
+#pragma unroll
+      for (int i = 0; i < kMaskSlots; ++i)
+        if (i < cnt) p[i] = mask_byte(v, i);
+      continue;
+    }
+    uint32_t prev[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) prev[k] = __shfl_up_sync(0xffffffffu, v[k], 1);
+    // lane 0's previous thread sits in another warp (or tile): the warp
+    // tests those 16 staged slots a lane each and takes their ballot
+    const int wbase = s0 - lane * kMaskSlots;  // the warp's first slot
+    const int sp = wbase - kMaskSlots + lane;
+    const bool kept = lane < kMaskSlots && sp >= b.x && sp < b.y &&
+                      mbr_meets(tile[mask_swizzle(sp - t0 + kMaskSlots)], w);
+    const uint32_t bits = __ballot_sync(0xffffffffu, kept);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t x = bits >> (4 * k);  // slots 4 k .. 4 k + 3 as bytes
+        prev[k] = (x & 1u) | ((x & 2u) << 7) | ((x & 4u) << 14) | ((x & 8u) << 21);
+      }
+    }
+    if (s0 > 0) __stcs(reinterpret_cast<int4*>(p - d), straddle(prev, v, d));
+    const bool head = s0 == 0, tail = lane == 31 && !next_full;
+#pragma unroll
+    for (int i = 0; i < kMaskSlots; ++i)
+      if (head ? i < kMaskSlots - d : tail && i >= kMaskSlots - d) p[i] = mask_byte(v, i);
   }
 }
 
@@ -146,10 +251,10 @@ mask_kernel(const float4* __restrict__ win, const int2* __restrict__ bounds,
 //             slots of the run (clipped to [lo, hi)), MBR meets the window;
 //   slots   - the meeting leaves' run slots, flattened by an exclusive sum of
 //             their sizes and tested 256 at a time against the record MBR.
-// Slot-as-leaf mode (kSlotLeaf: the compact kernel under the kernel-level
-// entry point, which has only slot-aligned tables) takes leaf l = slot l and
-// leaf_mbr = the slot-aligned leaf MBRs, with the group rows over 32 slots
-// each.
+// Slot-as-leaf mode (kSlotLeaf: the compact and count kernels under the
+// kernel-level entry point, which has only slot-aligned tables) takes leaf
+// l = slot l and leaf_mbr = a slot-aligned MBR table (compact: the leaf
+// MBRs; count: the record MBRs), with the group rows over 32 slots each.
 constexpr int kGroup = 32;  // leaves per group row: the warp width
 
 struct Walk {
@@ -273,6 +378,27 @@ compact_kernel(const float4* __restrict__ win, const int2* __restrict__ bounds,
   const int total = walk_run<kCovers, kSlotLeaf>(win[q], max(b.x, 0), min(b.y, n),
                                                  t, out, budget, sm);
   for (int j = min(total, budget) + threadIdx.x; j < budget; j += kThreads) out[j] = -1;
+  if (threadIdx.x == 0) counts[q] = total;
+}
+
+// ------------------------------------------------------------------ count
+// The walk with no survivor list (out unread at budget 0): the total only,
+// which equals the per-slot count of record MBRs meeting the window when
+// every real slot's record MBR lies inside leaf_mbr[rec_leaf[s]] (true of a
+// snapshot: leaf MBRs are unions of their records' fp64 MBRs, and rounding
+// to fp32 keeps containment) and no padding slot (past leaf_start[L]) of a
+// run meets its window (a snapshot pads with far-away MBRs). In
+// slot-as-leaf mode the leaf rows ARE the record MBRs, so no such condition
+// is needed.
+template <bool kSlotLeaf>
+__global__ void __launch_bounds__(kThreads)
+count_kernel(const float4* __restrict__ win, const int2* __restrict__ bounds,
+             const Walk t, int* __restrict__ counts, int n) {
+  __shared__ WalkSmem sm;
+  const int q = blockIdx.x;
+  const int2 b = bounds[q];
+  const int total = walk_run<false, kSlotLeaf>(win[q], max(b.x, 0), min(b.y, n), t,
+                                               nullptr, 0, sm);
   if (threadIdx.x == 0) counts[q] = total;
 }
 
@@ -461,20 +587,33 @@ const char* glin_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int glin_refine_count(const void* windows, const void* bounds, const void* mbrs,
-                      void* out, int q, int n, void* stream) {
-  count_kernel<<<q, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(windows), static_cast<const int2*>(bounds),
-      static_cast<const float4*>(mbrs), static_cast<int*>(out), n);
+int glin_refine_count(const void* windows, const void* bounds, const void* rec_leaf,
+                      const void* leaf_start, const void* leaf_mbr, const void* group_mbr,
+                      const void* rmbr, void* counts, int q, int n, int num_leaves,
+                      int slot_leaf, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto w = static_cast<const float4*>(windows);
+  auto b = static_cast<const int2*>(bounds);
+  const Walk t{static_cast<const int*>(rec_leaf), static_cast<const int*>(leaf_start),
+               static_cast<const float4*>(leaf_mbr),
+               static_cast<const float4*>(group_mbr), static_cast<const float4*>(rmbr),
+               num_leaves};
+  auto c = static_cast<int*>(counts);
+  if (slot_leaf)
+    count_kernel<true><<<q, kThreads, 0, s>>>(w, b, t, c, n);
+  else
+    count_kernel<false><<<q, kThreads, 0, s>>>(w, b, t, c, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 int glin_refine_mask(const void* windows, const void* bounds, const void* mbrs,
                      void* out, int q, int n, void* stream) {
   if (q < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kThreads - 1) / kThreads, (q + kMaskRows - 1) / kMaskRows);
+  // row chunks along x, so the blocks that share a tile run together and
+  // read its MBRs from L2 after the first
+  const dim3 grid((q + kMaskRows - 1) / kMaskRows, (n + kMaskTile - 1) / kMaskTile);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  mask_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  mask_kernel<<<grid, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(windows), static_cast<const int2*>(bounds),
       static_cast<const float4*>(mbrs), static_cast<int8_t*>(out), q, n);
   return static_cast<int>(cudaGetLastError());

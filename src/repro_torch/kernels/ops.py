@@ -30,7 +30,10 @@ def refine_mask(windows, bounds, mbrs, use_kernel: bool = True):
 
 
 def refine_count(windows, bounds, mbrs, use_kernel: bool = True):
-    """(Q,4) f32, (Q,2) i32, (N,4) f32 -> (Q,) int32 candidate counts."""
+    """(Q,4) f32, (Q,2) i32, (N,4) f32 -> (Q,) int32 candidate counts. The
+    reference's signature has no leaf tables, so the kernel walks in
+    slot-as-leaf mode (each slot its own leaf, group rows built per
+    call)."""
     if not use_kernel:
         return refine.refine_count_plain(windows, bounds, mbrs)
     return refine.refine_count(windows, bounds, mbrs)

@@ -14,10 +14,11 @@ and with its plain torch version beside it:
 * :func:`refine_mask`    — the whole (Q, N) int8 candidate mask (the
   kernel-level ``ops`` entry point; no core path uses it).
 
-Compact and fused walk each run group -> leaf -> slot over the
-:class:`LeafWalk` tables. Compact also walks without them, every slot its
-own leaf (slot-as-leaf mode, for the ``ops`` entry point, which holds only
-slot-aligned tables).
+Count, compact and fused walk each run group -> leaf -> slot over the
+:class:`LeafWalk` tables. Count and compact also walk without them, every
+slot its own leaf (slot-as-leaf mode, for the ``ops`` entry point, which
+holds only slot-aligned tables). The mask kernel writes the whole mask in
+16-byte stores, each thread 16 slots of a row.
 
 A CUDA tensor always takes the kernel; a CPU tensor always takes the plain
 version (the CPU tests reach the wrappers' layout code that way). Each
@@ -27,9 +28,9 @@ wants the main path's count resets it around that path.
 
 Every plain version processes the whole slot table in query chunks (a
 ``(chunk, N)`` mask of :data:`MASK_CHUNK_ELEMS` elements), so it also runs
-at real store sizes on the card. The plain compact and fused versions test
-every slot against the slot-aligned ``leaf_mbrs``: the per-slot definition
-the walk must reproduce.
+at real store sizes on the card. The plain count, compact and fused
+versions test every slot (compact and fused against the slot-aligned
+``leaf_mbrs`` too): the per-slot definition the walk must reproduce.
 """
 from __future__ import annotations
 
@@ -106,12 +107,12 @@ def _chunk(n: int) -> int:
 
 
 class LeafWalk(NamedTuple):
-    """The tables the compact and fused kernels walk a run by (built once
-    per publish: ``core.device.GLINSnapshot.leaf_walk``). The walk equals
-    the per-slot definition when every slot ``s`` of a run lies in
+    """The tables the count, compact and fused kernels walk a run by (built
+    once per publish: ``core.device.GLINSnapshot.leaf_walk``). The walk
+    equals the per-slot definition when every slot ``s`` of a run lies in
     ``[leaf_start[rec_leaf[s]], leaf_start[rec_leaf[s] + 1])`` and its
     slot-aligned leaf MBR is ``leaf_mbr[rec_leaf[s]]``, as a snapshot
-    builds them."""
+    builds them (the count's further condition: :func:`refine_count`)."""
 
     rec_leaf: torch.Tensor    # (N,) int32 leaf of each slot, non-decreasing
     leaf_start: torch.Tensor  # (L+1,) int32 slot offsets
@@ -129,6 +130,18 @@ def _check_walk(leaves: Optional[LeafWalk], n: int) -> None:
     _check("leaf_start", leaves.leaf_start, _I32, (nl + 1,))
     _check("leaf_mbr", leaves.leaf_mbr, _F32, (nl, 4))
     _check("group_mbr", leaves.group_mbr, _F32, (-(-nl // 32), 4))
+
+
+def _walk_args(leaves: Optional[LeafWalk], slot_mbrs, n: int) -> tuple:
+    """The C entry points' walk arguments ``(rec_leaf, leaf_start,
+    leaf_mbr, group_mbr, num_leaves, slot_leaf)``: the leaf tables, or in
+    slot-as-leaf mode (``leaves`` None) no leaf tables, ``slot_mbrs`` as
+    the leaf rows and group rows built for the call."""
+    if leaves is None:
+        from ..core.device import leaf_group_mbrs
+
+        return None, None, slot_mbrs, leaf_group_mbrs(slot_mbrs), n, 1
+    return (*leaves, leaves.leaf_mbr.shape[0], 0)
 
 
 # ---------------------------------------------------------------- mask
@@ -160,8 +173,15 @@ def refine_mask(windows, bounds, mbrs):
     query's run and its MBR meets the window.
 
     Replaces ``refine_mask_pallas`` (repro/kernels/refine.py). Bound on this
-    card: bytes — the (Q, N) mask written, the MBR table read. Each thread
-    reads one slot's MBR once and writes its byte of 16 query rows.
+    card: bytes — the (Q, N) mask written, the MBR table read. A block
+    stages a tile of 2048 slots' MBRs through shared memory (coalesced,
+    each read once per block) and covers 64 query rows; each thread holds
+    16 consecutive slots and writes their 16 bytes of a row in one
+    streaming store, zeros untested where the row's run misses them. Rows
+    whose base is not 16-byte aligned (``N`` not a multiple of 16) store
+    the same way, shifted down to the aligned address, with a few bytes
+    at each row's ends written one by one. ``N`` up to 65535 tiles
+    (134,215,680 slots); past that the launch is refused and this raises.
     """
     if not _route(windows, bounds, mbrs):
         return refine_mask_plain(windows, bounds, mbrs)
@@ -190,25 +210,37 @@ def refine_count_plain(windows, bounds, mbrs):
     return out
 
 
-def refine_count(windows, bounds, mbrs):
+def refine_count(windows, bounds, mbrs, *,
+                 leaves: Optional[LeafWalk] = None):
     """windows (Q,4) f32 probe windows, bounds (Q,2) i32 slot runs, mbrs
-    (N,4) f32 slot-aligned record MBRs -> (Q,) i32 candidate counts.
+    (N,4) f32 slot-aligned record MBRs, ``leaves`` the walk's leaf tables
+    (None: each slot its own leaf) -> (Q,) i32 candidate counts.
 
-    Replaces ``refine_count_pallas`` (repro/kernels/refine.py). Bound on
-    this card: bytes — each run's record MBR rows (16 B a slot) read once.
-    One block per query streams its own run with coalesced float4 loads and
-    a block reduction; the reference swept the whole table per query tile.
+    Replaces ``refine_count_pallas`` (repro/kernels/refine.py). One block
+    per query walks its run group -> leaf -> slot as :func:`refine_compact`
+    does and keeps only the total. What bounds it on this card: latency,
+    the walk's barrier chain; the bytes it needs are the walked rows.
+
+    The plain version tests every run slot's record MBR. With ``leaves`` the
+    walk equals it when every real slot's record MBR lies inside its leaf's
+    MBR (``leaf_mbr[rec_leaf[s]]``) and no padding slot (past
+    ``leaf_start[-1]``) of a run meets its window, as a snapshot builds
+    them (``GLINSnapshot.leaf_walk``; padding MBRs lie far away). Without
+    ``leaves`` the leaf rows are ``mbrs`` themselves and the walk equals
+    it on any input.
     """
-    if not _route(windows, bounds, mbrs):
-        return refine_count_plain(windows, bounds, mbrs)
     q, n = windows.shape[0], mbrs.shape[0]
+    _check_walk(leaves, n)
+    if not _route(windows, bounds, mbrs, *(leaves or ())):
+        return refine_count_plain(windows, bounds, mbrs)
     _check("windows", windows, _F32, (q, 4))
     _check("bounds", bounds, _I32, (q, 2))
     _check("mbrs", mbrs, _F32, (n, 4))
     out = torch.empty(q, dtype=_I32, device=windows.device)
     if q:
-        _launch("glin_refine_count", windows.device, windows, bounds, mbrs,
-                out, q, n)
+        walk = _walk_args(leaves, mbrs, n)
+        _launch("glin_refine_count", windows.device, windows, bounds,
+                *walk[:4], mbrs, out, q, n, *walk[4:])
         refine_count.launches += 1
     return out
 
@@ -295,12 +327,7 @@ def refine_compact(windows, bounds, leaf_mbrs, rec_mbrs, *, budget: int,
     slots = torch.empty((q, budget), dtype=_I32, device=windows.device)
     counts = torch.empty(q, dtype=_I32, device=windows.device)
     if q:
-        if leaves is None:      # slot-as-leaf: group rows built for the call
-            from ..core.device import leaf_group_mbrs
-
-            walk = (None, None, leaf_mbrs, leaf_group_mbrs(leaf_mbrs), n, 1)
-        else:
-            walk = (*leaves, leaves.leaf_mbr.shape[0], 0)
+        walk = _walk_args(leaves, leaf_mbrs, n)
         _launch("glin_refine_compact", windows.device, windows, bounds,
                 *walk[:4], rec_mbrs, slots, counts, q, n, walk[4], budget,
                 int(prefilter == "contains"), walk[5])

@@ -3,8 +3,9 @@
 ``spliced_walk`` gives a snapshot's walk tables empty leaves between real
 ones, whose MBR rows (NaN, inverted, a box around everything) no walk may
 count; ``walk_emulation`` is the group -> leaf -> slot walk of
-``csrc/refine.cu`` (``walk_run``) as a plain loop, so its design can be held
-against the per-slot definition where no card is.
+``csrc/refine.cu`` (``walk_run``, as the compact and count kernels run it)
+as a plain loop, so its design can be held against the per-slot definition
+where no card is.
 """
 import numpy as np
 import torch
@@ -65,7 +66,8 @@ def walk_emulation(windows, bounds, rec_mbrs, walk: kr.LeafWalk,
                    budget: int, prefilter: str):
     """-> (slots (Q, budget) int32, counts (Q,) int32) by the walk's three
     levels, in the kernel's order; also the number of group rows and leaves
-    it tested."""
+    it tested. Budget 0 is the count kernel's count-only walk: no survivor
+    list, the totals alone."""
     w_np, b_np = windows.cpu().numpy(), bounds.cpu().numpy()
     rm = rec_mbrs.cpu().numpy()
     rl, ls, lm, gm = (t.cpu().numpy() for t in walk)

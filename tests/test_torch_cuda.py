@@ -80,10 +80,19 @@ def test_count_and_compact_kernels_match_plain(store, cuda, prefilter):
     start, end = tdev.batch_query_bounds(s, w, rel.name)
     bounds = torch.stack([start, end], 1)
     bounds[0] = bounds[0].flip(0)          # an inverted run
-    n0 = kr.refine_count.launches
-    got = kr.refine_count(w, bounds, s.slot_rmbr)
-    assert kr.refine_count.launches == n0 + 1
-    assert torch.equal(got, kr.refine_count_plain(w, bounds, s.slot_rmbr))
+    # count: the snapshot's walk, spliced empty leaves, slot-as-leaf mode;
+    # on the probe runs and on mid-leaf and whole-table runs
+    for case, runs in {"inverted": bounds, **_walk_cases(s, w, 5)}.items():
+        want = kr.refine_count_plain(w, runs, s.slot_rmbr)
+        for name, leaves in (("leaves", s.leaf_walk),
+                             ("spliced", spliced_walk(s)),
+                             ("slot-as-leaf", None)):
+            n0 = kr.refine_count.launches
+            got = kr.refine_count(w, runs, s.slot_rmbr, leaves=leaves)
+            assert kr.refine_count.launches == n0 + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (case, name)
+        assert (want > 0).any()
     for budget in (7, 64, kr.MAX_COMPACT_BUDGET):
         a = kr.refine_compact(w, bounds, s.slot_lmbr, s.slot_rmbr,
                               budget=budget, prefilter=prefilter,
@@ -282,6 +291,9 @@ def test_morton_kernel_matches_plain(cuda):
 
 @pytest.mark.gpu
 def test_mask_kernel_matches_plain(store, cuda):
+    """The snapshot's probe runs (one inverted); then the awkward edges: n
+    of 4096 k + 5 slots (rows of every alignment, a tail thread), an odd q
+    (a short last row chunk), runs that start below 0 and end past n."""
     gs, wins = store
     s = _index(gs, cuda).snapshot()
     w = torch.from_numpy(wins).to(cuda)
@@ -296,6 +308,22 @@ def test_mask_kernel_matches_plain(store, cuda):
     assert torch.equal(a, p) and a.any()
     assert torch.equal(a.sum(1, dtype=torch.int32),
                        kr.refine_count(w, bounds, s.slot_rmbr))
+    n = 4096 * (s.num_slots // 4096) + 5
+    rm = s.slot_rmbr.repeat(2, 1)[:n].contiguous()
+    q = w.shape[0] - (1 - w.shape[0] % 2)  # odd
+    g = np.random.default_rng(6)
+    lo = g.integers(-100, n, q)
+    runs = np.stack([lo, lo + g.integers(0, n, q)], 1)
+    runs[0], runs[1] = [-9, n + 9], [n - 3, n + 40]
+    runs = torch.from_numpy(runs.astype(np.int32)).to(cuda)
+    wq = w[:q].clone()
+    wq[1] = w[-1]                          # the whole extent: meets the tail
+    a = kr.refine_mask(wq, runs, rm)
+    p = kr.refine_mask_plain(wq, runs, rm)
+    torch.cuda.synchronize()
+    assert a.shape == (q, n) and torch.equal(a, p) and a[:, -5:].any()
+    assert torch.equal(a.sum(1, dtype=torch.int32),
+                       kr.refine_count(wq, runs, rm))
 
 
 @pytest.mark.gpu

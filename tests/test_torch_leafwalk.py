@@ -12,9 +12,13 @@ reference's ``refine_compact_ref``) gives. Here, where no card is:
   with ``leaf_start`` consistent with ``rec_leaf``, on a snapshot carried
   from the reference, on the port's own padded snapshot and after an
   insert + delete republish;
+* the containment the count walk rests on: every real slot's record MBR
+  inside its leaf's MBR in fp32, on the carried snapshot and after an
+  insert + delete republish;
 * the walk's design, as a plain loop (``_leafwalk.walk_emulation``), against
   the plain per-slot version: real leaves, spliced empty leaves, slot-as-leaf
-  tables, runs that start and end mid-leaf, both prefilters, past the budget;
+  tables, runs that start and end mid-leaf, both prefilters, past the budget,
+  and the count kernel's count-only walk against ``refine_count_plain``;
 * the wrappers' checks of the new operands and the arguments they hand the
   kernel (the launch recorded, not run);
 * ``ops.refine_compact``: the reference's signature, and its results.
@@ -183,6 +187,38 @@ def test_walk_invariant_after_insert_delete_republish():
     assert s1.fused_operands is s1.fused_operands
 
 
+def _check_containment(s):
+    """Every real slot's record MBR lies inside its leaf's MBR, in fp32:
+    the count walk skips a leaf whose MBR misses, and the per-slot count
+    tests record MBRs alone."""
+    real = int(s.leaf_start[-1])
+    rec = s.slot_rmbr[:real]
+    leaf = s.leaf_mbr[s.rec_leaf[:real].long()]
+    assert not bool(torch.isnan(rec).any())
+    assert bool(((leaf[:, :2] <= rec[:, :2]) & (rec[:, 2:] <= leaf[:, 2:]))
+                .all())
+
+
+@pytest.mark.parametrize("case", ["carried", "republished"])
+def test_record_mbrs_inside_leaf_mbrs(world, case):
+    """On the snapshot carried from the reference; on the port's own padded
+    snapshot, and again after inserts that grow leaf MBRs (a wide ring, a
+    point outside every record) and a delete, republished."""
+    if case == "carried":
+        _check_containment(world["ts"])
+        return
+    idx = TIndex.build(tdata.generate("mixed", 2000, seed=8), device="cpu")
+    s0 = idx.snapshot()
+    _check_containment(s0)
+    wide = np.asarray([[0.2, 0.3], [0.7, 0.31], [0.45, 0.9], [0.21, 0.6]])
+    idx.insert(wide, 4, 2)
+    idx.insert(np.asarray([[1.3, -0.2]]), 1, 0)
+    assert idx.delete(17)
+    s1 = idx.snapshot()
+    assert s1 is not s0
+    _check_containment(s1)
+
+
 # ------------------------------------------------- the walk's design --
 def _walks(s):
     return {"leaves": s.leaf_walk, "spliced": spliced_walk(s),
@@ -230,6 +266,41 @@ def test_walk_emulation_on_padded_probe_runs(port_index):
             name
         if name == "leaves":
             assert sum(tested) < int((b[:, 1] - b[:, 0]).sum())
+
+
+def _count_walks(s):
+    """The count kernel's walks: the snapshot's leaves, spliced empty
+    leaves, and slot-as-leaf mode, whose leaf rows are the record MBRs."""
+    return {"leaves": s.leaf_walk, "spliced": spliced_walk(s),
+            "slots": slot_walk(s.slot_rmbr)}
+
+
+@pytest.mark.parametrize("walk_name", ["leaves", "spliced", "slots"])
+@pytest.mark.parametrize("runs", ["mid-leaf", "padded probe"])
+def test_count_walk_emulation_matches_plain(world, port_index, walk_name,
+                                            runs):
+    """The count-only walk (budget 0) equals the per-slot count of record
+    MBRs: on the carried snapshot's mid-leaf, inverted, empty and
+    whole-table runs, and on the padded snapshot's probe runs (one over
+    every slot, padding included)."""
+    if runs == "mid-leaf":
+        s, w, b = world["ts"], world["wins"], world["bounds"]
+    else:
+        s = port_index.snapshot()
+        w = torch.from_numpy(make_query_windows(
+            port_index.glin.gs, 0.002, 24, seed=9).astype(np.float32))
+        start, end = tdev.batch_query_bounds(s, w, "intersects")
+        b = torch.stack([start, end], 1)
+        b[0] = torch.tensor([0, s.num_slots])
+    want = kr.refine_count_plain(w, b, s.slot_rmbr)
+    slots, got, tested = walk_emulation(w, b, s.slot_rmbr,
+                                        _count_walks(s)[walk_name], 0,
+                                        "intersects")
+    assert slots.shape == (w.shape[0], 0)
+    assert torch.equal(got, want)
+    assert (want > 0).any()
+    if walk_name == "leaves" and runs == "padded probe":
+        assert sum(tested) < int((b[:, 1] - b[:, 0]).sum())
 
 
 # ------------------------------------------------------------- wrappers --
@@ -309,6 +380,58 @@ def test_kernel_arguments(world, monkeypatch):
     assert c2[9:] == (w.shape[0], n, n, 8, 0, 1)
     assert f1[13] is walk.rec_leaf and f1[16] is walk.group_mbr
     assert f1[17] is ts.slot_rmbr and f1[-1] == nl
+
+
+def test_count_kernel_arguments(world, monkeypatch):
+    """What refine_count hands the kernel: the walk tables with ``leaves``;
+    in slot-as-leaf mode (and through ``ops.refine_count``) no leaf tables,
+    the record MBRs as leaf rows and their group rows. Bad walk operands
+    raise before any route is taken."""
+    ts, w, b = world["ts"], world["wins"], world["bounds"]
+    walk = ts.leaf_walk
+    rm = ts.slot_rmbr
+    with pytest.raises(TypeError, match="rec_leaf"):
+        kr.refine_count(w, b, rm, leaves=walk._replace(
+            rec_leaf=walk.rec_leaf.long()))
+    with pytest.raises(ValueError, match="group_mbr"):
+        kr.refine_count(w, b, rm, leaves=walk._replace(
+            group_mbr=walk.group_mbr[:-1]))
+    with pytest.raises(ValueError, match="leaf_start"):
+        kr.refine_count(w, b, rm, leaves=walk._replace(
+            leaf_start=walk.leaf_start[:-1]))
+    with pytest.raises(ValueError, match="rec_leaf"):
+        kr.refine_count(w, b, rm, leaves=walk._replace(
+            rec_leaf=walk.rec_leaf[:-1]))
+    with pytest.raises(ValueError, match="devices"):
+        kr.refine_count(w, b, rm, leaves=walk._replace(
+            group_mbr=walk.group_mbr.to("meta")))
+    n0 = kr.refine_count.launches
+    assert torch.equal(kr.refine_count(w, b, rm, leaves=walk),
+                       kr.refine_count_plain(w, b, rm))   # CPU: plain
+    assert kr.refine_count.launches == n0
+    calls = []
+    monkeypatch.setattr(kr, "_route", lambda *t: True)
+    monkeypatch.setattr(kr, "_launch",
+                        lambda name, device, *a: calls.append((name, a)))
+    kr.refine_count(w, b, rm, leaves=walk)
+    kr.refine_count(w, b, rm)
+    tops.refine_count(w, b, rm)
+    assert kr.refine_count.launches == n0 + 3
+    assert [name for name, _ in calls] == ["glin_refine_count"] * 3
+    for name, a in calls:
+        assert len(a) + 1 == len(_build._SIGNATURES[name])
+    (_, c1), (_, c2), (_, c3) = calls
+    n, nl, q = ts.num_slots, walk.leaf_mbr.shape[0], w.shape[0]
+    assert c1[0] is w and c1[1] is b and c1[6] is rm
+    assert c1[2] is walk.rec_leaf and c1[3] is walk.leaf_start
+    assert c1[4] is walk.leaf_mbr and c1[5] is walk.group_mbr
+    assert c1[7].shape == (q,) and c1[7].dtype == torch.int32
+    assert c1[8:] == (q, n, nl, 0)
+    for c in (c2, c3):
+        assert c[2] is None and c[3] is None
+        assert c[4] is rm and c[6] is rm
+        assert torch.equal(c[5], tdev.leaf_group_mbrs(rm))
+        assert c[8:] == (q, n, n, 1)
 
 
 # ------------------------------------------------------- ops entry point --
