@@ -38,16 +38,49 @@ Phases (any failure raises, and the script exits non-zero):
    to 1024 columns, else a block a row);
 5. the window path through the facade: every relation with the default
    (fused kernel) plan, against the plain reference composition, the staged
-   kernel path and the fp64 host path; one fused 1024-window batch under
-   ``torch.profiler`` (device busy share, top kernels, host ms); an
+   kernel path and the fp64 host path (``disjoint`` on 16 windows: a
+   complement row holds nearly every live record); one fused 1024-window
+   batch under ``torch.profiler`` (device busy share, top kernels, host
+   ms); an
    overflow-ladder batch at selectivity 1e-3; ``count_candidates`` (three
    batches, one count launch each, and one under ``torch.profiler``); an
-   insert + delete and the republish;
+   insert + delete patched on the published snapshot (``device+delta``),
+   then a forced ``device`` batch that republishes;
 6. the kNN path through the facade: 1024 points (the windows' centres) at
    k = 10 and 100, the default plan (top-k and compact kernels) against the
    plain two-key sort and, on 64 points, the fp64 host kNN; then one top-k
    line per (row width, k) the drive launched, with its route, on that
    shape's inputs from one more batch;
+6a. the write stream on phase 3's store: 2,048 inserts (``mixed``, seed 3,
+   fp32) and 1,024 deletes of published records (numpy seed 5), a delta of
+   3,072: the 1024 main windows through ``device+delta`` for the seven
+   device relations (three runs each) and ``disjoint`` (on 16 windows: a
+   complement row holds nearly every live record), with the delta-patch
+   stage's wall; the added-set check's device ms (``torch.profiler``);
+   1024 kNN points at k = 10 through ``device+delta``. Every batch equal to
+   the same batch on a synchronous republish at the same epoch (a second
+   facade over the same host tree; its wall split into capture, build,
+   upload and payload) and, on 64 windows, to the fp64 host path; kNN ids
+   and distances equal to the republished device result;
+6b. the async swap: ``async_republish`` set on the index (as the server
+   sets it), 1,536 more inserts past ``refresh_threshold``, 1024-window
+   ``intersects`` batches streamed until the double-buffered build swaps
+   in, with a delete of a record the pending snapshot holds and an insert
+   landing mid-build: batches in flight, their median and largest wall
+   beside the synchronous republish's, the build's start to the swap; the
+   first and last in-flight batches and the first after the swap equal to
+   the host path on 64 windows;
+6c. serving: ``SpatialQueryServer`` with the reference launcher's settings
+   (2 replicas, max_queue 2048, min_batch 8, max_batch 4096, two tenants;
+   ``intersects``, ``contains``, ``dwithin:0.003`` over a pool of 65,536
+   windows at 1e-4, seed 11; a write fraction of 0.02): a closed loop of
+   1024 submissions with interleaved inserts and 64 ``submit_knn`` points,
+   every ticket equal to ``index.query`` at the flush's epoch and 64 (and
+   the kNN points) to the host path; then Poisson arrivals at 2,000 and
+   16,000 offered queries/s for 8 s each (offered, submitted and served
+   queries/s, shed, p50/p99/max latency from submit to result, the batch
+   histogram, backend counts, publishes) and one profiled second (the
+   device's busy share);
 7. the kernel-level ``ops`` entry point: the Morton keys of every record
    against the host's, the candidate mask against the candidate counts, and
    the keys, the mask, the counts and the compaction (both in slot-as-leaf
@@ -82,12 +115,15 @@ Phases (any failure raises, and the script exits non-zero):
    in bf16 (the bf16 paths held against the fp32 weights' result);
 10. one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
-Launch counters are zeroed just before each of phases 5, 6, 7, 8's and 9's
-serving runs and read just after: every kernel of that path must have
-launched, and a kernel's ``launches`` in the last line is its count from its
-path.
+Launch counters are zeroed just before each of phases 5, 6, 6a, 6b, 6c, 7,
+8's and 9's serving runs and read just after (6a's and 6c's before the
+comparisons that check them): every kernel of that path must have launched,
+and a kernel's ``launches`` in the last line is its count from its path,
+summed over phases 5-6c for ``refine_compact``, ``refine_fused`` and
+``knn_topk``.
 """
 import collections
+import dataclasses
 import json
 import re
 import shutil
@@ -156,6 +192,20 @@ SSM_REL_DEPTH = 8
 # bf16 step (2^-7 of |y|) more
 SSD_TOL = (2e-4, 1e-3)
 SSD_BF16_STEP = 2.0 ** -7
+# phases 6a-6c: the write stream, the async swap, serving (on phase 3's store)
+WRITE_INSERTS, WRITE_DELETES = 2048, 1024   # a delta of 3072 < 4096
+ASYNC_INSERTS = 1536                         # the delta past refresh_threshold
+# 6a's disjoint windows: a complement row holds nearly every live record
+# (~2M ids), and 6a runs each row three ways (patched, republished,
+# host) besides phase 5's 64; 16 keep that to seconds
+DISJOINT_WINDOWS = 16
+SERVE_POOL = 65_536       # windows at SELECTIVITY: the cache seldom hits
+SERVE_RELATIONS = ("intersects", "contains", "dwithin:0.003")
+SERVE_CLOSED = 1024       # closed-loop submissions
+SERVE_KNN = 64            # closed-loop kNN points (k = 10)
+SERVE_RATES = (2_000.0, 16_000.0)   # offered queries/s, Poisson arrivals
+SERVE_SECONDS = 8.0
+SERVE_WRITE_FRAC = 0.02   # the launcher's: an 8-vertex ring, radius 2e-4
 _CU = "src/repro_torch/kernels/csrc/"
 CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
         "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
@@ -1181,6 +1231,451 @@ def ssm_phase(kssd, counters) -> tuple:
     return {"ssd_scan": result}, launches
 
 
+def same_ids(a, b, what):
+    """Exact equality of two lists of id arrays."""
+    import numpy as np
+
+    if len(a) != len(b):
+        raise RuntimeError(f"{what}: {len(a)} vs {len(b)} rows")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not np.array_equal(x, y):
+            raise RuntimeError(f"{what}: row {i} differs ({len(x)} vs "
+                               f"{len(y)} ids)")
+
+
+def ring_of(gs, i: int):
+    """Record ``i``'s ring from a CSR store."""
+    o = int(gs.offsets[i])
+    return gs.pool[o:o + int(gs.nverts[i])]
+
+
+def write_phase(idx, wins, pts, counters, read_path):
+    """6a. The write stream on phase 3's store: inserts and deletes leave a
+    delta of 3072 records, patched on the published snapshot
+    (``device+delta``) for every window relation and for kNN; each batch
+    equal to the same batch on a synchronous republish at the same epoch
+    (a second facade over the same host tree) and, on 64 windows, to the
+    fp64 host path. Returns the path's launches and the republish's ms."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import device as dev
+    from repro_torch.core.datasets import generate
+    from repro_torch.core.engine import EngineConfig, QueryBatch, SpatialIndex
+
+    src = generate("mixed", WRITE_INSERTS, seed=3)
+    fp32_exact(src)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i in range(WRITE_INSERTS):
+        idx.insert(ring_of(src, i), int(src.nverts[i]), int(src.kinds[i]))
+    t1 = time.perf_counter()
+    published = np.nonzero(idx.glin._live_mask()[:idx._snapshot_recs])[0]
+    for rec in np.random.default_rng(5).choice(published, WRITE_DELETES,
+                                               replace=False):
+        if not idx.delete(int(rec)):
+            raise RuntimeError(f"delete of record {rec} failed")
+    t2 = time.perf_counter()
+    log({"writes": {"inserts": WRITE_INSERTS, "deletes": WRITE_DELETES,
+                    "delta": idx.delta_size(),
+                    "insert_ms_each": (t1 - t0) * 1e3 / WRITE_INSERTS,
+                    "delete_ms_each": (t2 - t1) * 1e3 / WRITE_DELETES}})
+    if idx.delta_size() != WRITE_INSERTS + WRITE_DELETES:
+        raise RuntimeError(f"delta of {idx.delta_size()}")
+
+    batches = {}
+    for rel in FACADE_RELATIONS:
+        batch = wins[:DISJOINT_WINDOWS] if rel == "disjoint" else wins
+        walls, res = [], None
+        for _ in range(1 if rel == "disjoint" else 3):
+            t0 = time.perf_counter()
+            r = idx.query(QueryBatch.window(batch, rel))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if r.plan.backend != "device+delta":
+                raise RuntimeError(f"{rel}: not patched ({r.plan})")
+            if res is not None:
+                same_ids(r.ids, res.ids, f"{rel} device+delta rerun")
+            res = r
+        st = {s.stage: s for s in res.stages}
+        log({"batch": "device+delta", "relation": rel,
+             "queries": len(batch), "wall_ms": walls,
+             "refine_impl": st["refine"].impl,
+             "refine_ms": st["refine"].wall_ms,
+             "delta_patch_ms": st["delta-patch"].wall_ms,
+             "delta_added": st["delta-patch"].delta_added,
+             "delta_tombstoned": st["delta-patch"].delta_tombstoned,
+             "hits": res.total_hits})
+        batches[rel] = (batch, res)
+    # the added-set check alone: one (1024 x rows) pass on the card
+    table, snap = idx._delta_table(), idx._snapshot
+    wt = torch.from_numpy(wins.astype(np.float32)).to(DEVICE)
+    wall, devt, nk = profiled(lambda: dev.batch_check_added(
+        table, wt, "intersects", snap.grid_x0, snap.grid_y0, snap.grid_cell))
+    log({"added_set_check": {
+        "queries": len(wins), "table_rows": table.size,
+        "added": int((table.ids >= 0).sum()), "profiled_wall_ms": wall,
+        "device_ms": sum(devt.values()) if devt else "not measured",
+        "device_kernels": nk}})
+    t0 = time.perf_counter()
+    knn = idx.query(QueryBatch.knn(pts, KNN_KS[0]))
+    torch.cuda.synchronize()
+    st = knn.stages[0]
+    log({"batch": "knn[device+delta]", "k": KNN_KS[0], "queries": len(pts),
+         "wall_ms": (time.perf_counter() - t0) * 1e3,
+         "backend": knn.plan.backend, "rungs": st.rungs,
+         "delta_added": st.delta_added,
+         "delta_tombstoned": st.delta_tombstoned})
+    if knn.plan.backend != "device+delta":
+        raise RuntimeError(f"knn not patched: {knn.plan}")
+    launches = read_path("write", ("refine_fused", "refine_compact",
+                                   "knn_topk"))
+
+    # the same batches on a synchronous republish at the same epoch: a
+    # second facade over the same host tree, whose first batch (forced
+    # onto the device) publishes and uploads the geometry payload; the
+    # publish's parts (capture, numpy build, upload) as the index times
+    # them
+    rep = SpatialIndex(idx.glin, EngineConfig(), device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = rep.query(QueryBatch.window(wins, "intersects", backend="device"))
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    if not (first.plan.rebuild_snapshot and first.plan.backend == "device"):
+        raise RuntimeError(f"republishing batch plan {first.plan}")
+    parts = rep.stats()["sync_publish"]
+    publish_ms = parts["capture_ms"] + parts["build_ms"] + parts["upload_ms"]
+    log({"republish": {**parts, "publish_ms": publish_ms,
+                       "payload_and_batch_ms": sync_ms - publish_ms,
+                       "total_ms": sync_ms}})
+    same_ids(batches["intersects"][1].ids, first.ids,
+             "intersects: device+delta vs republishing batch")
+    for rel, (batch, res) in batches.items():
+        r = rep.query(QueryBatch.window(batch, rel))
+        if r.plan.backend != "device" or r.plan.rebuild_snapshot:
+            raise RuntimeError(f"{rel}: republished facade plan {r.plan}")
+        same_ids(res.ids, r.ids, f"{rel}: device+delta vs republished")
+        host = idx.query(QueryBatch.window(batch[:HOST_CHECK], rel,
+                                           backend="host"))
+        same_ids(res.ids[:HOST_CHECK], host.ids,
+                 f"{rel}: device+delta vs host")
+    r = rep.query(QueryBatch.knn(pts, KNN_KS[0]))
+    same_ids(knn.ids, r.ids, "knn: device+delta vs republished")
+    for i, (a, b) in enumerate(zip(knn.distances, r.distances)):
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"knn point {i}: distances differ from the "
+                               "republished snapshot's")
+    del rep, first, r
+    torch.cuda.empty_cache()
+    # the republish's capture compacted the shared store: the next query
+    # re-uploads the geometry payload (here, not inside phase 6b)
+    t0 = time.perf_counter()
+    idx.query(QueryBatch.window(wins, "intersects"))
+    torch.cuda.synchronize()
+    log({"write_checks": {"relations": len(batches), "host_windows":
+                          HOST_CHECK, "knn_points": len(pts),
+                          "payload_reupload_batch_ms":
+                          (time.perf_counter() - t0) * 1e3}})
+    return launches, sync_ms
+
+
+def async_phase(idx, wins, counters, read_path, sync_ms):
+    """6b. Async double-buffered republish: ``async_republish`` set as the
+    server sets it, the delta driven past ``refresh_threshold``, and
+    1024-window ``intersects`` batches streamed while the next snapshot
+    builds on the side; a delete of a record the pending snapshot holds and
+    an insert land mid-build, right after the first in-flight batch. The
+    first and last in-flight batches and the first after the swap equal
+    the fp64 host path on 64 windows at their epochs (the first's host
+    answer is taken before the stream: a host batch of 64 windows outlasts
+    the build)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.datasets import generate
+    from repro_torch.core.engine import QueryBatch
+
+    idx.config = dataclasses.replace(idx.config, async_republish=True)
+    src = generate("mixed", ASYNC_INSERTS, seed=4)
+    fp32_exact(src)
+    for i in range(ASYNC_INSERTS):
+        idx.insert(ring_of(src, i), int(src.nverts[i]), int(src.kinds[i]))
+    delta = idx.delta_size()
+    if delta < idx.config.refresh_threshold:
+        raise RuntimeError(f"delta of {delta} below the threshold")
+    pubs0 = idx.stats()["snapshot_publishes"]
+
+    def host():
+        """The fp64 host path on 64 windows, through the host index itself:
+        a facade query would poll (and start) the async build."""
+        with idx._lock:
+            return [np.sort(idx.glin.query(w, "intersects"))
+                    for w in wins[:HOST_CHECK]]
+
+    # the host's answer at the first in-flight batch's epoch, taken before
+    # the stream (a host batch outlasts the build)
+    want_first = host()
+    for fn in counters.values():
+        fn.launches = 0
+    walls, first, last, victim, late = [], None, None, None, None
+    t_start = time.perf_counter()
+    while True:
+        t0 = time.perf_counter()
+        res = idx.query(QueryBatch.window(wins, "intersects"))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if idx.stats()["snapshot_publishes"] > pubs0:
+            swap_s, after, after_ms = t0 - t_start, res, wall
+            break
+        if not (idx.republish_inflight()
+                and "async republish in flight" in res.plan.reason):
+            raise RuntimeError(f"no build in flight: {res.plan}")
+        walls.append(wall)
+        last = res
+        if first is None:
+            first = res
+            victim = int(first.ids[1][0])    # live in the pending snapshot
+            if not idx.delete(victim):
+                raise RuntimeError(f"delete of record {victim} failed")
+            c = (wins[0, :2] + wins[0, 2:]) / 2
+            late = idx.insert(np.asarray(
+                [[c[0] - 1e-4, c[1] - 1e-4], [c[0] + 1e-4, c[1] - 1e-4],
+                 [c[0], c[1] + 1e-4]], np.float32).astype(np.float64), 3, 0)
+        if time.perf_counter() - t_start > 300:
+            raise RuntimeError("the async republish never swapped in")
+    launches = read_path("async", ("refine_fused",))
+    want = host()
+    same_ids(first.ids[:HOST_CHECK], want_first,
+             "first in-flight batch vs host")
+    same_ids(last.ids[:HOST_CHECK], want if last is not first else
+             want_first, "last in-flight batch vs host")
+    same_ids(after.ids[:HOST_CHECK], want, "first batch after the swap vs "
+             "host")
+    if victim in after.ids[1] or late not in after.ids[0]:
+        raise RuntimeError("mid-build writes lost across the swap")
+    if not (victim in idx._tombstones and late in idx._added):
+        raise RuntimeError("the swap installed the wrong delta")
+    log({"async_swap": {
+        "delta_at_start": delta, "batches_in_flight": len(walls),
+        "batches_in_flight_after_writes": len(walls) - 1,
+        "inflight_wall_ms_median": statistics.median(walls),
+        "inflight_wall_ms_max": max(walls), "first_batch_ms": walls[0],
+        "sync_republish_ms": sync_ms, "build_to_swap_s": swap_s,
+        "after_swap_ms": after_ms, "after_swap_backend": after.plan.backend,
+        "delta_after_swap": idx.delta_size()}})
+    idx.config = dataclasses.replace(idx.config, async_republish=False)
+    return launches
+
+
+def open_loop(server, pool, rng, rate: float, seconds: float,
+              profile: bool = False):
+    """Poisson arrivals at ``rate`` queries/s for ``seconds`` (tenants and
+    relations drawn at random, a write after SERVE_WRITE_FRAC of them),
+    results collected as they resolve; latency from submit to resolution.
+    With ``profile``, the window runs under ``torch.profiler`` and the
+    device's busy time is summed."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.serve import Rejected
+
+    st0 = server.stats()
+    pubs0 = server.index.stats()["snapshot_publishes"]
+    pending = collections.deque()
+    lat, shed, submitted, writes = [], 0, 0, 0
+    prof = (tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if profile else contextlib.nullcontext())
+
+    def collect(ticket, t_sub, timeout):
+        nonlocal shed
+        val, ts = server.result_at(ticket, timeout=timeout)
+        if isinstance(val, Rejected):
+            shed += 1
+        else:
+            lat.append(ts - t_sub)
+        return ts
+
+    with prof:
+        t_begin = time.perf_counter()
+        t_end, next_arrival, t_last = t_begin + seconds, t_begin, t_begin
+        while time.perf_counter() < t_end:
+            now = time.perf_counter()
+            while next_arrival <= now:
+                w = pool[rng.integers(len(pool))]
+                rel = SERVE_RELATIONS[rng.integers(len(SERVE_RELATIONS))]
+                pending.append((server.submit(
+                    w, rel, tenant=f"tenant{rng.integers(2)}"),
+                    time.perf_counter()))
+                submitted += 1
+                if rng.random() < SERVE_WRITE_FRAC:
+                    c = rng.uniform(0.15, 0.85, 2)
+                    ang = np.sort(rng.uniform(0, 2 * np.pi, 8))
+                    v = np.stack([c[0] + 2e-4 * np.cos(ang),
+                                  c[1] + 2e-4 * np.sin(ang)], -1)
+                    server.insert(v.astype(np.float32).astype(np.float64),
+                                  8, 0)
+                    writes += 1
+                next_arrival += rng.exponential(1.0 / rate)
+            while pending:
+                try:
+                    t_last = collect(*pending[0], 0.0)
+                except TimeoutError:
+                    break
+                pending.popleft()
+            time.sleep(min(0.001, max(0.0, next_arrival - time.perf_counter())))
+        t_sub_end = time.perf_counter()
+        while pending:
+            t_last = max(t_last, collect(*pending.popleft(), 120.0))
+        if profile:
+            torch.cuda.synchronize()
+        t_done = time.perf_counter()
+    st = server.stats()
+    hist = {k: v - st0["batch_size_hist"].get(k, 0)
+            for k, v in st["batch_size_hist"].items()}
+    out = {"offered_qps": rate, "seconds": seconds,
+           "submitted_qps": submitted / (t_sub_end - t_begin),
+           "served_qps": len(lat) / max(t_last - t_begin, 1e-9),
+           "served": len(lat), "shed": shed, "writes": writes,
+           "latency_ms_p50": (float(np.percentile(lat, 50)) * 1e3
+                              if lat else None),
+           "latency_ms_p99": (float(np.percentile(lat, 99)) * 1e3
+                              if lat else None),
+           "latency_ms_max": max(lat) * 1e3 if lat else None,
+           "batch_size_hist": {k: v for k, v in hist.items() if v},
+           "backend_counts": {k: v - st0["backend_counts"].get(k, 0)
+                              for k, v in st["backend_counts"].items()},
+           "failed_batches": st["failed_batches"] - st0["failed_batches"],
+           "publishes": server.index.stats()["snapshot_publishes"] - pubs0}
+    if profile:
+        # the device's busy time over the whole profiled window: arrivals
+        # (which overrun ``seconds`` when submits fall behind) and drain
+        busy = sum(e.device_time_total for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        out["profiled_s"] = t_done - t_begin
+        out["submit_window_s"] = t_sub_end - t_begin
+        out["device_busy_s"] = busy
+        out["device_busy_share"] = busy / (t_done - t_begin)
+    if out["failed_batches"]:
+        raise RuntimeError(f"{out['failed_batches']} serving batches failed")
+    return out
+
+
+def serve_phase(idx, gs, counters):
+    """6c. The spatial serving tier on the card: ``SpatialQueryServer``
+    with the reference launcher's settings, a closed loop held ticket by
+    ticket against the facade and the host path, then open-loop Poisson
+    traffic at two offered rates and one profiled second. The index takes
+    the launcher's planner settings (``device_min_batch=1``,
+    ``stale_rebuild_min_batch=1``). Returns the path's launches (the
+    server's own queries; the checks' not)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.datasets import make_query_windows
+    from repro_torch.core.engine import QueryBatch
+    from repro_torch.serve import ServerConfig, SpatialQueryServer
+
+    cfg = ServerConfig(replicas=2, max_queue=2048, min_batch=8,
+                       max_batch=4096)
+    # the launcher's planner settings: every micro-batch may take the card
+    idx.config = dataclasses.replace(idx.config, device_min_batch=1,
+                                     stale_rebuild_min_batch=1)
+    t0 = time.perf_counter()
+    pool = make_query_windows(gs, SELECTIVITY, SERVE_POOL, seed=11)
+    log({"serve_pool": {"windows": len(pool), "seconds":
+                        time.perf_counter() - t0}})
+    rng = np.random.default_rng(12)
+    kernels = ("refine_fused", "refine_compact", "knn_topk")
+    for fn in counters.values():
+        fn.launches = 0
+    # ---- closed loop: submit, interleave writes, flush, check every ticket
+    server = SpatialQueryServer(idx, async_republish=True, config=cfg)
+    sub, writes = [], 0
+    for i in range(SERVE_CLOSED):
+        w = pool[rng.integers(len(pool))]
+        rel = SERVE_RELATIONS[rng.integers(len(SERVE_RELATIONS))]
+        sub.append((server.submit(w, rel, tenant=f"tenant{i % 2}"), w, rel))
+        if rng.random() < SERVE_WRITE_FRAC:
+            c = (w[:2] + w[2:]) / 2 + rng.uniform(-1e-3, 1e-3, 2)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, 8))
+            v = np.stack([c[0] + 2e-4 * np.cos(ang),
+                          c[1] + 2e-4 * np.sin(ang)], -1)
+            server.insert(v.astype(np.float32).astype(np.float64), 8, 0)
+            writes += 1
+    kpts = np.stack([(pool[j, :2] + pool[j, 2:]) / 2 for j in
+                     rng.integers(len(pool), size=SERVE_KNN)])
+    kpts = kpts.astype(np.float32).astype(np.float64)
+    ktick = [server.submit_knn(p, KNN_KS[0]) for p in kpts]
+    t0 = time.perf_counter()
+    out = server.flush()
+    torch.cuda.synchronize()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    served = {kn: counters[kn].launches for kn in kernels}
+    for rel in SERVE_RELATIONS:
+        items = [(t, w) for t, w, r in sub if r == rel]
+        ws = np.stack([w for _, w in items])
+        want = idx.query(QueryBatch.window(ws, rel))
+        for (t, _), ids in zip(items, want.ids):
+            if not np.array_equal(out[t], ids):
+                raise RuntimeError(f"ticket {t} ({rel}) differs from "
+                                   "index.query")
+        head = [(t, w) for t, w, r in sub[:HOST_CHECK] if r == rel]
+        if head:
+            host = idx.query(QueryBatch.window(
+                np.stack([w for _, w in head]), rel, backend="host"))
+            same_ids([out[t] for t, _ in head], host.ids,
+                     f"closed loop {rel} vs host")
+    host = idx.query(QueryBatch.knn(kpts, KNN_KS[0], backend="host"))
+    for i, t in enumerate(ktick):
+        ids, d = out[t]
+        if not (np.array_equal(ids, host.ids[i])
+                and np.allclose(d, host.distances[i], rtol=1e-4, atol=1e-7)):
+            raise RuntimeError(f"submit_knn point {i} differs from the host")
+    st = server.stats()
+    log({"serve_closed": {"submitted": SERVE_CLOSED, "knn": SERVE_KNN,
+                          "writes": writes, "flush_ms": flush_ms,
+                          "backend_counts": st["backend_counts"],
+                          "batch_size_hist": st["batch_size_hist"],
+                          "replica_queries": st["replica_queries"],
+                          "coalesced": st["coalesced"],
+                          "checked_vs_index": SERVE_CLOSED,
+                          "checked_vs_host": HOST_CHECK + SERVE_KNN}})
+    # ---- open loop
+    for fn in counters.values():
+        fn.launches = 0
+    for rate in SERVE_RATES:
+        server = SpatialQueryServer(idx, async_republish=True, config=cfg)
+        server.start()
+        try:
+            run_ = open_loop(server, pool, rng, rate, SERVE_SECONDS)
+        finally:
+            server.stop()
+        log({"serve_open": run_})
+    server = SpatialQueryServer(idx, async_republish=True, config=cfg)
+    server.start()
+    try:
+        run_ = open_loop(server, pool, rng, SERVE_RATES[-1], 1.0,
+                         profile=True)
+    finally:
+        server.stop()
+    log({"serve_profiled_second": run_})
+    inflight = idx._inflight
+    if inflight is not None and not inflight.done.wait(300):
+        raise RuntimeError("an async republish never finished")
+    for kn in kernels:
+        served[kn] += counters[kn].launches
+    log({"path": "serve", "launches": served})
+    for kn, n in served.items():
+        if n == 0:
+            raise RuntimeError(f"{kn} never launched on the serve path")
+    return served
+
+
 def leaves(tree):
     """Every tensor of a nested dict."""
     for t in tree.values():
@@ -1791,11 +2286,19 @@ def main() -> int:
     new = idx.insert(ring, 3, 0)
     if not idx.delete(victim):
         raise RuntimeError(f"delete of record {victim} failed")
-    after = run(idx, "republish", wins, "intersects")
+    # a delta of two is patched on the published snapshot (device+delta);
+    # a forced device batch then republishes synchronously
+    patched = run(idx, "patched", wins, "intersects")
+    if patched.plan.backend != "device+delta":
+        raise RuntimeError(f"write was not patched: {patched.plan}")
+    if new not in patched.ids[0] or victim in patched.ids[1]:
+        raise RuntimeError("insert/delete not reflected by the patch")
+    after = run(idx, "republish", wins, "intersects", backend="device")
     if not (after.plan.rebuild_snapshot and after.plan.backend == "device"):
         raise RuntimeError(f"write did not republish: {after.plan}")
     if new not in after.ids[0] or victim in after.ids[1]:
         raise RuntimeError("insert/delete not reflected after republish")
+    same(after.ids, patched.ids, "republished vs patched")
     same(after.ids[:HOST_CHECK], run(idx, "host", wins[:HOST_CHECK],
                                      "intersects", backend="host").ids,
          "republished vs host")
@@ -1923,6 +2426,17 @@ def main() -> int:
         log({**topk_line(f"knn_topk[drive B {b}, k {k}]", *grabbed[(b, k)],
                          k), "drive_launches": n})
     del grabbed
+
+    # ------------------------------------- 6a-6c. writes, async swap, serving
+    # each path's launches of B1, B2 and B3 add to theirs in the last line
+    write_launches, sync_ms = write_phase(idx, wins, pts, counters,
+                                          read_path)
+    for path in (write_launches,
+                 async_phase(idx, wins, counters, read_path, sync_ms),
+                 serve_phase(idx, gs, counters)):
+        for kn, n in path.items():
+            launches[kn] += n
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------ 7. the ops entry point
     for fn in counters.values():

@@ -530,6 +530,12 @@ def make_query_windows(gs: GeometrySet, selectivity: float, num_windows: int,
     pick a random geometry, take the K = selectivity * N nearest geometries
     (by MBR-centre distance), and use the MBR of that result set.
     Returns (num_windows, 4).
+
+    The K nearest are found through a grid of the centres: the searched
+    square of cells around the anchor grows a ring at a time until the K-th
+    distance lies inside it, so no record outside is as near. Where the
+    K-th distance ties, which of the tied records are taken is decided by
+    a pass over every record, so the windows equal that pass's always.
     """
     rng = np.random.default_rng(seed + 7)
     n = len(gs)
@@ -538,9 +544,54 @@ def make_query_windows(gs: GeometrySet, selectivity: float, num_windows: int,
     cy = (gs.mbrs[:, 1] + gs.mbrs[:, 3]) * 0.5
     windows = np.empty((num_windows, 4), np.float64)
     anchors = rng.integers(0, n, size=num_windows)
+    if num_windows == 0:
+        return windows
+    g = max(1, int(np.sqrt(n / k)))
+    x0, y0 = cx.min(), cy.min()
+    cell = max(cx.max() - x0, cy.max() - y0, 1e-12) / g * (1 + 1e-9)
+    ix = np.minimum(((cx - x0) / cell).astype(np.int64), g - 1)
+    iy = np.minimum(((cy - y0) / cell).astype(np.int64), g - 1)
+    key = iy * g + ix
+    order = np.argsort(key, kind="stable")
+    start = np.searchsorted(key[order], np.arange(g * g + 1))
     for i, a in enumerate(anchors):
-        d = np.maximum(np.abs(cx - cx[a]), np.abs(cy - cy[a]))  # Chebyshev
-        nearest = np.argpartition(d, k - 1)[:k]
+        nearest = None
+        # rounding of the cell index may put a record a hair past its
+        # cell's edge: a margin far above it, far below any real gap
+        tol = 1e-9 * (cell + abs(cx[a]) + abs(cy[a]))
+        r = 1
+        while True:
+            xlo, xhi = max(ix[a] - r, 0), min(ix[a] + r, g - 1)
+            ylo, yhi = max(iy[a] - r, 0), min(iy[a] + r, g - 1)
+            if xlo == 0 and ylo == 0 and xhi == g - 1 and yhi == g - 1:
+                break                    # the square is every record
+            cand = np.concatenate([order[start[row * g + xlo]:
+                                         start[row * g + xhi + 1]]
+                                   for row in range(ylo, yhi + 1)])
+            if cand.shape[0] >= k:
+                d = np.maximum(np.abs(cx[cand] - cx[a]),
+                               np.abs(cy[cand] - cy[a]))
+                part = np.argpartition(d, k - 1)
+                dk = d[part[k - 1]]
+                # every record outside the square lies at least this far
+                # (an edge at the domain's bound holds nothing beyond it)
+                reach = np.inf
+                if xlo > 0:
+                    reach = min(reach, cx[a] - (x0 + xlo * cell))
+                if xhi < g - 1:
+                    reach = min(reach, x0 + (xhi + 1) * cell - cx[a])
+                if ylo > 0:
+                    reach = min(reach, cy[a] - (y0 + ylo * cell))
+                if yhi < g - 1:
+                    reach = min(reach, y0 + (yhi + 1) * cell - cy[a])
+                if dk < reach - tol:
+                    if np.count_nonzero(d <= dk) == k:   # no tie at the K-th
+                        nearest = cand[part[:k]]
+                    break
+            r += 1
+        if nearest is None:
+            d = np.maximum(np.abs(cx - cx[a]), np.abs(cy - cy[a]))  # Chebyshev
+            nearest = np.argpartition(d, k - 1)[:k]
         m = gs.mbrs[nearest]
         windows[i] = (m[:, 0].min(), m[:, 1].min(), m[:, 2].max(), m[:, 3].max())
     return windows

@@ -14,7 +14,10 @@ windows are probed *simultaneously* with tensor ops on one device:
   as plain tensor code or through the CUDA kernels of ``kernels.refine``;
 * kNN              — CDF-seeded radii read off the model, exact squared
   distances over the survivors' pods and a (distance, id) top-k
-  (``kernels.knn``), so only the (Q, k) result leaves the device.
+  (``kernels.knn``), so only the (Q, k) result leaves the device;
+* delta            — the records inserted since the last publish as a small
+  Zmin-sorted side table (:class:`DeltaTable`), checked against a window
+  batch (``batch_check_added``) and merged into the kNN rank.
 
 Z-addresses are (hi, lo) int32 limb pairs throughout — no 64-bit integers in
 the probe. Every tensor lives on the snapshot's device; the same functions
@@ -38,10 +41,11 @@ from .zorder import (LO_LIMB_SIZE, ZGrid, mbr_to_zinterval_hilo,
 
 __all__ = ["GLINSnapshot", "HostCapture", "VertexPods", "pack_pods",
            "pods_from_store", "pods_from_numpy", "snapshot_capture",
-           "snapshot_from_capture", "snapshot_from_host",
-           "snapshot_from_numpy", "leaf_group_mbrs", "batch_probe",
+           "snapshot_arrays", "snapshot_from_capture", "snapshot_from_host",
+           "snapshot_from_numpy", "place", "leaf_group_mbrs", "batch_probe",
            "batch_query_bounds",
-           "batch_query", "batch_query_fused", "knn_seed_radii",
+           "batch_query", "batch_query_fused", "DeltaTable",
+           "delta_table_from_host", "batch_check_added", "knn_seed_radii",
            "batch_knn_rank"]
 
 _I32 = torch.int32
@@ -452,6 +456,12 @@ def snapshot_capture(glin) -> HostCapture:
 
 def snapshot_from_capture(c: HostCapture, device) -> GLINSnapshot:
     """O(N) flattening of a capture + upload to ``device``."""
+    return snapshot_from_numpy(*snapshot_arrays(c), device)
+
+
+def snapshot_arrays(c: HostCapture) -> Tuple[dict, dict]:
+    """The O(N) numpy flattening of a capture: ``(fields, meta)`` for
+    :func:`snapshot_from_numpy` (the host half of a publish)."""
     keys, recs, starts = c.keys, c.recs, c.starts
     L = c.num_leaves
     k_hi, k_lo = split_hilo_np(keys)
@@ -489,11 +499,20 @@ def snapshot_from_capture(c: HostCapture, device) -> GLINSnapshot:
         pw_sufmin_hi=c.pw_sufmin_hi, pw_sufmin_lo=c.pw_sufmin_lo)
     meta = dict(search_steps=search_steps, depth=c.depth,
                 grid_x0=c.grid_x0, grid_y0=c.grid_y0, grid_cell=c.grid_cell)
-    return snapshot_from_numpy(fields, meta, device)
+    return fields, meta
 
 
 def snapshot_from_host(glin, device) -> GLINSnapshot:
     return snapshot_from_capture(snapshot_capture(glin), device)
+
+
+def place(obj, device):
+    """A copy of a frozen tensor dataclass (snapshot, pods, delta table)
+    with every tensor field on ``device``: a replica's placement."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
 
 
 # ---------------------------------------------------------------------------
@@ -886,6 +905,136 @@ def batch_query_fused(s: GLINSnapshot, windows: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Delta side table: device-resident secondary index over the added set
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class DeltaTable:
+    """Small device-resident secondary index over the added-set delta (the
+    records inserted since the last snapshot publish), sorted by Zmin key.
+
+    ``SpatialIndex`` builds one lazily per mutation epoch so ``device+delta``
+    queries check the added set on the device (:func:`batch_check_added`)
+    instead of looping on the host per batch. Rows are padded to a size
+    bucket with inert entries (``ids == -1``, +inf keys, far-away MBRs) and
+    the vertex pool to a pow2 bucket, as the reference pads them: the same
+    answers, and allocations of a stable size."""
+
+    ids: torch.Tensor       # (A,) int32 record ids (-1 = padding), Zmin-sorted
+    zmin_hi: torch.Tensor   # (A,) int32 z-interval lower key
+    zmin_lo: torch.Tensor   # (A,) int32
+    zmax_hi: torch.Tensor   # (A,) int32 z-interval upper key
+    zmax_lo: torch.Tensor   # (A,) int32
+    mbrs: torch.Tensor      # (A, 4) float32
+    pool: torch.Tensor      # (P, 2) float32 CSR vertex pool over the added set
+    off: torch.Tensor       # (A,) int32 ring starts (inert rows -> sentinel)
+    nverts: torch.Tensor    # (A,) int32
+    kinds: torch.Tensor     # (A,) int32
+    max_width: int          # pow2 ceiling of the added set's widths
+
+    @property
+    def size(self) -> int:
+        return self.ids.shape[0]
+
+
+def delta_table_from_host(glin, added_ids, device, pad_to: int = 0
+                          ) -> DeltaTable:
+    """Build the added-set side table from the host index (one upload per
+    mutation epoch). ``added_ids`` is any iterable of record ids; rows are
+    sorted by Zmin (stable) and padded to ``pad_to`` with inert entries."""
+    ids = np.asarray(sorted(added_ids), np.int64)
+    zmin = glin.zmin[ids] if ids.shape[0] else np.empty(0, np.int64)
+    zmax = glin.zmax[ids] if ids.shape[0] else np.empty(0, np.int64)
+    order = np.argsort(zmin, kind="stable")
+    ids, zmin, zmax = ids[order], zmin[order], zmax[order]
+    gs = glin.gs
+    a = ids.shape[0]
+    m = max(a, int(pad_to))
+    pad = m - a
+    zmin_hi, zmin_lo = split_hilo_np(zmin)
+    zmax_hi, zmax_lo = split_hilo_np(zmax)
+    out_ids = np.full(m, -1, np.int32)
+    out_ids[:a] = ids
+    mbrs = np.full((m, 4), 2e30, np.float32)      # intersects nothing
+    nverts = np.ones(m, np.int32)
+    kinds = np.zeros(m, np.int32)
+    # CSR ring pool over the added set, with one far-away sentinel vertex
+    # that every inert pad row points at (intersects nothing, dwithin fails)
+    counts = gs.nverts[ids].astype(np.int64) if a else np.empty(0, np.int64)
+    off = np.zeros(m, np.int32)
+    # pow2-bucket the pool axis: its size moves by buckets, not by one ring
+    # per insert (and the last row is always the sentinel)
+    total = int(counts.sum())
+    pool = np.full((1 << max(6, total.bit_length()), 2), 2e30, np.float32)
+    if a:
+        starts = np.zeros(a, np.int64)
+        np.cumsum(counts[:-1], out=starts[1:])
+        pos = np.arange(total) - np.repeat(starts, counts)
+        src = gs.offsets[ids]
+        pool[:total] = gs.pool[np.repeat(src, counts) + pos]
+        off[:a] = starts
+        off[a:] = pool.shape[0] - 1               # the sentinel row
+        mbrs[:a] = gs.mbrs[ids]
+        nverts[:a] = gs.nverts[ids]
+        kinds[:a] = gs.kinds[ids]
+    else:
+        off[:] = pool.shape[0] - 1
+    max_width = _pow2ceil(int(counts.max()) if a else 1)
+
+    def padk(x, fill):
+        return _tensor(np.concatenate([x, np.full(pad, fill, np.int32)]),
+                       _I32, device)
+
+    return DeltaTable(
+        ids=_tensor(out_ids, _I32, device),
+        zmin_hi=padk(zmin_hi, _INF_HI), zmin_lo=padk(zmin_lo, 0),
+        zmax_hi=padk(zmax_hi, _INF_HI), zmax_lo=padk(zmax_lo, 0),
+        mbrs=_tensor(mbrs, _F32, device), pool=_tensor(pool, _F32, device),
+        off=_tensor(off, _I32, device), nverts=_tensor(nverts, _I32, device),
+        kinds=_tensor(kinds, _I32, device), max_width=max_width)
+
+
+def _delta_lanes(t: DeltaTable, q: int, sel: torch.Tensor, fn,
+                 windows: torch.Tensor, fill) -> torch.Tensor:
+    """``fn(rect, verts, nverts, kinds)`` over the (Q, A) lanes ``sel`` of
+    the added set, at the table's width (``ragged_padded``'s gather, lane by
+    lane): what the reference evaluates densely over (Q, A, max_width),
+    evaluated only where ``sel`` holds and in chunks of lanes, so memory
+    stays bounded however far the delta grows."""
+    col = torch.arange(t.size, dtype=torch.int64, device=t.ids.device)
+    return geom.map_over_pods(fn, windows, t.pool, t.off, t.nverts, t.kinds,
+                              None, col.expand(q, t.size), sel, fill,
+                              width=t.max_width)
+
+
+def batch_check_added(t: DeltaTable, windows: torch.Tensor, relation: str,
+                      grid_x0: float, grid_y0: float, grid_cell: float
+                      ) -> torch.Tensor:
+    """Windows (Q,4) f32 × added-set table -> (Q, A) bool hit matrix.
+
+    The z-interval prune mirrors the index mechanism: a window and a record
+    whose MBRs intersect always have overlapping z-intervals, so pruning on
+    ``[zmin_g, zmax_g] ∩ [zmin_q, zmax_q] != ∅`` never loses a hit and needs
+    no piecewise augmentation over the (unpublished) added set. The exact
+    predicate runs on the lanes that pass the prune and the relation's MBR
+    prefilter only (:func:`_delta_lanes`); the others are False in the
+    reference's dense evaluation too."""
+    rel = _device_relation(relation)
+    grid = ZGrid(grid_x0, grid_y0, grid_cell)
+    probe = rel.probe_window(windows)
+    (qmin_hi, qmin_lo), (qmax_hi, qmax_lo) = mbr_to_zinterval_hilo(
+        probe, grid, guard=ZGrid.FP32_GUARD_CELLS)
+    lo_ok = ~z_less_hilo(t.zmax_hi[None, :], t.zmax_lo[None, :],
+                         qmin_hi[:, None], qmin_lo[:, None])
+    hi_ok = ~z_less_hilo(qmax_hi[:, None], qmax_lo[:, None],
+                         t.zmin_hi[None, :], t.zmin_lo[None, :])
+    cand = lo_ok & hi_ok & (t.ids[None, :] >= 0)
+    sel = cand & rel.mbr_prefilter(t.mbrs[None, :, :], windows[:, None, :])
+    exact = _delta_lanes(t, windows.shape[0], sel, rel.device_predicate,
+                         windows, False)
+    return sel & exact
+
+
+# ---------------------------------------------------------------------------
 # Device-complete kNN: CDF-seeded radii + exact-distance top-k ranking
 # ---------------------------------------------------------------------------
 def _sqdist_over(windows: torch.Tensor, pods: VertexPods, rec: torch.Tensor,
@@ -949,16 +1098,17 @@ def batch_knn_rank(windows: torch.Tensor, pods: VertexPods,
 
     ``radius`` ((Q,) f32) is each point's own probe radius this rung; the
     count is |{candidates with d2 <= radius^2}|, the dwithin predicate's
-    test, which drives the ladder's settlement rule. ``tombstones`` (T,) i32
-    masks deleted-but-published ids out of the ranking. ``delta`` (the
-    unpublished added set) is not ported yet and must be None."""
+    test, which drives the ladder's settlement rule; it counts snapshot
+    and delta rows together. ``tombstones`` (T,) i32 masks
+    deleted-but-published ids out of the ranking; ``delta`` (a
+    :class:`DeltaTable`) merges the unpublished added set by exact squared
+    distance before the top-k (live rows only: pad rows rank as +inf
+    ``ID_PAD``), so ``device+delta`` kNN ranks inserted records without a
+    republish (added ids postdate snapshot ids: the two never collide)."""
     from ..kernels import knn as kknn
 
     if impl not in ("sort", "kernel"):
         raise ValueError(f"unknown knn top-k impl {impl!r}")
-    if delta is not None:
-        raise NotImplementedError("ranking an unpublished delta arrives with "
-                                  "device+delta")
     q, dev = windows.shape[0], windows.device
     valid = hits >= 0
     rec = torch.clamp(hits, min=0)
@@ -968,8 +1118,16 @@ def batch_knn_rank(windows: torch.Tensor, pods: VertexPods,
         dead = torch.isin(hits, tombstones)
         d2 = torch.where(dead, float("inf"), d2)
         ids = torch.where(dead, kknn.ID_PAD, ids)
+    if delta is not None:
+        live = delta.ids >= 0
+        ad2 = _delta_lanes(delta, q, live[None, :].expand(q, delta.size),
+                           geom.rect_geom_sqdist_torch, windows,
+                           float("inf"))
+        aid = torch.where(live, delta.ids, kknn.ID_PAD)
+        d2 = torch.cat([d2, ad2], dim=1)
+        ids = torch.cat([ids, aid[None, :].expand(q, delta.size)], dim=1)
     counts = (d2 <= (radius * radius)[:, None]).sum(dim=1, dtype=_I32)
-    if d2.shape[1] < k:                    # k > budget: pad columns
+    if d2.shape[1] < k:                    # k > budget(+delta): pad columns
         padw = k - d2.shape[1]
         d2 = torch.cat([d2, torch.full((q, padw), float("inf"), dtype=_F32,
                                        device=dev)], dim=1)

@@ -9,15 +9,25 @@ owns the plumbing:
   ``crosses`` and ``dwithin:<d>``, all through one entry point,
   ``SpatialIndex.query``;
 * **snapshots are epoch-invalidated**: every insert/delete bumps a mutation
-  epoch and is applied to the host ``GLIN`` immediately (host queries are
-  always exact); the flattened device snapshot is materialized lazily and
-  republished when stale, so a stale snapshot is never served. A stale
-  snapshot republishes synchronously for a device-sized batch; a small batch
-  runs on the host instead;
+  epoch; the flattened device snapshot is materialized lazily and
+  republished automatically when stale, so a stale snapshot is never served
+  unpatched;
+* **writes are LSM-style deltas**: every insert/delete is applied to the
+  host ``GLIN`` immediately (host queries are always exact) and recorded in
+  a small delta against the last *published* snapshot: inserted record ids
+  in an added-set, deleted published records in a tombstone-set. Device
+  queries are then served from the stale snapshot and *patched* —
+  tombstones masked out, added records checked on the device
+  (``DeltaTable``) — instead of paying a full republish per write. Once the
+  delta reaches ``EngineConfig.refresh_threshold`` the snapshot is
+  republished: synchronously, or with ``async_republish`` on a background
+  thread while queries keep serving the published snapshot plus the patch
+  (double buffering);
 * **execution is planned, then staged**: ``plan(batch)`` picks a backend
-  (host loop for small or stats-collecting batches; the device path for
-  large batches against a fresh or republished snapshot — window queries
-  and device-complete kNN, ``QueryBatch.knn``, alike) and
+  (host loop for small or stats-collecting batches; ``device`` for large
+  batches against a fresh or republished snapshot; ``device+delta`` for a
+  stale snapshot with a patchable delta — window queries and
+  device-complete kNN, ``QueryBatch.knn``, alike) and
   ``core.exec.compile_plan`` turns the choice into an
   :class:`~repro_torch.core.exec.ExecutionPlan` with per-stage telemetry on
   every result (``QueryResult.stages``, ``stats()["stages"]``,
@@ -43,9 +53,12 @@ Typical use::
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import threading
-from typing import Dict, Iterator, List, Optional, Set
+import time
+from typing import Dict, Iterator, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -56,9 +69,11 @@ from .datasets import GeometrySet
 # tests), which resolve them through THIS module's namespace so a patched
 # binding is honored
 from .device import batch_query, batch_query_fused  # noqa: F401
-from .device import (GLINSnapshot, HostCapture, VertexPods, _pow2ceil,
-                     batch_query_bounds, pods_from_store, snapshot_capture,
-                     snapshot_from_capture)
+from .device import (DeltaTable, GLINSnapshot, HostCapture, VertexPods,
+                     _pow2ceil, batch_query_bounds, delta_table_from_host,
+                     place, pods_from_store, snapshot_arrays,
+                     snapshot_capture, snapshot_from_capture,
+                     snapshot_from_numpy)
 from .index import GLIN, GLINConfig, QueryStats
 from .relations import get_relation
 
@@ -110,6 +125,9 @@ class EngineConfig:
                                       # budgets outside (0, MAX_COMPACT_
                                       # BUDGET] fall back to the staged
                                       # pipeline automatically
+    delta_device_min: int = 64        # added-set size at which device+delta
+                                      # patching moves from the host loop to
+                                      # the device-resident DeltaTable
     knn_device_min_batch: int = 16    # knn point batches this big run
                                       # device-complete (seeded probes +
                                       # on-device top-k ranking); smaller
@@ -128,6 +146,27 @@ class EngineConfig:
     pad_quantum: int = 4096           # bucket-pad record/slot table lengths
                                       # so insert-driven growth keeps shapes
                                       # (0 disables padding)
+    delta_patch_max: int = 4096       # patch a stale snapshot instead of
+                                      # republishing while the delta (added +
+                                      # tombstoned records) is at most this
+                                      # (0 disables delta patching)
+    refresh_threshold: int = 4096     # delta size at which the planner prefers
+                                      # a republish over patching (0 means
+                                      # republish on every stale query)
+    async_republish: bool = False     # double-buffered snapshots: a stale
+                                      # delta past refresh_threshold builds
+                                      # the NEXT snapshot on a background
+                                      # thread while queries keep serving the
+                                      # current snapshot + delta patch; the
+                                      # finished build swaps in at a query
+                                      # boundary
+    replicas: int = 1                 # placements of the published snapshot
+                                      # + geometry payload for serving
+                                      # fan-out, all refreshed at every
+                                      # publish; query(..., replica=r) serves
+                                      # placement r: a copy on cuda:(r %
+                                      # device_count) where there are several
+                                      # cards, the primary placement on one
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,7 +182,8 @@ class QueryBatch:
     relation: str = "intersects"
     points: Optional[np.ndarray] = None     # (Q, 2) fp64, knn only
     k: int = 1
-    backend: Optional[str] = None     # force "host" / "device"
+    backend: Optional[str] = None     # force "host" / "device" /
+                                      # "device+delta"
     collect_stats: bool = False       # per-window QueryStats (host path)
 
     @classmethod
@@ -174,7 +214,7 @@ class QueryBatch:
 class QueryPlan:
     """How a batch will execute (returned by ``plan``, recorded on results)."""
 
-    backend: str                  # "host" | "device"
+    backend: str                  # "host" | "device" | "device+delta"
     kind: str                     # "window" | "knn"
     relation: Optional[str]       # None for knn
     base_relation: Optional[str]  # probed relation (complements differ)
@@ -210,6 +250,26 @@ class QueryResult:
         return int(sum(r.shape[0] for r in self.ids))
 
 
+@dataclasses.dataclass
+class _InflightPublish:
+    """A double-buffered snapshot build running on a background thread.
+
+    ``capture`` is the synchronous host flattening at ``epoch``; the thread
+    turns it into the padded snapshot on the index's device and sets
+    ``done``. ``tombs_after`` collects records deleted while the build runs
+    that the PENDING snapshot contains (``rec < recs``) — they become the
+    tombstone set of the swapped-in snapshot."""
+
+    capture: HostCapture
+    epoch: int
+    recs: int
+    done: threading.Event
+    tombs_after: Set[int]
+    thread: Optional[threading.Thread] = None
+    snapshot: Optional[GLINSnapshot] = None
+    error: Optional[BaseException] = None
+
+
 class SpatialIndex:
     """Facade over the host ``GLIN`` + lazily-materialized device snapshot.
 
@@ -217,11 +277,21 @@ class SpatialIndex:
     mutation epoch tracks the host structure; the device snapshot and device
     geometry payload are invalidated by epoch and rebuilt on demand.
 
-    Thread-safe for concurrent callers: writes and the query prologue
-    (planning, snapshot publish, freezing) serialize on one internal lock,
-    while the device compute runs OUTSIDE it against frozen immutable
-    tensors. The host path holds the lock for its whole run (it walks the
-    mutable host tree).
+    Thread-safe for concurrent callers (the serving tier drives it from many
+    worker threads): writes and the query prologue (planning, snapshot
+    install/swap, delta freezing) serialize on one internal lock, while the
+    device compute of the ``device``/``device+delta`` backends runs OUTSIDE
+    it against frozen immutable tensors. The host paths hold the lock for
+    their whole run (they walk the mutable host tree). ``async_republish``
+    runs the snapshot REBUILD on a background thread; every state
+    transition (start, swap) happens under the lock at query boundaries.
+
+    CUDA streams: every tensor of the index, the background build's
+    included, is allocated and written on the device's current (default)
+    stream, which is shared by all threads. A query reading the new
+    snapshot is therefore ordered after the build's copies, and a block of
+    the old snapshot handed back to the caching allocator is reused only
+    after the kernels queued on it before.
     """
 
     def __init__(self, glin: GLIN, config: Optional[EngineConfig] = None,
@@ -235,9 +305,13 @@ class SpatialIndex:
         self._snapshot_epoch = -1
         self._snapshot_recs = 0         # store length at publish time
         self._publishes = 0             # snapshot (re)publish count
+        # where the latest synchronous publish's time went (stats())
+        self._sync_publish: Optional[Dict[str, float]] = None
         # writes since the last publish (what a republish folds in)
         self._added: Set[int] = set()   # record ids inserted since publish
         self._tombstones: Set[int] = set()  # published records deleted since
+        self._dtable: Optional[DeltaTable] = None  # device added-set index
+        self._dtable_epoch = -1
         self._payload: Optional[VertexPods] = None
         self._payload_key = None        # (real records, store layout gen.)
         # adaptive candidate capacity: remembered across queries so the
@@ -253,6 +327,15 @@ class SpatialIndex:
         # records die — serving the larger padded shape is still correct
         self._pool_floor = 0
         self._width_floor = 1
+        # double-buffered republish in flight (async_republish)
+        self._inflight: Optional[_InflightPublish] = None
+        # replica placements (config.replicas > 1 on several cards): per
+        # replica r a copy of the published snapshot + payload, keyed on
+        # the (publish, payload) generation it was copied from
+        self._replica_places: Dict[int, Tuple] = {}
+        # and per replica on another card a copy of the delta table, keyed
+        # on the primary table it was copied from (one copy per epoch)
+        self._replica_dtables: Dict[int, Tuple] = {}
         # per-(backend, stage) telemetry aggregates (stats()["stages"])
         self._stage_totals: Dict[str, Dict[str, Dict[str, float]]] = {}
 
@@ -280,6 +363,10 @@ class SpatialIndex:
             st["snapshot_stale"] = self.snapshot_is_stale()
             st["delta_size"] = self.delta_size()
             st["snapshot_publishes"] = self._publishes
+            st["republish_inflight"] = self._inflight is not None
+            st["sync_publish"] = (dict(self._sync_publish)
+                                  if self._sync_publish else None)
+            st["replicas"] = max(1, self.config.replicas)
             st["stages"] = {b: {s: dict(v) for s, v in per.items()}
                             for b, per in self._stage_totals.items()}
             return st
@@ -341,11 +428,17 @@ class SpatialIndex:
                     self._added.remove(rec)
                 elif rec < self._snapshot_recs:
                     self._tombstones.add(rec)
+                # else: never published nor added since the last publish —
+                # it cannot appear in snapshot results, nothing to patch
+                if self._inflight is not None and rec < self._inflight.recs:
+                    # the PENDING snapshot contains this record (it was live
+                    # at capture time): the swap installs it as a tombstone
+                    self._inflight.tombs_after.add(rec)
             return ok
 
     def delta_size(self) -> int:
         """Records added plus published records tombstoned since the last
-        snapshot publish."""
+        snapshot publish (the work a ``device+delta`` query must patch)."""
         return len(self._added) + len(self._tombstones)
 
     # --------------------------------------------------------------- snapshot
@@ -357,6 +450,10 @@ class SpatialIndex:
     def device_cap(self) -> int:
         """Current adaptive per-query candidate capacity of the device path."""
         return self._cap
+
+    @property
+    def snapshot_epoch(self) -> int:
+        return self._snapshot_epoch
 
     def snapshot_is_stale(self) -> bool:
         return self._snapshot is None or self._snapshot_epoch != self._epoch
@@ -488,25 +585,190 @@ class SpatialIndex:
         stale; a stale snapshot is never handed out)."""
         with self._lock:
             if self.snapshot_is_stale():
+                # a finished double-buffered build may already BE the current
+                # epoch — swap it in instead of rebuilding synchronously
+                self._poll_republish()
+            if self.snapshot_is_stale():
+                # timed by part (stats()["sync_publish"]): the capture of
+                # the host tree, the numpy flattening, and the upload with
+                # its bucket padding, whose copies have run when it is read
+                t0 = time.perf_counter()
                 cap = snapshot_capture(self.glin)
-                self._install_snapshot(
-                    self._pad_snapshot(snapshot_from_capture(cap,
-                                                             self.device)),
-                    cap, self._epoch)
+                t1 = time.perf_counter()
+                fields, meta = snapshot_arrays(cap)
+                t2 = time.perf_counter()
+                snap = self._pad_snapshot(
+                    snapshot_from_numpy(fields, meta, self.device))
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+                t3 = time.perf_counter()
+                self._install_snapshot(snap, cap, self._epoch, added=set(),
+                                       tombstones=set())
+                self._sync_publish = {
+                    "records": cap.num_records,
+                    "capture_ms": (t1 - t0) * 1e3,
+                    "build_ms": (t2 - t1) * 1e3,
+                    "upload_ms": (t3 - t2) * 1e3}
             return self._snapshot
 
     def _install_snapshot(self, snap: GLINSnapshot, capture: HostCapture,
-                          epoch: int) -> None:
+                          epoch: int, added: Set[int],
+                          tombstones: Set[int]) -> None:
         """Publish ``snap`` as the served snapshot (every dependent field
-        moves together, under the lock)."""
+        moves together, under the lock, on the caller's thread)."""
         self._snapshot = snap
         self._snapshot_epoch = epoch
         self._snapshot_recs = capture.num_records
         self._publishes += 1
-        self._added = set()
-        self._tombstones = set()
+        self._added = added
+        self._tombstones = tombstones
+        self._dtable = None
+        self._dtable_epoch = -1
+        # replica placements describe the previous snapshot: refreshed
+        # lazily (the first query routed to each replica copies the new one)
+        self._replica_places.clear()
+        self._replica_dtables.clear()
+        # the trip-count floors are committed here only (_pad_snapshot reads
+        # them on the build thread too)
         self._steps_floor = max(self._steps_floor, snap.search_steps)
         self._depth_floor = max(self._depth_floor, snap.depth)
+
+    # ------------------------------------------------- async double-buffering
+    @property
+    def serving_generation(self) -> Tuple[int, int]:
+        """Identity of what a query at this instant would serve: the mutation
+        epoch AND the published-snapshot generation. Result caches key on
+        this (not the epoch alone): an async snapshot swap does not bump the
+        epoch."""
+        with self._lock:
+            return (self._epoch, self._publishes)
+
+    def republish_inflight(self) -> bool:
+        return self._inflight is not None
+
+    def _maintain_async(self) -> None:
+        """Per-query async upkeep: swap in a finished double-buffered build,
+        then start a new one when the delta has reached the republish point.
+        Runs on the caller's thread, under the lock, at the top of
+        :meth:`query`."""
+        self._poll_republish()
+        cfg = self.config
+        if (cfg.async_republish and self._inflight is None
+                and self._snapshot is not None and self.snapshot_is_stale()
+                and self.delta_size() >= max(cfg.refresh_threshold, 1)):
+            self._start_republish()
+
+    def _start_republish(self) -> None:
+        """Capture the host tree NOW (synchronous) and build the next padded
+        snapshot on a daemon thread. Queries keep serving the current
+        snapshot + delta until :meth:`_poll_republish` swaps."""
+        capture = snapshot_capture(self.glin)
+        inf = _InflightPublish(capture=capture, epoch=self._epoch,
+                               recs=capture.num_records,
+                               done=threading.Event(), tombs_after=set())
+        dev = self.device
+
+        def build():
+            try:
+                # serve-first: SCHED_IDLE (runs only on cycles the query
+                # threads leave idle; Linux applies it per native thread id),
+                # falling back to niceness. On a single-core host SCHED_IDLE
+                # starves the build forever under a saturated serving thread,
+                # so niceness — a weighted share — is the policy there.
+                tid = threading.get_native_id()
+                if (os.cpu_count() or 1) > 1:
+                    try:
+                        os.sched_setscheduler(tid, os.SCHED_IDLE,
+                                              os.sched_param(0))
+                    except (AttributeError, OSError):
+                        os.setpriority(os.PRIO_PROCESS, tid, 10)
+                else:
+                    os.setpriority(os.PRIO_PROCESS, tid, 10)
+            except (AttributeError, OSError):
+                pass
+            try:
+                # the index's card as this thread's current device (a new
+                # thread starts on cuda:0)
+                with (torch.cuda.device(dev) if dev.type == "cuda"
+                      else contextlib.nullcontext()):
+                    inf.snapshot = self._pad_snapshot(
+                        snapshot_from_capture(capture, dev))
+                    if dev.type == "cuda":
+                        # the copies and pads have run before done is set
+                        torch.cuda.current_stream(dev).synchronize()
+            except BaseException as e:   # raised on the caller's thread
+                inf.error = e
+            finally:
+                inf.done.set()
+
+        inf.thread = threading.Thread(target=build, daemon=True,
+                                      name="glin-republish")
+        self._inflight = inf
+        inf.thread.start()
+
+    def _poll_republish(self) -> None:
+        """Non-blocking: if the background build finished, swap it in. The
+        swap is epoch-tagged — a synchronous publish that overtook the build
+        (``snapshot()``, ``count_candidates``, a forced ``device`` batch)
+        discards it."""
+        inf = self._inflight
+        if inf is None or not inf.done.is_set():
+            return
+        self._inflight = None
+        inf.thread.join()
+        if inf.epoch <= self._snapshot_epoch:
+            return   # a newer (or identical) snapshot is already published:
+            # the build, even a failed one, is superseded
+        if inf.error is not None:
+            raise RuntimeError(
+                "async snapshot republish failed") from inf.error
+        # post-capture delta: record ids are append-only, so everything
+        # inserted after the capture has id >= capture recs; deletes of
+        # pending-snapshot records were collected in tombs_after
+        added = {r for r in self._added if r >= inf.recs}
+        self._install_snapshot(inf.snapshot, inf.capture, inf.epoch,
+                               added=added, tombstones=set(inf.tombs_after))
+
+    def _published_snapshot(self) -> GLINSnapshot:
+        """The last *published* snapshot, possibly behind the current epoch —
+        only the ``device+delta`` path serves it, and only together with the
+        tombstone/added patch that restores exactness. Publishes one when
+        none exists yet (the delta is then empty)."""
+        if self._snapshot is None:
+            return self.snapshot()
+        return self._snapshot
+
+    def _replica_device(self, rep: int) -> torch.device:
+        """Where replica ``rep`` lives: ``cuda:(rep % device_count)`` on a
+        host with several cards; the primary device otherwise."""
+        if self.device.type == "cuda" and rep:
+            n = torch.cuda.device_count()
+            if n > 1:
+                return torch.device("cuda", rep % n)
+        return self.device
+
+    def _replica_view(self, rep: int, snap: GLINSnapshot, pods: VertexPods):
+        """The placement of ``(snap, pods)`` that replica ``rep`` serves.
+
+        Replica 0 is the primary placement (the facade's own fields); a
+        replica whose device is the primary's serves it too — on one card
+        every replica does, as in the reference on one device: the serving
+        tier's routing stays meaningful (per-replica inflight and
+        telemetry), only the physical placement collapses. Elsewhere a copy
+        on the replica's card, made once per (publish, payload) generation
+        from the same snapshot the primary serves, so every publish reaches
+        every replica. Call under ``self._lock``."""
+        r = max(1, int(self.config.replicas))
+        rep = rep % r
+        dev = self._replica_device(rep)
+        if rep == 0 or dev == snap.device:
+            return snap, pods
+        key = (self._publishes, self._payload_key)
+        ent = self._replica_places.get(rep)
+        if ent is None or ent[0] != key:
+            ent = (key, place(snap, dev), place(pods, dev))
+            self._replica_places[rep] = ent
+        return ent[1], ent[2]
 
     def _device_payload(self, needed_recs: Optional[int] = None
                         ) -> VertexPods:
@@ -606,6 +868,13 @@ class SpatialIndex:
         self._check_augmentable(batch.relation, base)
         stale = self.snapshot_is_stale()
         delta = self.delta_size()
+        inflight = self._inflight is not None
+        # patch viable: a snapshot has been published, the per-query patch
+        # work is bounded (delta_patch_max), and the delta has not yet hit
+        # the republish point (refresh_threshold)
+        patchable = (self._snapshot is not None
+                     and delta <= cfg.delta_patch_max
+                     and delta < cfg.refresh_threshold)
 
         def host(reason):
             return QueryPlan("host", "window", rel.name, base.name, False,
@@ -618,16 +887,22 @@ class SpatialIndex:
             return QueryPlan("device", "window", rel.name, base.name, stale,
                              reason + fnote, delta, fused=fused)
 
-        if batch.collect_stats and batch.backend == "device":
+        def patched(reason):
+            return QueryPlan("device+delta", "window", rel.name, base.name,
+                             self._snapshot is None, reason + fnote, delta,
+                             fused=fused)
+
+        if batch.collect_stats and batch.backend in ("device", "device+delta",
+                                                     "sharded"):
             raise ValueError("collect_stats is host-only; drop it or force "
                              "backend='host'")
         if batch.backend == "host":
             return host("forced by caller")
         if batch.backend == "device":
             return device("forced by caller")
-        if batch.backend is not None:
-            raise ValueError(f"unknown backend {batch.backend!r} (ported "
-                             "backends: 'host', 'device')")
+        if batch.backend == "device+delta":
+            return patched("forced by caller")
+        _check_backend(batch.backend)
         if batch.collect_stats:
             return host("QueryStats instrumentation is host-only")
         if not base.device_native:
@@ -638,6 +913,16 @@ class SpatialIndex:
                         f"{cfg.device_min_batch}")
         if not stale:
             return device(f"batch of {q} windows on {self.device.type}")
+        if inflight and self._snapshot is not None:
+            # double buffering: the next snapshot is building on the side;
+            # keep serving the published one + delta patch (the patch bound
+            # is waived — the delta stays bounded by write rate x build time)
+            return patched(f"async republish in flight; serving published "
+                           f"snapshot + delta of {delta}")
+        if patchable:
+            return patched(f"snapshot stale; delta of {delta} <= "
+                           f"delta_patch_max={cfg.delta_patch_max}: patching "
+                           "instead of republishing")
         if q < cfg.stale_rebuild_min_batch:
             return host(f"snapshot stale and batch of {q} < "
                         f"stale_rebuild_min_batch="
@@ -646,12 +931,14 @@ class SpatialIndex:
             return device(f"no published snapshot yet: publishing for "
                           f"batch of {q}")
         return device(f"snapshot stale; delta of {delta} not patchable "
-                      f"(no delta patching): republishing for batch of {q}")
+                      f"(delta_patch_max={cfg.delta_patch_max}, "
+                      f"refresh_threshold={cfg.refresh_threshold}): "
+                      f"republishing for batch of {q}")
 
     def _plan_knn(self, batch: QueryBatch) -> QueryPlan:
-        """The reference planner's knn branch without the sharded and
-        ``device+delta`` backends: a stale snapshot plans ``device`` and
-        republishes (the reference patches a small delta in-line)."""
+        """The reference planner's knn branch without the sharded backend: a
+        stale snapshot with a patchable delta plans ``device+delta`` (the
+        delta ranked in line), otherwise ``device`` republishes first."""
         cfg = self.config
         q = len(batch)
         seed = cfg.knn_seed or "cdf"
@@ -662,40 +949,53 @@ class SpatialIndex:
             return QueryPlan(backend, "knn", None, None,
                              backend == "device" and stale, reason, delta)
 
-        if batch.backend in ("host", "device"):
+        if batch.backend == "host":
+            return knn_plan("host", "forced by caller")
+        if batch.backend in ("device", "device+delta"):
             return knn_plan(batch.backend, "forced by caller")
-        if batch.backend is not None:
-            raise ValueError(f"unknown backend {batch.backend!r} (ported "
-                             "backends: 'host', 'device')")
+        _check_backend(batch.backend)
         if q < cfg.knn_device_min_batch or self.glin.pw is None:
             why = (f"batch of {q} < knn_device_min_batch="
                    f"{cfg.knn_device_min_batch}"
                    if q < cfg.knn_device_min_batch
                    else "no piecewise function published")
             return knn_plan("host", f"knn executes on the host index ({why})")
-        reason = (f"device-complete knn: {seed}-seeded dwithin ladder + "
-                  f"device top-{batch.k} ({q} points >= knn_device_min_batch="
-                  f"{cfg.knn_device_min_batch})")
-        if stale and self._snapshot is not None:
-            reason += (f"; snapshot stale, delta of {delta} not patchable "
-                       "(no delta patching): republishing")
-        return knn_plan("device", reason)
+        patchable = (self._snapshot is not None
+                     and delta <= cfg.delta_patch_max
+                     and delta < cfg.refresh_threshold)
+        if stale and patchable:
+            return knn_plan(
+                "device+delta",
+                f"device-complete knn with {seed}-seeded radii; "
+                f"snapshot stale, delta of {delta} ranked in-line "
+                f"(tombstones masked, added set distance-merged before "
+                f"the device top-{batch.k})")
+        return knn_plan(
+            "device",
+            f"device-complete knn: {seed}-seeded dwithin ladder + "
+            f"device top-{batch.k} ({q} points >= knn_device_min_batch="
+            f"{cfg.knn_device_min_batch})")
 
     # ------------------------------------------------------------------ query
-    def query(self, batch, relation: Optional[str] = None, **kw
-              ) -> QueryResult:
+    def query(self, batch, relation: Optional[str] = None,
+              replica: Optional[int] = None, **kw) -> QueryResult:
         """THE entry point: one or thousands of queries, any relation or knn.
 
         ``batch`` is a :class:`QueryBatch`, or a bare (4,) / (Q, 4) window
         array (``relation`` then applies, default ``intersects``). A knn
         batch (:meth:`QueryBatch.knn`) returns ids and ``distances`` per
-        point in ascending (distance, id) order.
+        point in ascending (distance, id) order. ``replica`` routes a
+        device-backend batch to placement ``replica % EngineConfig.replicas``
+        (the serving tier's least-loaded dispatcher sets it; default: the
+        primary placement).
 
         Concurrency contract: safe to call from many threads, interleaved
-        with :meth:`insert`/:meth:`delete`. A device batch is exact at the
-        epoch frozen in its prologue (``result.epoch``) and runs its device
-        compute without blocking writers; host batches serialize with
-        writers and are exact at the epoch they hold the lock.
+        with :meth:`insert`/:meth:`delete`. A ``device``/``device+delta``
+        batch is exact at the epoch frozen in its prologue
+        (``result.epoch``) and runs its device compute without blocking
+        writers; host batches serialize with writers and are exact at the
+        epoch they hold the lock. A device knn batch freezes its snapshot +
+        delta once up front: every rung serves that same epoch.
         """
         if not isinstance(batch, QueryBatch):
             batch = QueryBatch.window(batch, relation or "intersects", **kw)
@@ -706,13 +1006,14 @@ class SpatialIndex:
                 raise ValueError(f"{sorted(kw)} must be set on the QueryBatch "
                                  "itself")
         with self._lock:
+            self._maintain_async()
             plan = self.plan(batch)
         rel = base = None
         if batch.kind == "window":
             rel = get_relation(batch.relation)
             base = get_relation(rel.base_name())
         ctx = qexec.ExecContext(index=self, batch=batch, plan=plan,
-                                rel=rel, base=base)
+                                rel=rel, base=base, replica=replica or 0)
         qexec.compile_plan(plan).execute(ctx)
         self._record_stages(plan.backend, ctx.stage_stats)
         return QueryResult(ids=ctx.ids, plan=plan, epoch=ctx.epoch,
@@ -766,3 +1067,56 @@ class SpatialIndex:
         if not rel.is_complement:
             return None
         return np.nonzero(self.glin._live_mask())[0].astype(np.int64)
+
+    def _delta_table(self, rep: int = 0) -> DeltaTable:
+        """The device-resident added-set side table at the current epoch,
+        rebuilt lazily after a write burst (one upload per epoch served, not
+        one host round-trip per query batch). Rows are padded to a power of
+        two, at least ``delta_device_min``. ``rep`` names the replica it
+        serves: a replica on another card (see :meth:`_replica_view`) gets
+        a copy there, made once per table. Call under ``self._lock``."""
+        if self._dtable is None or self._dtable_epoch != self._epoch:
+            a = len(self._added)
+            pad = max(self.config.delta_device_min,
+                      1 << max(a - 1, 0).bit_length())
+            self._dtable = delta_table_from_host(self.glin, self._added,
+                                                 self.device, pad_to=pad)
+            self._dtable_epoch = self._epoch
+        rep %= max(1, int(self.config.replicas))
+        dev = self._replica_device(rep)
+        if rep == 0 or dev == self._dtable.ids.device:
+            return self._dtable
+        ent = self._replica_dtables.get(rep)
+        if ent is None or ent[0] is not self._dtable:
+            ent = (self._dtable, place(self._dtable, dev))
+            self._replica_dtables[rep] = ent
+        return ent[1]
+
+    def _freeze_delta(self, rep: int = 0) -> Optional[Tuple]:
+        """Copies of the tombstone/added delta plus the geometry slices (or
+        the device :class:`DeltaTable`) the patch step needs, frozen under
+        ``self._lock`` so the delta-patch stage can run outside it while
+        writers keep mutating the live sets."""
+        if not (self._tombstones or self._added):
+            return None
+        gs = self.glin.gs
+        tombs = (np.fromiter(self._tombstones, np.int64,
+                             len(self._tombstones))
+                 if self._tombstones else None)
+        added = np.asarray(sorted(self._added), np.int64)
+        table = av = an = ak = None
+        if added.shape[0] >= self.config.delta_device_min:
+            table = self._delta_table(rep)
+        elif added.shape[0]:
+            av = gs.padded(added).astype(np.float32)
+            an, ak = gs.nverts[added], gs.kinds[added]
+        return (tombs, added, table, av, an, ak)
+
+
+def _check_backend(backend: Optional[str]) -> None:
+    """Refuse a forced backend the port does not serve."""
+    if backend == "sharded":
+        raise ValueError("backend='sharded' is not ported yet (the sharded "
+                         "backend: ROADMAP A8)")
+    if backend is not None:
+        raise ValueError(f"unknown backend {backend!r}")

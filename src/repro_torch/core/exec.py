@@ -2,7 +2,7 @@
 
 GLIN's query path is ONE pipeline regardless of where it runs::
 
-    probe -> compact -> refine -> complement-finish
+    probe -> compact -> refine -> delta-patch -> complement-finish
 
 What differs per backend is which *implementation* serves each stage and how
 many adjacent stages it fuses: the host loop walks the mutable tree one
@@ -10,14 +10,17 @@ window at a time (probe+compact+refine in one pass), the device
 ``batch_query`` composes the same three stages as THREE device dispatches
 (probe, compact kernel, exact gather+check), and ``batch_query_fused``
 collapses them into ONE (:class:`FusedDeviceStage`, selected by
-``EngineConfig.fusion``). Complement finishing is backend-independent — it
-operates on id lists against state frozen under the facade lock — so exactly
-ONE implementation of it exists, here.
+``EngineConfig.fusion``). Delta patching (the ``device+delta`` backend:
+tombstones masked, the added set checked) and complement finishing are
+backend-independent — they operate on id lists against state frozen under
+the facade lock — so exactly ONE implementation of each exists, here.
 
 A knn batch compiles to ONE stage that covers probe, compaction, refine
 and the rank: :class:`KnnHostStage` (the fp64 host ladder, one point at a
 time) or :class:`KnnDeviceStage` (seeded radius rungs of ``intersects``
-probes, each ranked on the device by exact distance and a top-k).
+probes, each ranked on the device by exact distance and a top-k; on
+``device+delta`` with the tombstones masked and the added set merged into
+the rank).
 
 ``SpatialIndex.plan()`` picks a backend; :func:`compile_plan` turns that
 :class:`QueryPlan` into an :class:`ExecutionPlan` — an ordered stage tuple —
@@ -48,10 +51,10 @@ cap-aware probe, which raises ``OverflowError`` once a run outgrows
 **Locking contract**: the host refine stage runs under the facade lock (it
 walks the mutable host tree) and freezes the live-id set for complement
 finishing in that same critical section; the device refine stages freeze
-the snapshot, payload and live-id set under the lock, then run their device
-compute OUTSIDE it. Complement finishing runs lock-free on the frozen copy,
-so its answer is exact at the frozen epoch no matter how writers
-interleave.
+the snapshot, payload, delta and live-id set under the lock, then run their
+device compute OUTSIDE it. Delta patching and complement finishing run
+lock-free on the frozen copies, so their answers are exact at the frozen
+epoch no matter how writers interleave.
 
 **Dispatch telemetry**: every stage counts the device dispatches it issued
 into ``StageStats.dispatches`` (a staged two-stage attempt is 3 — probe,
@@ -67,16 +70,18 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .device import batch_knn_rank, knn_seed_radii
+from .device import batch_check_added, batch_knn_rank, knn_seed_radii
 from .index import QueryStats, initial_knn_radius
 from .index import knn as _host_knn
+from .relations import get_relation
 
 __all__ = ["StageStats", "ExecContext", "Stage", "ExecutionPlan",
-           "OverflowLadder", "KnnHostStage", "KnnDeviceStage",
-           "compile_plan", "PIPELINE_STAGES"]
+           "OverflowLadder", "DeltaPatchStage", "KnnHostStage",
+           "KnnDeviceStage", "compile_plan", "PIPELINE_STAGES"]
 
 # canonical stage order
-PIPELINE_STAGES = ("probe", "compact", "refine", "complement-finish")
+PIPELINE_STAGES = ("probe", "compact", "refine", "delta-patch",
+                   "complement-finish")
 
 
 def _engine():
@@ -126,18 +131,21 @@ class ExecContext:
     """Mutable state threaded through the stages of one execution.
 
     The refine stage freezes everything downstream stages read (``epoch``,
-    ``live``, ``snap``) under the facade lock; the stages after it touch
-    only this context, never the live index fields."""
+    ``frozen_delta``, ``live``, ``snap``) under the facade lock; the stages
+    after it touch only this context, never the live index fields."""
 
     index: Any                       # the SpatialIndex facade
     batch: Any                       # QueryBatch
     plan: Any                        # QueryPlan
     rel: Any                         # Relation (None for knn)
     base: Any                        # probed base Relation (None for knn)
+    replica: int = 0                 # placement the device stages serve
     # frozen under the facade lock by the refine stage
     epoch: int = -1
+    frozen_delta: Optional[Tuple] = None   # SpatialIndex._freeze_delta()
     live: Optional[np.ndarray] = None
-    snap: Any = None                 # the snapshot a knn batch served
+    snap: Any = None                 # the snapshot served (its grid params
+                                     # quantize the delta patch's windows)
     # outputs
     ids: Optional[List[np.ndarray]] = None
     distances: Optional[List[np.ndarray]] = None
@@ -308,18 +316,26 @@ class _DeviceStage(Stage):
 
     def _freeze(self, ctx: ExecContext):
         """Under the facade lock: the served snapshot and payload (immutable
-        device tensors; a stale snapshot republishes first), the live-id
-        set and the epoch — a writer landing after this block changes none
-        of them. Returns ``(snap, pods, ladder, windows)``."""
+        device tensors) at the requested replica's placement, copies of the
+        delta, the live-id set and the epoch — a writer landing after this
+        block changes none of them. ``device+delta`` serves the published
+        snapshot and patches the delta on top; plain ``device`` republishes
+        first — either way the answer is exact at the frozen epoch. Returns
+        ``(snap, pods, ladder, windows)``."""
         idx, batch = ctx.index, ctx.batch
         cfg = idx.config
+        patch = ctx.plan.backend == "device+delta"
         with idx._lock:
-            snap = idx.snapshot()
+            snap = idx._published_snapshot() if patch else idx.snapshot()
             pods = idx._device_payload(idx._snapshot_recs)
+            snap, pods = idx._replica_view(ctx.replica, snap, pods)
+            ctx.frozen_delta = (idx._freeze_delta(ctx.replica) if patch
+                                else None)
             ctx.live = idx._freeze_live(ctx.rel)
             ctx.epoch = idx._epoch
             ladder = OverflowLadder(cfg, idx._cap,
                                     compaction=idx._compaction(ctx.base.name))
+        ctx.snap = snap
         q = len(batch.windows)
         wq = batch.windows.astype(np.float32)
         if cfg.pad_quantum > 0 and q:
@@ -441,6 +457,62 @@ class FusedDeviceStage(_DeviceStage):
         self._finish(ctx, st, hits, ladder)
 
 
+class DeltaPatchStage(Stage):
+    """Restore exactness of snapshot results at the frozen epoch: mask out
+    tombstoned records and check the added set (fp32, the device precision
+    contract) against the *base* relation — complement finishing happens
+    after, on top of the patched ids.
+
+    Operates only on the ``ExecContext`` freeze (the refine stage captured
+    the delta under the lock), so it runs lock-free — THE one patch
+    implementation. Small added sets are checked in a host loop; from
+    ``EngineConfig.delta_device_min`` on, the check runs on the device
+    through the Zmin-sorted :class:`~repro_torch.core.device.DeltaTable`
+    (one (Q x A) pass, ``batch_check_added``)."""
+
+    name = "delta-patch"
+    covers = ("delta-patch",)
+    impl = "shared"
+
+    def run(self, ctx: ExecContext, st: StageStats) -> None:
+        frozen = ctx.frozen_delta
+        if frozen is None:
+            st.skipped = True
+            st.note = "no delta against the served snapshot"
+            return
+        tombs, added, table, av, an, ak = frozen
+        st.delta_added = int(added.shape[0])
+        st.delta_tombstoned = 0 if tombs is None else int(tombs.shape[0])
+        batch, snap = ctx.batch, ctx.snap
+        base = ctx.base.name
+        added_hits: Optional[List[np.ndarray]] = None
+        if table is not None:
+            wt = torch.as_tensor(batch.windows.astype(np.float32)).to(
+                table.ids.device)
+            st.dispatches += 1           # device DeltaTable added-set check
+            ok = batch_check_added(table, wt, base, snap.grid_x0,
+                                   snap.grid_y0, snap.grid_cell).cpu().numpy()
+            tbl_ids = table.ids.cpu().numpy().astype(np.int64)
+            added_hits = [np.sort(tbl_ids[row]) for row in ok]
+        elif added.shape[0]:
+            pred = get_relation(base).predicate
+            added_hits = []
+            for qi in range(len(ctx.ids)):
+                w32 = batch.windows[qi].astype(np.float32)
+                added_hits.append(added[np.asarray(pred(w32, av, an, ak))])
+        out: List[np.ndarray] = []
+        for qi, h in enumerate(ctx.ids):
+            if tombs is not None:
+                h = h[~np.isin(h, tombs)]
+            if added_hits is not None:
+                # added ids all postdate (exceed) every snapshot id, so the
+                # concatenation stays ascending
+                h = np.concatenate([h, added_hits[qi]])
+            out.append(h)
+        ctx.ids = out
+        st.survivors = _total(out)
+
+
 class ComplementFinishStage(Stage):
     """Complement relations (e.g. ``disjoint``): subtract the base hits from
     the live-id set the refine stage froze under the lock — THE one
@@ -548,7 +620,9 @@ class KnnDeviceStage(Stage):
     ``max_cap`` finishes on the host loop, and ``note`` says so.
     ``rung_hist`` / ``seed_hits`` / ``seed_radius`` report how well the
     seeding worked; ``escalations`` counts overflow-ladder retries (not
-    rungs)."""
+    rungs). On ``device+delta`` the frozen tombstones are masked out of the
+    ranking and the unpublished added set is distance-merged before the
+    top-k: inserted-but-unpublished records rank with no republish."""
 
     name = "knn-rank"
     covers = ("probe", "compact", "refine", "knn-rank")
@@ -562,20 +636,35 @@ class KnnDeviceStage(Stage):
         pts = np.asarray(batch.points, np.float64)
         q, k = len(batch), int(batch.k)
         wins = np.concatenate([pts, pts], axis=1)    # degenerate windows
+        patch = ctx.plan.backend == "device+delta"
         with idx._lock:
             # same freeze contract as the window stages: snapshot + payload
-            # captured under the lock (a stale snapshot republishes), device
-            # compute outside it — every rung serves the SAME frozen epoch
-            snap = idx.snapshot()
+            # + delta copies captured under the lock, device compute outside
+            # it — every rung serves the SAME frozen epoch
+            snap = idx._published_snapshot() if patch else idx.snapshot()
             pods = idx._device_payload(idx._snapshot_recs)
+            snap, pods = idx._replica_view(ctx.replica, snap, pods)
+            ctx.frozen_delta = (idx._freeze_delta(ctx.replica) if patch
+                                else None)
             ctx.epoch = idx._epoch
             ladder = OverflowLadder(cfg, idx._cap, max_budget=cfg.max_cap,
                                     compaction=idx._compaction("intersects"))
             n_live = idx.glin.num_records
             r_global = initial_knn_radius(idx.glin, k)
             seed_mode, impl = _knn_backstop(idx, cfg)
+            # the rank needs the added set as a device DeltaTable whatever
+            # the host/device patching threshold (cached per epoch)
+            dtab = (idx._delta_table(ctx.replica) if patch and idx._added
+                    else None)
         ctx.snap = snap
         dev = snap.device
+        tomb = None
+        if ctx.frozen_delta is not None:
+            tombs, added = ctx.frozen_delta[0], ctx.frozen_delta[1]
+            st.delta_added = int(added.shape[0])
+            st.delta_tombstoned = 0 if tombs is None else int(tombs.shape[0])
+            if tombs is not None:
+                tomb = torch.as_tensor(tombs.astype(np.int32)).to(dev)
         out_ids: List[np.ndarray] = [np.empty(0, np.int64)] * q
         out_d: List[np.ndarray] = [np.empty(0, np.float64)] * q
         ctx.ids, ctx.distances = out_ids, out_d
@@ -615,7 +704,8 @@ class KnnDeviceStage(Stage):
             ch = ch.cpu().numpy()
             good = ch >= 0
             idk, dk, within = (t.cpu().numpy() for t in batch_knn_rank(
-                ctr_t, pods, hits, rr_t, k, impl))
+                ctr_t, pods, hits, rr_t, k, impl, tombstones=tomb,
+                delta=dtab))
             st.dispatches += 1
             fat = np.nonzero(~good)[0]
             if fat.size:
@@ -642,7 +732,8 @@ class KnnDeviceStage(Stage):
                     done[todo[fat]] = True
                 else:
                     fidk, fdk, fwit = batch_knn_rank(
-                        ctr_t[fat_t], pods, fhits, rr_t[fat_t], k, impl)
+                        ctr_t[fat_t], pods, fhits, rr_t[fat_t], k, impl,
+                        tombstones=tomb, delta=dtab)
                     st.dispatches += 1
                     idk[fat] = fidk.cpu().numpy()
                     dk[fat] = fdk.cpu().numpy()
@@ -728,19 +819,23 @@ class ExecutionPlan:
 
 def compile_plan(plan) -> ExecutionPlan:
     """``QueryPlan`` -> ordered stage tuple. Every backend ends in the SAME
-    shared complement-finish implementation; it stays compiled in and
-    no-ops with ``skipped=True`` for a non-complement relation, so the
-    pipeline shape is static per backend."""
+    shared delta-patch / complement-finish implementations; conditional
+    stages (an empty delta, a non-complement relation) stay compiled in and
+    no-op with ``skipped=True``, so the pipeline shape is static per
+    backend."""
     if plan.kind == "knn":
-        if plan.backend == "device":
-            return ExecutionPlan("device", (KnnDeviceStage(),))
+        if plan.backend in ("device", "device+delta"):
+            return ExecutionPlan(plan.backend, (KnnDeviceStage(),))
         if plan.backend == "host":
             return ExecutionPlan("host", (KnnHostStage(),))
         raise ValueError(f"unknown knn backend {plan.backend!r}")
     if plan.backend == "host":
         return ExecutionPlan("host", (HostRefineStage(),
                                       ComplementFinishStage()))
+    refine = FusedDeviceStage() if plan.fused else DeviceRefineStage()
     if plan.backend == "device":
-        refine = FusedDeviceStage() if plan.fused else DeviceRefineStage()
         return ExecutionPlan("device", (refine, ComplementFinishStage()))
+    if plan.backend == "device+delta":
+        return ExecutionPlan("device+delta", (refine, DeltaPatchStage(),
+                                              ComplementFinishStage()))
     raise ValueError(f"unknown backend {plan.backend!r}")

@@ -856,22 +856,25 @@ def device_predicate(code: int, dist: float = 0.0):
 _EXACT_CHUNK_ELEMS = 1 << 22
 
 
-def map_over_pods(fn, windows, pool, off, nv, kd, bucket, rec, sel, fill):
+def map_over_pods(fn, windows, pool, off, nv, kd, bucket, rec, sel, fill,
+                  width=None):
     """``fn(rect, verts, nverts, kinds)`` — an exact predicate or distance —
     over gathered records ``rec`` (Q, M) -> (Q, M), ``fill`` on unselected
     lanes (every caller masks them anyway).
 
     Evaluates the selected lanes only, gathering each record's vertex pod at
     the widest pow2 bucket among the selected lanes of the whole batch —
-    the reference's width ladder picks the same branch — padded with the
-    last valid vertex. Lanes run in chunks, so memory stays bounded even
-    over a dense (Q, cap) candidate block."""
+    the reference's width ladder picks the same branch — or at ``width``
+    when given (``bucket`` is then unused), padded with the last valid
+    vertex. Lanes run in chunks, so memory stays bounded even over a dense
+    (Q, cap) candidate block."""
     rows, cols = sel.nonzero(as_tuple=True)
     if rows.numel() == 0:
         return torch.full(rec.shape, fill, device=rec.device)
     r = rec[rows, cols]
     o, n, k = off[r], nv[r], kd[r]
-    width = 1 << int(bucket[r].max())
+    if width is None:
+        width = 1 << int(bucket[r].max())
     lane = torch.arange(width, dtype=torch.int64, device=rec.device)
     parts = []
     step = max(1, _EXACT_CHUNK_ELEMS // width)

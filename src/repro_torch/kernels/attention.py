@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from .refine import _launch, _route
+from .refine import _count, _launch, _route
 
 __all__ = ["NEG_INF", "HEAD_DIMS", "flash_attention", "flash_attention_plain",
            "decode_attention", "decode_attention_plain", "flash_plan",
@@ -181,7 +181,7 @@ def flash_attention(q, k, v, window: int = 0):
         _launch(plan["entry"], q.device, q, k, v, out, b, hq, k.shape[1], s,
                 d, int(window), 1.0 / math.sqrt(d), plan["tokens_per_block"],
                 *q.stride()[:3], *k.stride()[:3], *out.stride()[:3])
-        flash_attention.launches += 1
+        _count(flash_attention)
     return out
 
 
@@ -230,7 +230,7 @@ def decode_attention(q, k, v, abs_pos, pos, window: int = 0):
                 int(window), 1.0 / math.sqrt(d),
                 int(q.dtype == torch.bfloat16), split, *q.stride()[:2],
                 *k.stride()[:3], abs_pos.stride(0))
-        decode_attention.launches += 1
+        _count(decode_attention)
     return out
 
 

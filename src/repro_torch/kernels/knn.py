@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .refine import _F32, _I32, _check, _launch, _route
+from .refine import _F32, _I32, _check, _count, _launch, _route
 
 __all__ = ["ID_PAD", "WARP_MAX_PER_LANE", "knn_plan", "knn_topk",
            "knn_topk_plain"]
@@ -76,7 +76,7 @@ def knn_topk(d, ids, k: int):
     if q:
         _launch("glin_knn_topk", d.device, d, ids, out_d, out_i, q, b, k,
                 knn_plan(b)["per_lane"])
-        knn_topk.launches += 1
+        _count(knn_topk)
     return out_d, out_i
 
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.zorder import morton_encode_hilo
-from .refine import _I32, _check, _launch, _route
+from .refine import _I32, _check, _count, _launch, _route
 
 __all__ = ["morton_encode", "morton_encode_plain"]
 
@@ -38,7 +38,7 @@ def morton_encode(qx, qy):
     lo = torch.empty(n, dtype=_I32, device=qx.device)
     if n:
         _launch("glin_morton_encode", qx.device, qx, qy, hi, lo, n)
-        morton_encode.launches += 1
+        _count(morton_encode)
     return hi, lo
 
 

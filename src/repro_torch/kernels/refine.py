@@ -35,6 +35,7 @@ versions test every slot (compact and fused against the slot-aligned
 from __future__ import annotations
 
 import math
+import threading
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
@@ -100,6 +101,17 @@ def _launch(name, device, *args):
         stream = torch.cuda.current_stream(device).cuda_stream
         _build.call(name, *[a.data_ptr() if isinstance(a, torch.Tensor)
                             else a for a in args], stream)
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    """One more launch in ``wrapper.launches``. Under a lock: the serving
+    tier's worker threads launch concurrently, and a bare ``+=`` is a
+    read-modify-write that can lose a count."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _chunk(n: int) -> int:
@@ -193,7 +205,7 @@ def refine_mask(windows, bounds, mbrs):
     if q and n:
         _launch("glin_refine_mask", windows.device, windows, bounds, mbrs,
                 out, q, n)
-        refine_mask.launches += 1
+        _count(refine_mask)
     return out
 
 
@@ -241,7 +253,7 @@ def refine_count(windows, bounds, mbrs, *,
         walk = _walk_args(leaves, mbrs, n)
         _launch("glin_refine_count", windows.device, windows, bounds,
                 *walk[:4], mbrs, out, q, n, *walk[4:])
-        refine_count.launches += 1
+        _count(refine_count)
     return out
 
 
@@ -331,7 +343,7 @@ def refine_compact(windows, bounds, leaf_mbrs, rec_mbrs, *, budget: int,
         _launch("glin_refine_compact", windows.device, windows, bounds,
                 *walk[:4], rec_mbrs, slots, counts, q, n, walk[4], budget,
                 int(prefilter == "contains"), walk[5])
-        refine_compact.launches += 1
+        _count(refine_compact)
     return slots, counts
 
 
@@ -481,7 +493,7 @@ def refine_fused(windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f, node_i,
                 pool.shape[0], budget, int(prefilter == "contains"), code,
                 dist2, int(augment), search_steps, depth,
                 leaves.leaf_mbr.shape[0])
-        refine_fused.launches += 1
+        _count(refine_fused)
     return hits, counts
 
 

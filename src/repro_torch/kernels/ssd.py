@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .attention import _check_strided as _check
-from .refine import _launch, _route
+from .refine import _count, _launch, _route
 
 __all__ = ["MAX_STATE", "TILE", "ssd_scan", "ssd_scan_plain", "ssd_scratch"]
 
@@ -114,7 +114,7 @@ def ssd_scan(x, dt, a, b, c, chunk: int = 128, return_state: bool = False):
                 bsz, s, h, p, n, int(x.dtype == torch.bfloat16),
                 *x.stride()[:3], *dt.stride()[:2], *b.stride()[:2],
                 *c.stride()[:2])
-        ssd_scan.launches += 1
+        _count(ssd_scan)
     return (y, state) if return_state else y
 
 

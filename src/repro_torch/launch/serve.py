@@ -11,14 +11,23 @@ picks a dense config (through the ``flash_attention`` and
 runs on the card (``--device cuda``, the default), or on the CPU with
 ``--device cpu`` (the kernels' plain versions).
 
-``python -m repro_torch.launch.serve [spatial] ...`` — the GLIN spatial
-serving tier needs ``serve/server.py``, which is not ported yet (ROADMAP
-queue A7): it exits non-zero. Every flag of the reference's launcher is
-kept, so a command line of one parses in the other.
+``python -m repro_torch.launch.serve [spatial] ...`` — the default: drive
+the GLIN spatial serving tier (``repro_torch.serve.SpatialQueryServer``,
+with async double-buffered republish) with a short open-loop demo load
+(Poisson arrivals over ``intersects``, ``contains`` and ``dwithin:0.003``,
+a write fraction of small 8-vertex rings) and print ``server.stats()`` as
+JSON: queue depth, shed count, per-tenant admitted/rejected/served, the
+batch-size histogram, per-replica query counts, coalesced duplicates and
+the facade's per-stage telemetry (``engine_stages``). ``--explain`` first
+prints the compiled execution plan of each relation. It runs on the card
+(``--device cuda``, the default) or on the CPU with ``--device cpu`` (the
+kernels' plain versions). Its other flags and defaults are the reference
+launcher's.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from typing import List
@@ -79,9 +88,73 @@ class SlotServer:
 
 # --------------------------------------------------------------- spatial mode
 def main_spatial(args) -> int:
-    print("serve spatial: the GLIN spatial serving tier (serve/server.py) "
-          "is not ported yet — ROADMAP queue A7", file=sys.stderr)
-    return 2
+    from ..core.datasets import generate, make_query_windows
+    from ..core.engine import EngineConfig, SpatialIndex, resolve_device
+    from ..core.index import GLINConfig
+    from ..serve import Rejected, ServerConfig, SpatialQueryServer
+
+    device = resolve_device(args.device)     # no card: refuse, up front
+    rng = np.random.default_rng(args.seed)
+    gs = generate(args.dataset, args.n, seed=args.seed)
+    index = SpatialIndex.build(
+        gs, GLINConfig(piece_limitation=10_000),
+        EngineConfig(device_min_batch=1, stale_rebuild_min_batch=1),
+        device=device)
+    cfg = ServerConfig(replicas=args.replicas, max_queue=args.max_queue,
+                       min_batch=args.min_batch, max_batch=args.max_batch,
+                       overlap_groups=not args.no_overlap,
+                       max_workers=args.workers)
+    server = SpatialQueryServer(index, async_republish=True, config=cfg)
+
+    relations = ["intersects", "contains", "dwithin:0.003"]
+    pool = make_query_windows(gs, 1e-4, 256, seed=args.seed + 1)
+    if args.explain:
+        for rel in relations:
+            print(index.explain(pool[:cfg.min_batch], rel), flush=True)
+    tenants = [f"tenant{i}" for i in range(max(args.tenants, 1))]
+    print(f"[serve] {args.dataset} n={args.n}: {args.qps:.0f} qps offered "
+          f"for {args.seconds:.0f}s over {len(tenants)} tenant(s), "
+          f"replicas={cfg.replicas} workers={cfg.workers()} on "
+          f"{index.device}", flush=True)
+    server.start()
+    tickets: List[int] = []
+    t_end = time.perf_counter() + args.seconds
+    next_arrival = time.perf_counter()
+    served = 0
+    try:
+        while time.perf_counter() < t_end:
+            now = time.perf_counter()
+            while next_arrival <= now:
+                w = pool[rng.integers(len(pool))]
+                rel = relations[rng.integers(len(relations))]
+                tickets.append(server.submit(
+                    w, rel, tenant=tenants[rng.integers(len(tenants))]))
+                if rng.random() < args.write_frac:
+                    c = rng.uniform(0.15, 0.85, 2)
+                    ang = np.sort(rng.uniform(0, 2 * np.pi, 8))
+                    v = np.stack([c[0] + 2e-4 * np.cos(ang),
+                                  c[1] + 2e-4 * np.sin(ang)], -1)
+                    server.insert(v, 8, 0)
+                next_arrival += rng.exponential(1.0 / args.qps)
+            # collect what has resolved so far (non-blocking cadence)
+            while tickets:
+                try:
+                    out = server.result(tickets[0], timeout=0.0)
+                except TimeoutError:
+                    break
+                served += 0 if isinstance(out, Rejected) else 1
+                tickets.pop(0)
+            time.sleep(min(0.001, max(0.0, next_arrival - time.perf_counter())))
+        for t in tickets:
+            out = server.result(t, timeout=30.0)
+            served += 0 if isinstance(out, Rejected) else 1
+    finally:
+        server.stop()
+    st = server.stats()
+    st["collected"] = served
+    st["device"] = str(index.device)
+    print(json.dumps(st, indent=2), flush=True)
+    return 0
 
 
 # -------------------------------------------------------------------- lm mode
@@ -146,8 +219,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
 
-    sp = sub.add_parser("spatial", help="GLIN spatial serving tier demo "
-                        "(not ported yet: ROADMAP A7)")
+    sp = sub.add_parser("spatial", help="GLIN spatial serving tier demo")
     sp.add_argument("--dataset", default="cluster")
     sp.add_argument("--n", type=int, default=50_000)
     sp.add_argument("--qps", type=float, default=200.0)
@@ -163,6 +235,8 @@ def main(argv=None) -> int:
     sp.add_argument("--explain", action="store_true",
                     help="print the compiled execution plan per relation")
     sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
 
     lm = sub.add_parser("lm", help="continuous-batching LM demo")
     lm.add_argument("--arch", default="granite_3_2b")

@@ -634,3 +634,122 @@ def test_ssm_decode_matches_forward_through_kernel(cuda, dtype):
         full, _ = tf.forward(params, cfg, {"tokens": toks[:, :41 + t]})
         torch.testing.assert_close(dec, full[:, -1], atol=max(tol[0], 5e-4),
                                    rtol=max(tol[1], 1e-2))
+
+
+# ------------------------------------------------------ device+delta writes --
+def _writes(idx, rng, n_add=70, deletes=(3, 40, 1500)):
+    """The same inserts (1 to 64 vertices, polylines among them) and deletes
+    of published records on any facade; returns the added ids."""
+    added = []
+    for i in range(n_add):
+        nv = (1, 2, 5, 9, 17, 64)[i % 6]
+        ang = np.sort(rng.uniform(0, 2 * np.pi, nv))
+        c, r = rng.uniform(0.2, 0.8, 2), 10 ** rng.uniform(-4, -2)
+        ring = np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)], -1)
+        added.append(idx.insert(ring.astype(np.float32).astype(np.float64),
+                                nv, 1 if nv in (2, 9) else 0))
+    for rec in deletes:
+        assert idx.delete(rec)
+    return added
+
+
+@pytest.mark.gpu
+def test_device_delta_matches_cpu_plain_path(store, cuda):
+    """A stale snapshot with 70 added records (the device DeltaTable) and 3
+    tombstones: every relation's device+delta batch on the card (the fused
+    kernel, the table check on the card) equals the CPU facade's plain
+    path, and kNN with the delta ranked in line equals it too (ids exactly,
+    distances to 1e-6)."""
+    _, wins = store
+    idxs = {}
+    for dev in (cuda, torch.device("cpu")):
+        g = generate("mixed", 3000, seed=2)
+        g.verts = g.verts.astype(np.float32).astype(np.float64)
+        g.mbrs = mbrs_of_verts(g.verts, g.nverts)
+        idxs[dev.type] = _index(g, dev)
+        idxs[dev.type].snapshot()
+        _writes(idxs[dev.type], np.random.default_rng(7))
+    w = wins.astype(np.float64)
+    n0 = kr.refine_fused.launches
+    for rel in RELATIONS + ("disjoint",):
+        a = idxs["cuda"].query(w, rel)
+        b = idxs["cpu"].query(w, rel)
+        assert a.plan.backend == b.plan.backend == "device+delta"
+        for x, y in zip(a.ids, b.ids):
+            np.testing.assert_array_equal(x, y)
+        st = {s.stage: s for s in a.stages}["delta-patch"]
+        assert (st.delta_added, st.delta_tombstoned) == (70, 3)
+    assert kr.refine_fused.launches > n0
+    pts = np.random.default_rng(3).uniform(0.2, 0.8, (64, 2))
+    n1 = kk.knn_topk.launches
+    a = idxs["cuda"].query(QueryBatch.knn(pts, 10))
+    b = idxs["cpu"].query(QueryBatch.knn(pts, 10))
+    assert a.plan.backend == b.plan.backend == "device+delta"
+    assert kk.knn_topk.launches > n1
+    for x, y, dx, dy in zip(a.ids, b.ids, a.distances, b.distances):
+        np.testing.assert_array_equal(x, y)
+        # torch's elementwise distance ops on the card and on the CPU:
+        # each op rounds once either way, 1e-6 leaves room for a last bit
+        np.testing.assert_allclose(dx, dy, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_async_swap_on_the_card_with_a_held_build(cuda, monkeypatch):
+    """The double-buffered republish on the card: the build (on its own
+    thread, holding the card as its current device) is held on an event;
+    batches served meanwhile are exact against the host path, a mid-build
+    delete stays deleted and a mid-build insert stays in the delta after
+    the swap."""
+    import threading
+
+    from repro_torch.core import engine as teng
+
+    g = generate("mixed", 3000, seed=5)
+    g.verts = g.verts.astype(np.float32).astype(np.float64)
+    g.mbrs = mbrs_of_verts(g.verts, g.nverts)
+    idx = SpatialIndex.build(g, GLINConfig(piece_limitation=250),
+                             EngineConfig(device_min_batch=1,
+                                          stale_rebuild_min_batch=1,
+                                          delta_patch_max=8,
+                                          refresh_threshold=8,
+                                          async_republish=True),
+                             device=cuda)
+    idx.snapshot()
+    real, release = teng.snapshot_from_capture, threading.Event()
+    seen = []
+
+    def held(cap, device):
+        if threading.current_thread().name == "glin-republish":
+            seen.append(torch.cuda.current_device())
+            assert release.wait(60.0), "never released"
+        return real(cap, device)
+
+    monkeypatch.setattr(teng, "snapshot_from_capture", held)
+    wins = make_query_windows(g, 0.02, 8, seed=6).astype(
+        np.float32).astype(np.float64)
+
+    def exact():
+        res = idx.query(wins, "intersects")
+        for x, y in zip(res.ids,
+                        idx.query(wins, "intersects", backend="host").ids):
+            np.testing.assert_array_equal(x, y)
+        return res
+
+    _writes(idx, np.random.default_rng(9), n_add=9, deletes=())
+    pubs = idx.stats()["snapshot_publishes"]
+    res = exact()
+    assert idx.republish_inflight() and res.plan.backend == "device+delta"
+    victim = int(idx.query(wins, "intersects", backend="host")[0][0])
+    assert idx.delete(victim)
+    c = np.array([wins[0][[0, 2]].mean(), wins[0][[1, 3]].mean()])
+    late = idx.insert(np.array([c, c + 1e-4, c + [1e-4, 0]]), 3, 0)
+    for _ in range(3):
+        exact()
+    release.set()
+    assert idx._inflight.done.wait(60.0)
+    res = exact()
+    assert idx.stats()["snapshot_publishes"] == pubs + 1
+    assert seen == [cuda.index if cuda.index is not None
+                    else torch.cuda.current_device()]
+    assert victim not in res[0] and late in res[0]
+    assert victim in idx._tombstones and late in idx._added

@@ -2,9 +2,10 @@
 reference facade on the window scenarios of ``test_exec.py`` and
 ``test_oracle_parity.py``.
 
-The reference runs with ``EngineConfig(delta_patch_max=0,
-fusion="reference")`` — its planner without delta patching, its device refine
-through the XLA reference of the fused kernel. The port runs on the CPU with
+Both facades run with ``delta_patch_max=0`` — the planner without delta
+patching (``tests/test_torch_delta.py`` holds the patch path) — and the
+reference's device refine through the XLA reference of the fused kernel
+(``fusion="reference"``). The port runs on the CPU with
 ``fusion="reference"`` (plain composition), ``fusion="kernel"`` (the
 ``refine_fused`` wrapper, which takes its plain version for CPU tensors) and
 ``fusion="off"`` (the staged path through the ``refine_compact`` wrapper).
@@ -60,7 +61,8 @@ def build_pair(n=_N, seed=3, pl=500, fusions=FUSIONS, **cfg):
                        RConfig(delta_patch_max=0, fusion="reference", **cfg))
     ports = {f: TIndex.build(port_mixed_store(n, seed),
                              TGLINConfig(piece_limitation=pl),
-                             TConfig(fusion=f, **cfg), device="cpu")
+                             TConfig(delta_patch_max=0, fusion=f, **cfg),
+                             device="cpu")
              for f in fusions}
     return ref, ports
 

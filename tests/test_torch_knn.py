@@ -3,8 +3,9 @@
 Both packages build the same store from the same seed (``mixed``, and a
 ``points`` store small enough that k can exceed the live records). The
 reference runs with ``EngineConfig(delta_patch_max=0, knn_topk="sort")``;
-the port runs on the CPU with its defaults (scan compaction, plain two-key
-sort) and through the kernel wrappers (``knn_topk="kernel"``,
+the port runs on the CPU with ``delta_patch_max=0`` too (the delta's kNN
+parity is in ``tests/test_torch_delta.py``), with its defaults (scan
+compaction, plain two-key sort) and through the kernel wrappers (``knn_topk="kernel"``,
 ``compaction="kernel"``, which take their plain versions for CPU tensors).
 Ids and rung telemetry (``rungs``, ``rung_hist``, ``seed_hits``) must be
 equal; device distances agree to ``rtol=1e-6`` (the tolerance of
@@ -82,7 +83,8 @@ def _pair(key):
                                exact_budget=budget))
     ports = {m: TIndex.build(_port_store(family, n, 3),
                              TGLINConfig(piece_limitation=500),
-                             TConfig(exact_budget=budget, **cfg),
+                             TConfig(delta_patch_max=0, exact_budget=budget,
+                                     **cfg),
                              device="cpu")
              for m, cfg in PORT_MODES.items()}
     return ref, ports
@@ -149,7 +151,8 @@ def test_global_seed_matches_reference(world, case):
                                         exact_budget=budget,
                                         knn_seed="global"))
     port = TIndex(w["ports"]["plain"].glin,
-                  TConfig(exact_budget=budget, knn_seed="global"),
+                  TConfig(delta_patch_max=0, exact_budget=budget,
+                          knn_seed="global"),
                   device="cpu")
     want = ref.query(RBatch.knn(w["pts"], k))
     got = port.query(QueryBatch.knn(w["pts"], k))
@@ -242,10 +245,25 @@ def test_batch_knn_rank_matches_reference(world, impl):
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     assert (np.asarray(want[0])[2] == -1).all()
     assert not np.isin(np.asarray(want[0]), tomb).any()
-    with pytest.raises(NotImplementedError, match="delta"):
-        tdev.batch_knn_rank(torch.from_numpy(wins), tpods,
-                            torch.from_numpy(hits), torch.from_numpy(radius),
-                            k, delta=object())
+    # a delta of records the pods also hold ranks as those records appended
+    # to every row's hits: the same ids, distances and counts (added ids are
+    # never tombstones: the mask applies to the hit matrix only)
+    tail = np.setdiff1d(np.unique(hits[hits >= 0]), tomb)[:5]
+    dtab = tdev.delta_table_from_host(w["ref"].glin, tail, "cpu",
+                                      pad_to=8)
+    ext = np.concatenate([hits, np.broadcast_to(tail.astype(np.int32),
+                                                (q, tail.shape[0]))], 1)
+    for t in (None, torch.from_numpy(tomb)):
+        a = tdev.batch_knn_rank(torch.from_numpy(wins), tpods,
+                                torch.from_numpy(hits),
+                                torch.from_numpy(radius), k, impl,
+                                tombstones=t, delta=dtab)
+        b = tdev.batch_knn_rank(torch.from_numpy(wins), tpods,
+                                torch.from_numpy(ext),
+                                torch.from_numpy(radius), k, impl,
+                                tombstones=t)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
     with pytest.raises(ValueError, match="impl"):
         tdev.batch_knn_rank(torch.from_numpy(wins), tpods,
                             torch.from_numpy(hits), torch.from_numpy(radius),
@@ -278,8 +296,14 @@ def test_planner_matches_reference(world):
         assert idx.delete(int(near))
     a = port.plan(QueryBatch.knn(pts, 3))
     b = ref.plan(RBatch.knn(pts, 3))
-    assert a.backend == b.backend == "device"
-    assert a.rebuild_snapshot and "republishing" in a.reason
+    assert a.backend == b.backend == "device"      # delta_patch_max=0
+    assert a.reason == b.reason and a.rebuild_snapshot
+    for backend in ("device+delta", "device"):     # forced on a stale one
+        a = port.plan(QueryBatch.knn(pts, 3, backend=backend))
+        b = ref.plan(RBatch.knn(pts, 3, backend=backend))
+        assert (a.backend, a.reason, a.delta_size) == (
+            b.backend, b.reason, b.delta_size) == (backend,
+                                                   "forced by caller", 2)
     got = port.query(QueryBatch.knn(pts, 10))
     want = ref.query(RBatch.knn(pts, 10))
     assert got.epoch == port.epoch and not port.snapshot_is_stale()
@@ -289,7 +313,7 @@ def test_planner_matches_reference(world):
     st = port.stats()["stages"]["device"]["knn-rank"]
     assert st["calls"] == 1 and sum(st["rung_hist"]) == len(pts)
     with pytest.raises(ValueError, match="backend"):
-        port.plan(QueryBatch.knn(pts, 3, backend="device+delta"))
+        port.plan(QueryBatch.knn(pts, 3, backend="sharded"))
     with pytest.raises(ValueError, match="points"):
         QueryBatch.knn(np.zeros((3, 3)), 2)
 

@@ -357,9 +357,16 @@ def test_serve_cli_runs_ssm_on_cpu():
     _cli("mamba2_2p7b")
 
 
-def test_serve_spatial_mode_is_not_ported():
-    assert tserve.main(["spatial"]) != 0
-    assert tserve.main(["--n", "100"]) != 0   # spatial is the default mode
+def test_serve_spatial_mode_is_not_ported(monkeypatch):
+    """The spatial mode is ported now, and runs on the card by default:
+    where there is none it refuses (nothing carries on on the CPU) before
+    it builds anything. ``test_torch_serving.py`` runs it with --device
+    cpu."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(["spatial"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(["--n", "100"])   # spatial is the default mode
 
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
