@@ -81,6 +81,25 @@ Phases (any failure raises, and the script exits non-zero):
    queries/s, shed, p50/p99/max latency from submit to result, the batch
    histogram, backend counts, publishes) and one profiled second (the
    device's busy share);
+6d. the sharded backend: a second facade over the same host tree with
+   ``EngineConfig(mesh=make_mesh((4, 2), ("data", "model"), [cuda:(i %
+   count) for i in range(8)]), shard_min_records=1)`` (the positions per
+   card and each shard's table bytes logged): the 1024 main windows for the
+   seven device relations and ``disjoint`` on 16, the 32 ladder windows,
+   and 1024 kNN points at k = 10 and 100, each planned ``sharded`` (wall
+   ms, dispatches, escalations, merge bytes, launches) and equal to the
+   primary facade's ``device`` batch (kNN ids exactly, distances within
+   1e-4 relative) and to the host path on 64 windows for ``intersects``,
+   ``contains`` and ``covers``, on 16 for the other relations and the
+   ladder (the fp64 host walk takes ~12 s per 64 windows of an augmented
+   probe at this size);
+   the compact kernel with a shard's walk against its plain version on
+   that shard's tables (a position of the main batch, one of the ladder),
+   the k-merge's top-k against the plain sort; then 64 inserts (one in
+   each of the first 64 windows) and 16 deletes (a hit of each of the
+   first 16) through the sharded facade and a 1024-window ``intersects``
+   batch served sharded with the delta patched on top, equal to the host
+   path on 64 windows;
 7. the kernel-level ``ops`` entry point: the Morton keys of every record
    against the host's, the candidate mask against the candidate counts, and
    the keys, the mask, the counts and the compaction (both in slot-as-leaf
@@ -115,12 +134,12 @@ Phases (any failure raises, and the script exits non-zero):
    in bf16 (the bf16 paths held against the fp32 weights' result);
 10. one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
-Launch counters are zeroed just before each of phases 5, 6, 6a, 6b, 6c, 7,
-8's and 9's serving runs and read just after (6a's and 6c's before the
-comparisons that check them): every kernel of that path must have launched,
-and a kernel's ``launches`` in the last line is its count from its path,
-summed over phases 5-6c for ``refine_compact``, ``refine_fused`` and
-``knn_topk``.
+Launch counters are zeroed just before each of phases 5, 6, 6a, 6b, 6c, 6d
+(its two paths), 7, 8's and 9's serving runs and read just after (6a's, 6c's
+and 6d's before the comparisons that check them): every kernel of that path
+must have launched, and a kernel's ``launches`` in the last line is its
+count from its path, summed over phases 5-6d for ``refine_compact``,
+``refine_fused`` and ``knn_topk``.
 """
 import collections
 import dataclasses
@@ -206,6 +225,17 @@ SERVE_KNN = 64            # closed-loop kNN points (k = 10)
 SERVE_RATES = (2_000.0, 16_000.0)   # offered queries/s, Poisson arrivals
 SERVE_SECONDS = 8.0
 SERVE_WRITE_FRAC = 0.02   # the launcher's: an 8-vertex ring, radius 2e-4
+# phase 6d: the sharded backend
+SHARD_MESH = (4, 2)       # (data, model): 4 record shards, 2 query columns
+SHARD_INSERTS = 64        # the delta patched on top of the sharded batch
+SHARD_DELETES = 16
+# 6d's host checks: the fp64 host walk takes ~12 s per 64 windows for an
+# augmented probe at 2M records (s19-c), so the phase checks 64 windows
+# for intersects (the delta's relation too) and the unaugmented contains
+# and covers, and 16 for the other relations and the ladder: the phase
+# stays near 90 s
+SHARD_HOST_FULL = ("intersects", "contains", "covers")
+SHARD_HOST_FEW = 16
 _CU = "src/repro_torch/kernels/csrc/"
 CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
         "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
@@ -1676,6 +1706,245 @@ def serve_phase(idx, gs, counters):
     return served
 
 
+def sharded_phase(idx, wins, wins_hi, pts, counters, read_path):
+    """6d. The sharded backend on phase 3's store (after 6a-6c's writes): a
+    second facade over the same host tree at the same epoch with a (4, 2)
+    mesh, every position on ``cuda:(i % device_count)`` (on one card, all
+    eight). The path: window batches for every relation, the 1e-3 ladder
+    batch and kNN at k = 10 and 100, planned ``sharded``. Each equal to the
+    primary facade's ``device`` batch and (windows) to the fp64 host path
+    on 64 windows (16 where :data:`SHARD_HOST_FULL` does not name the
+    relation, and of the ladder). Outside the path's counts, the compact
+    kernel on one (shard, model) position of the main batch and one of the
+    ladder batch against its plain version on that shard's tables, and the
+    k-merge's
+    top-k (grabbed from one more kNN batch) against the plain two-key sort.
+    Then a second path: 64 inserts (a triangle in each of the first 64
+    windows) and 16 deletes (a hit of each of the first 16) through the
+    sharded facade and one ``intersects`` batch served sharded with the
+    delta patched on top, equal to the host path. Returns the two paths' launches
+    of the compact and top-k kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.engine import EngineConfig, QueryBatch, SpatialIndex
+    from repro_torch.kernels import knn as kk
+    from repro_torch.kernels import refine as kr
+
+    t_phase = time.perf_counter()
+    ncard = torch.cuda.device_count()
+    devices = [torch.device("cuda", i % ncard) for i in range(8)]
+    mesh = tdist.make_mesh(SHARD_MESH, ("data", "model"), devices)
+    idx.snapshot()        # the primary facade at the tree's current state
+    sf = SpatialIndex(idx.glin, EngineConfig(mesh=mesh, shard_min_records=1),
+                      device=DEVICE)
+    t0 = time.perf_counter()
+    sf.snapshot()
+    t1 = time.perf_counter()
+    snaps, table, shards, maxw = sf._sharded_placement()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    per_card = collections.Counter(str(d) for _, _, d in
+                                   tdist.mesh_positions(mesh))
+    log({"sharded_mesh": {
+        "shape": dict(mesh.shape), "positions_per_card": dict(per_card),
+        "shards": shards, "slots_per_shard": table.local_n,
+        "shard_bytes": {f"{s}@{d}": t.nbytes()
+                        for (s, d), t in table.tables.items()},
+        "walk_leaves": [table.at(s, mesh.flat[s * SHARD_MESH[1]])
+                        .walk.leaf_mbr.shape[0] for s in range(shards)],
+        "padding_slots": int(sum((t.recs < 0).sum()
+                                 for t in table.tables.values())),
+        "max_width": maxw, "publish_ms": (t1 - t0) * 1e3,
+        "placement_ms": (t2 - t1) * 1e3}})
+    kernels = ("refine_compact", "knn_topk")
+    for fn in counters.values():
+        fn.launches = 0
+
+    def sharded(name, batch, **fields):
+        before = {kn: counters[kn].launches for kn in kernels}
+        t0 = time.perf_counter()
+        res = sf.query(batch)
+        torch.cuda.synchronize()
+        st = res.stages[0]
+        log({"batch": name, "queries": len(batch),
+             "wall_ms": (time.perf_counter() - t0) * 1e3,
+             "backend": res.plan.backend, "reason": res.plan.reason,
+             "impl": st.impl, "dispatches": st.dispatches,
+             "escalations": st.escalations, "cap": st.cap,
+             "budget": st.budget, "merge_bytes": st.merge_bytes,
+             "rungs": st.rungs, "hits": res.total_hits,
+             "launches": {kn: counters[kn].launches - before[kn]
+                          for kn in kernels}, **fields})
+        if res.plan.backend != "sharded" or st.impl != "sharded":
+            raise RuntimeError(f"{name}: not sharded ({res.plan})")
+        return res
+
+    # the path: every relation's window batch, the ladder batch and kNN,
+    # planned sharded by the facade
+    checks = []
+    for rel in FACADE_RELATIONS:
+        batch = wins[:DISJOINT_WINDOWS] if rel == "disjoint" else wins
+        got = sharded("sharded", QueryBatch.window(batch, rel), relation=rel)
+        checks.append((rel, batch, got))
+    ladder = sharded("sharded[ladder]",
+                     QueryBatch.window(wins_hi, "intersects"),
+                     relation="intersects", selectivity=LADDER_SELECTIVITY)
+    if ladder.stages[0].escalations < 1:
+        raise RuntimeError("the sharded ladder batch never escalated")
+    knn = {k: sharded("knn[sharded]", QueryBatch.knn(pts, k), k=k)
+           for k in KNN_KS}
+    for k, res in knn.items():
+        if res.stages[0].merge_bytes <= 0 or any(len(r) != k
+                                                 for r in res.ids):
+            raise RuntimeError(f"sharded knn k={k}: {res.stages[0]}")
+    launches = read_path("sharded", kernels)
+
+    # the checks at the same epoch: the primary facade's device batches (its
+    # own kernels, not counted) and the host path on 64 windows
+    t0 = time.perf_counter()
+    for rel, batch, got in checks:
+        dev_res = idx.query(QueryBatch.window(batch, rel, backend="device"))
+        same_ids(got.ids, dev_res.ids, f"{rel}: sharded vs device")
+    same_ids(ladder.ids, idx.query(QueryBatch.window(
+        wins_hi, "intersects", backend="device")).ids,
+        "ladder: sharded vs device")
+    knn_err = {}
+    for k, res in knn.items():
+        d = idx.query(QueryBatch.knn(pts, k))
+        if d.plan.backend != "device":
+            raise RuntimeError(f"primary facade kNN plan {d.plan}")
+        same_ids(res.ids, d.ids, f"knn k={k}: sharded vs device")
+        err = 0.0
+        for a, b in zip(res.distances, d.distances):
+            if not np.allclose(a, b, rtol=1e-4, atol=1e-7):
+                raise RuntimeError(f"knn k={k}: sharded distances off the "
+                                   "device's")
+            err = max(err, float(np.abs(a - b).max()))
+        knn_err[k] = err
+    t1 = time.perf_counter()
+    host_windows = {}
+    for rel, batch, got in checks:
+        n = HOST_CHECK if rel in SHARD_HOST_FULL else SHARD_HOST_FEW
+        host = sf.query(QueryBatch.window(batch[:n], rel, backend="host"))
+        same_ids(got.ids[:n], host.ids, f"{rel}: sharded vs host")
+        host_windows[rel] = n
+    same_ids(ladder.ids[:SHARD_HOST_FEW], sf.query(QueryBatch.window(
+        wins_hi[:SHARD_HOST_FEW], "intersects", backend="host")).ids,
+        "ladder: sharded vs host")
+    t2 = time.perf_counter()
+
+    # the kernels on shard tables, outside the path's counts: B1 with the
+    # shard's walk against its plain version on the slot-aligned tables,
+    # at the (shard, model 0) position with the most run slots of the main
+    # batch (at the budget) and of the ladder (at the kNN ladder's 4096)
+    model = mesh.shape["model"]
+    for name, w_np, budget in (
+            ("refine_compact[shard]", wins[:len(wins) // model], BUDGET),
+            ("refine_compact[shard, ladder]",
+             wins_hi[:len(wins_hi) // model], 4096)):
+        runs = []
+        for shard in range(shards):
+            dev0 = mesh.flat[shard * model]
+            t = table.at(shard, dev0)
+            w = torch.from_numpy(w_np.astype(np.float32)).to(dev0)
+            lo, hi = tdist._local_bounds(snaps[dev0], w, t, "intersects")
+            runs.append((int((hi - lo).sum()), shard, t, w,
+                         torch.stack([lo, hi], 1)))
+        _, shard, t, w, b = max(runs, key=lambda r: r[:2])
+        lo, hi = b[:, 0], b[:, 1]
+        got = kr.refine_compact(w, b, t.lmbrs, t.mbrs, budget=budget,
+                                leaves=t.walk)
+        want = kr.refine_compact_plain(w, b, t.lmbrs, t.mbrs, budget)
+        log({"name": name, "shard": shard, "queries": w.shape[0],
+             "slots": t.local_n, "walk_leaves": t.walk.leaf_mbr.shape[0],
+             "budget": budget, "run_slots": int((hi - lo).sum()),
+             "survivors": int(want[1].sum()),
+             **compare(name, got, want),
+             "kernel_ms": cuda_ms(lambda: kr.refine_compact(
+                 w, b, t.lmbrs, t.mbrs, budget=budget, leaves=t.walk), 10),
+             "plain_ms": cuda_ms(lambda: kr.refine_compact_plain(
+                 w, b, t.lmbrs, t.mbrs, budget), 2)})
+    # B3's k-merge: the (Q, shards * k) blocks of one more sharded kNN
+    # batch (the wrapper counts into the stand-in meanwhile)
+    grabbed, real_topk = {}, kk.knn_topk
+
+    def grab_topk(d, ids, k):
+        if d.shape[1] == shards * k:
+            grabbed.setdefault(k, (d.clone(), ids.clone()))
+        return real_topk(d, ids, k)
+
+    grab_topk.launches = 0
+    kk.knn_topk = grab_topk
+    try:
+        sf.query(QueryBatch.knn(pts, KNN_KS[0]))
+    finally:
+        kk.knn_topk = real_topk
+    k = KNN_KS[0]
+    if k not in grabbed:
+        raise RuntimeError("no k-merge top-k was launched")
+    d, ids = grabbed[k]
+    log({"name": "knn_topk[k-merge]", "shape": [*d.shape, k],
+         **kk.knn_plan(d.shape[1]),
+         **compare("knn_topk[k-merge]", kk.knn_topk(d, ids, k),
+                   kk.knn_topk_plain(d, ids, k)),
+         "kernel_ms": cuda_ms(lambda: kk.knn_topk(d, ids, k), 25),
+         "plain_ms": cuda_ms(lambda: kk.knn_topk_plain(d, ids, k), 10)})
+
+    # the delta: written through the sharded facade (the primary facade is
+    # not queried after: it does not see these writes), patched on top. A
+    # small triangle at the centre of each of the first 64 windows, and the
+    # deletes of a hit of each of the first 16 (so the host check sees both)
+    added = []
+    for x, y in (wins[:SHARD_INSERTS, :2] + wins[:SHARD_INSERTS, 2:]) / 2:
+        tri = np.asarray([[x - 1e-4, y - 1e-4], [x + 1e-4, y - 1e-4],
+                          [x, y + 1e-4]], np.float32).astype(np.float64)
+        added.append(sf.insert(tri, 3, 0))
+    dead = []
+    for row in checks[0][2].ids[:SHARD_DELETES]:       # intersects
+        rec = next(int(r) for r in row if int(r) not in dead)
+        if not sf.delete(rec):
+            raise RuntimeError(f"delete of record {rec} failed")
+        dead.append(rec)
+    for fn in counters.values():
+        fn.launches = 0
+    patched = sharded("sharded[delta]", QueryBatch.window(wins,
+                                                          "intersects"),
+                      relation="intersects", delta=sf.delta_size())
+    delta_launches = read_path("sharded delta", ("refine_compact",))
+    st = {s_.stage: s_ for s_ in patched.stages}["delta-patch"]
+    if "patched on top" not in patched.plan.reason or (
+            st.delta_added, st.delta_tombstoned) != (SHARD_INSERTS,
+                                                     SHARD_DELETES):
+        raise RuntimeError(f"delta not patched: {patched.plan}")
+    if not (all(a in r for a, r in zip(added, patched.ids))
+            and not any(np.isin(dead, r).any() for r in patched.ids)):
+        raise RuntimeError("the delta is not reflected by the patch")
+    t3 = time.perf_counter()
+    host = sf.query(QueryBatch.window(wins[:HOST_CHECK], "intersects",
+                                      backend="host"))
+    same_ids(patched.ids[:HOST_CHECK], host.ids,
+             "delta: sharded patched vs host")
+    log({"sharded_checks": {
+        "relations": len(checks), "device_windows": len(wins),
+        "ladder_windows": len(wins_hi),
+        "host_windows_by_relation": host_windows,
+        "ladder_host_windows": SHARD_HOST_FEW,
+        "knn_points": len(pts), "knn_max_abs_err_vs_device": knn_err,
+        "delta_inserts_hit": sum(int(a in r) for a, r in
+                                 zip(added, host.ids)),
+        "delta_deletes": len(dead),
+        "device_checks_s": t1 - t0,
+        "host_checks_s": t2 - t1 + time.perf_counter() - t3}})
+    for kn, n in delta_launches.items():
+        launches[kn] += n
+    del sf, snaps, table
+    torch.cuda.empty_cache()
+    log({"sharded_phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def leaves(tree):
     """Every tensor of a nested dict."""
     for t in tree.values():
@@ -2429,6 +2698,7 @@ def main() -> int:
 
     # ------------------------------------- 6a-6c. writes, async swap, serving
     # each path's launches of B1, B2 and B3 add to theirs in the last line
+    # (and 6d's of B1 and B3)
     write_launches, sync_ms = write_phase(idx, wins, pts, counters,
                                           read_path)
     for path in (write_launches,
@@ -2437,6 +2707,11 @@ def main() -> int:
         for kn, n in path.items():
             launches[kn] += n
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 6d. the sharded backend
+    for kn, n in sharded_phase(idx, wins, wins_hi, pts, counters,
+                               read_path).items():
+        launches[kn] += n
 
     # ------------------------------------------------ 7. the ops entry point
     for fn in counters.values():

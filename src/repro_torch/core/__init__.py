@@ -14,6 +14,7 @@ from .device import GLINSnapshot, snapshot_from_host, batch_query
 from .engine import (EngineConfig, QueryBatch, QueryPlan, QueryResult,
                      SpatialIndex)
 from .exec import PIPELINE_STAGES, ExecutionPlan, OverflowLadder, StageStats
+from .distributed import Mesh, make_mesh
 
 __all__ = [
     "GeometrySet", "generate", "make_query_windows",
@@ -22,4 +23,5 @@ __all__ = [
     "Relation", "get_relation", "register_relation", "relation_names",
     "EngineConfig", "QueryBatch", "QueryPlan", "QueryResult", "SpatialIndex",
     "PIPELINE_STAGES", "ExecutionPlan", "OverflowLadder", "StageStats",
+    "Mesh", "make_mesh",
 ]

@@ -27,7 +27,8 @@ owns the plumbing:
   (host loop for small or stats-collecting batches; ``device`` for large
   batches against a fresh or republished snapshot; ``device+delta`` for a
   stale snapshot with a patchable delta — window queries and
-  device-complete kNN, ``QueryBatch.knn``, alike) and
+  device-complete kNN, ``QueryBatch.knn``, alike; ``sharded`` when a mesh
+  is configured, ``EngineConfig.mesh``) and
   ``core.exec.compile_plan`` turns the choice into an
   :class:`~repro_torch.core.exec.ExecutionPlan` with per-stage telemetry on
   every result (``QueryResult.stages``, ``stats()["stages"]``,
@@ -36,7 +37,10 @@ owns the plumbing:
 * **devices**: an index lives on one torch device, ``"cuda"`` unless the
   caller asks for ``"cpu"``. On a CUDA index the refine runs through the
   CUDA kernels (``kernels.refine``); ``fusion="reference"`` is the plain
-  tensor composition of the same stages;
+  tensor composition of the same stages. A mesh
+  (``core.distributed.make_mesh``) is a grid of devices that one
+  controller drives: the record table range-partitioned over its data
+  axes, the windows split over its model axis;
 * **precision**: host execution refines in fp64; device execution refines in
   fp32 (results can differ at exact window boundaries, by design — the probe
   interval is quantized conservatively so hits are never missed).
@@ -153,6 +157,13 @@ class EngineConfig:
     refresh_threshold: int = 4096     # delta size at which the planner prefers
                                       # a republish over patching (0 means
                                       # republish on every stale query)
+    mesh: Optional[object] = None     # core.distributed.Mesh with a "model"
+                                      # axis (query split) and a "data"/"pod"
+                                      # axis (record shards): activates the
+                                      # "sharded" planner backend
+    shard_min_records: int = 1 << 16  # below this the single-device path
+                                      # beats per-shard dispatch overhead;
+                                      # the sharded backend is not chosen
     async_republish: bool = False     # double-buffered snapshots: a stale
                                       # delta past refresh_threshold builds
                                       # the NEXT snapshot on a background
@@ -183,7 +194,7 @@ class QueryBatch:
     points: Optional[np.ndarray] = None     # (Q, 2) fp64, knn only
     k: int = 1
     backend: Optional[str] = None     # force "host" / "device" /
-                                      # "device+delta"
+                                      # "device+delta" / "sharded"
     collect_stats: bool = False       # per-window QueryStats (host path)
 
     @classmethod
@@ -214,7 +225,8 @@ class QueryBatch:
 class QueryPlan:
     """How a batch will execute (returned by ``plan``, recorded on results)."""
 
-    backend: str                  # "host" | "device" | "device+delta"
+    backend: str                  # "host" | "device" | "device+delta" |
+                                  # "sharded"
     kind: str                     # "window" | "knn"
     relation: Optional[str]       # None for knn
     base_relation: Optional[str]  # probed relation (complements differ)
@@ -255,10 +267,11 @@ class _InflightPublish:
     """A double-buffered snapshot build running on a background thread.
 
     ``capture`` is the synchronous host flattening at ``epoch``; the thread
-    turns it into the padded snapshot on the index's device and sets
-    ``done``. ``tombs_after`` collects records deleted while the build runs
-    that the PENDING snapshot contains (``rec < recs``) — they become the
-    tombstone set of the swapped-in snapshot."""
+    turns it into the padded snapshot on the index's device (+ the sharded
+    table's numpy arrays when a mesh is active) and sets ``done``.
+    ``tombs_after`` collects records deleted while the build runs that the
+    PENDING snapshot contains (``rec < recs``) — they become the tombstone
+    set of the swapped-in snapshot."""
 
     capture: HostCapture
     epoch: int
@@ -267,6 +280,7 @@ class _InflightPublish:
     tombs_after: Set[int]
     thread: Optional[threading.Thread] = None
     snapshot: Optional[GLINSnapshot] = None
+    table_np: Optional[Dict[str, np.ndarray]] = None
     error: Optional[BaseException] = None
 
 
@@ -281,8 +295,9 @@ class SpatialIndex:
     worker threads): writes and the query prologue (planning, snapshot
     install/swap, delta freezing) serialize on one internal lock, while the
     device compute of the ``device``/``device+delta`` backends runs OUTSIDE
-    it against frozen immutable tensors. The host paths hold the lock for
-    their whole run (they walk the mutable host tree). ``async_republish``
+    it against frozen immutable tensors. The host and sharded paths hold
+    the lock for their whole run (they walk the mutable host tree, or drive
+    every mesh position from this one controller). ``async_republish``
     runs the snapshot REBUILD on a background thread; every state
     transition (start, swap) happens under the lock at query boundaries.
 
@@ -327,6 +342,17 @@ class SpatialIndex:
         # records die — serving the larger padded shape is still correct
         self._pool_floor = 0
         self._width_floor = 1
+        self._shard_pool_floor = 0
+        # host capture backing the published snapshot (the sharded
+        # placement's source; kept only while a mesh is configured)
+        self._capture: Optional[HostCapture] = None
+        # sharded backend caches: built steps per (relation, cap, budget,
+        # compaction, width); the mesh placement (replicated model snapshot
+        # + sharded record table) per publish; a table staged by the async
+        # build
+        self._shard_steps: Dict[Tuple, object] = {}
+        self._shard_placement: Optional[Tuple] = None   # (publishes, ...)
+        self._staged_table: Optional[Dict[str, np.ndarray]] = None
         # double-buffered republish in flight (async_republish)
         self._inflight: Optional[_InflightPublish] = None
         # replica placements (config.replicas > 1 on several cards): per
@@ -383,7 +409,7 @@ class SpatialIndex:
                     "wall_ms": 0.0, "queries": 0, "survivors": 0,
                     "escalations": 0, "dispatches": 0, "delta_added": 0,
                     "delta_tombstoned": 0, "rungs": 0, "seed_hits": 0,
-                    "rung_hist": []})
+                    "merge_bytes": 0, "rung_hist": []})
                 ent["calls"] += 1
                 ent["wall_ms"] += ss.wall_ms
                 # the executing impl may differ per call (staged vs fused
@@ -398,12 +424,13 @@ class SpatialIndex:
                 ent["dispatches"] += ss.dispatches
                 ent["delta_added"] += ss.delta_added
                 ent["delta_tombstoned"] += ss.delta_tombstoned
-                # knn-rank seeding telemetry (zero for window stages):
-                # rung_hist sums element-wise — entry i is the points that
-                # settled after i+1 probes, so hist[0]/queries is the seed
-                # hit-rate across every call
+                # knn-rank seeding/merge telemetry (zero for window
+                # stages): rung_hist sums element-wise — entry i is the
+                # points that settled after i+1 probes, so hist[0]/queries
+                # is the seed hit-rate across every call
                 ent["rungs"] += ss.rungs
                 ent["seed_hits"] += ss.seed_hits
+                ent["merge_bytes"] += ss.merge_bytes
                 hist = ent["rung_hist"]
                 for i, v in enumerate(ss.rung_hist):
                     if i < len(hist):
@@ -619,11 +646,17 @@ class SpatialIndex:
         self._snapshot = snap
         self._snapshot_epoch = epoch
         self._snapshot_recs = capture.num_records
+        # the capture is only read by the sharded placement; without a mesh,
+        # keeping it would pin O(N) dead host copies per publish
+        self._capture = capture if self.config.mesh is not None else None
         self._publishes += 1
         self._added = added
         self._tombstones = tombstones
         self._dtable = None
         self._dtable_epoch = -1
+        # a sharded table staged by a (now superseded) async build belongs
+        # to another capture — serving it would drop post-capture writes
+        self._staged_table = None
         # replica placements describe the previous snapshot: refreshed
         # lazily (the first query routed to each replica copies the new one)
         self._replica_places.clear()
@@ -660,13 +693,15 @@ class SpatialIndex:
 
     def _start_republish(self) -> None:
         """Capture the host tree NOW (synchronous) and build the next padded
-        snapshot on a daemon thread. Queries keep serving the current
-        snapshot + delta until :meth:`_poll_republish` swaps."""
+        snapshot (+ the sharded table's arrays when a mesh is active) on a
+        daemon thread. Queries keep serving the current snapshot + delta
+        until :meth:`_poll_republish` swaps."""
         capture = snapshot_capture(self.glin)
         inf = _InflightPublish(capture=capture, epoch=self._epoch,
                                recs=capture.num_records,
                                done=threading.Event(), tombs_after=set())
         dev = self.device
+        shards = self._shard_count() if self._sharded_available() else 0
 
         def build():
             try:
@@ -696,6 +731,12 @@ class SpatialIndex:
                     if dev.type == "cuda":
                         # the copies and pads have run before done is set
                         torch.cuda.current_stream(dev).synchronize()
+                if shards:
+                    from .distributed import shard_arrays_from_capture
+                    # the sticky per-shard pool floor is read-only here
+                    # (committed under the lock in _sharded_placement)
+                    inf.table_np = shard_arrays_from_capture(
+                        capture, shards, pool_pad_to=self._shard_pool_floor)
             except BaseException as e:   # raised on the caller's thread
                 inf.error = e
             finally:
@@ -728,6 +769,8 @@ class SpatialIndex:
         added = {r for r in self._added if r >= inf.recs}
         self._install_snapshot(inf.snapshot, inf.capture, inf.epoch,
                                added=added, tombstones=set(inf.tombs_after))
+        if inf.table_np is not None:
+            self._staged_table = inf.table_np
 
     def _published_snapshot(self) -> GLINSnapshot:
         """The last *published* snapshot, possibly behind the current epoch —
@@ -847,6 +890,109 @@ class SpatialIndex:
             return None
         return mode
 
+    # ---------------------------------------------------------------- sharded
+    def _sharded_available(self) -> bool:
+        """A mesh is configured and shaped for the sharded backend (a loud
+        error on a malformed mesh beats silently planning around it)."""
+        mesh = self.config.mesh
+        if mesh is None:
+            return False
+        names = tuple(mesh.axis_names)
+        if "model" not in names or not any(a in ("data", "pod")
+                                           for a in names):
+            raise ValueError(
+                f"EngineConfig.mesh axes {names} unusable: the sharded "
+                "backend needs a 'model' axis (query sharding) and a "
+                "'data' and/or 'pod' axis (record sharding)")
+        return True
+
+    def _shard_count(self) -> int:
+        """Number of record shards (product of the data/pod axis sizes)."""
+        from .distributed import shard_count
+
+        return shard_count(self.config.mesh)
+
+    def _sharded_placement(self):
+        """The mesh placement of the PUBLISHED snapshot, built once per
+        publish: the record table range-partitioned over the data axes
+        (slot order, slot-aligned MBR tables, each shard's walk), each
+        shard uploaded once per distinct device holding it, and a
+        model-only snapshot (record-level arrays stripped to 1-element
+        stand-ins) once per distinct device. Returns ``(snapshots, table,
+        shards, max_width)``. Call under ``self._lock``."""
+        if self._shard_placement is not None \
+                and self._shard_placement[0] == self._publishes:
+            return self._shard_placement[1:]
+        from .distributed import (place_table, replicate_model,
+                                  shard_arrays_from_capture)
+
+        mesh = self.config.mesh
+        shards = self._shard_count()
+        if self._capture is None:
+            # no capture of the published snapshot is held (it is kept only
+            # while a mesh is configured): re-derive it — from the live
+            # tree when the snapshot is fresh (they are identical), via a
+            # republish otherwise
+            if self.snapshot_is_stale():
+                self.snapshot()
+            else:
+                self._capture = snapshot_capture(self.glin)
+        table_np = self._staged_table
+        self._staged_table = None
+        # a staged table (built by the async swap's background thread) must
+        # describe exactly the published capture's slots — anything else is
+        # rebuilt here (every publish clears stale stagings, so this is a
+        # shape check only)
+        n = self._capture.keys.shape[0]
+        if (table_np is None
+                or table_np["keys_hi"].shape[0] != n + (-n) % shards):
+            table_np = shard_arrays_from_capture(
+                self._capture, shards, pool_pad_to=self._shard_pool_floor)
+        # sticky floors: a compacting republish may shrink the per-shard
+        # pool or retire the widest records; serving the previous padded
+        # shapes keeps the table shapes stable
+        self._shard_pool_floor = max(self._shard_pool_floor,
+                                     table_np["vpool"].shape[0] // shards)
+        maxw = max(self._width_floor,
+                   _pow2ceil(int(table_np["nverts"].max())))
+        self._width_floor = max(self._width_floor, maxw)
+        table = place_table(table_np, mesh)
+        snaps = replicate_model(self._snapshot, mesh)
+        # key read AFTER the potential republish above bumped the count
+        self._shard_placement = (self._publishes, snaps, table, shards, maxw)
+        return self._shard_placement[1:]
+
+    def _sharded_step(self, base: str, cap: int, budget: int,
+                      compaction: str, max_width: int):
+        """Cache of built sharded window steps (the reference's jit
+        cache), keyed on what a step is built from."""
+        key = (base, cap, budget, compaction, max_width)
+        fn = self._shard_steps.get(key)
+        if fn is None:
+            from .distributed import build_glin_query_step
+
+            fn = build_glin_query_step(
+                self.config.mesh, base, cap=cap, exact_budget=budget,
+                compaction=compaction, max_width=max_width)
+            self._shard_steps[key] = fn
+        return fn
+
+    def _sharded_knn_step(self, relation: str, k: int, cap: int, budget: int,
+                          compaction: str, max_width: int, topk: str):
+        """Cache of built sharded kNN probe+rank+k-merge steps, keyed like
+        ``_sharded_step`` plus k and the top-k; pow2-snapped radii keep the
+        relation-string key space bounded."""
+        key = ("knn", relation, k, cap, budget, compaction, max_width, topk)
+        fn = self._shard_steps.get(key)
+        if fn is None:
+            from .distributed import build_glin_knn_step
+
+            fn = build_glin_knn_step(
+                self.config.mesh, relation, k, cap=cap, exact_budget=budget,
+                compaction=compaction, max_width=max_width, topk=topk)
+            self._shard_steps[key] = fn
+        return fn
+
     def _check_augmentable(self, relation: str, base) -> None:
         """Fail loudly when a relation needs the piecewise augmentation and
         the index was built without it — the device ``_augment()`` would
@@ -892,6 +1038,10 @@ class SpatialIndex:
                              self._snapshot is None, reason + fnote, delta,
                              fused=fused)
 
+        def sharded(reason, rebuild=False):
+            return QueryPlan("sharded", "window", rel.name, base.name,
+                             rebuild, reason, delta)
+
         if batch.collect_stats and batch.backend in ("device", "device+delta",
                                                      "sharded"):
             raise ValueError("collect_stats is host-only; drop it or force "
@@ -902,6 +1052,10 @@ class SpatialIndex:
             return device("forced by caller")
         if batch.backend == "device+delta":
             return patched("forced by caller")
+        if batch.backend == "sharded":
+            self._require_mesh()
+            return sharded("forced by caller",
+                           rebuild=stale and not (patchable or inflight))
         _check_backend(batch.backend)
         if batch.collect_stats:
             return host("QueryStats instrumentation is host-only")
@@ -911,15 +1065,28 @@ class SpatialIndex:
         if q < cfg.device_min_batch:
             return host(f"batch of {q} < device_min_batch="
                         f"{cfg.device_min_batch}")
+        shard_ok = (self._sharded_available()
+                    and self.glin.num_records >= cfg.shard_min_records)
+        nsh = self._shard_count() if shard_ok else 0
         if not stale:
+            if shard_ok:
+                return sharded(f"sharded over {nsh} shards: batch of {q} "
+                               f"windows on {cfg.mesh.merge_device.type} "
+                               "mesh")
             return device(f"batch of {q} windows on {self.device.type}")
         if inflight and self._snapshot is not None:
             # double buffering: the next snapshot is building on the side;
             # keep serving the published one + delta patch (the patch bound
             # is waived — the delta stays bounded by write rate x build time)
+            if shard_ok:
+                return sharded(f"sharded over {nsh} shards; async republish "
+                               f"in flight, delta of {delta} patched on top")
             return patched(f"async republish in flight; serving published "
                            f"snapshot + delta of {delta}")
         if patchable:
+            if shard_ok:
+                return sharded(f"sharded over {nsh} shards; snapshot stale, "
+                               f"delta of {delta} patched on top")
             return patched(f"snapshot stale; delta of {delta} <= "
                            f"delta_patch_max={cfg.delta_patch_max}: patching "
                            "instead of republishing")
@@ -927,6 +1094,11 @@ class SpatialIndex:
             return host(f"snapshot stale and batch of {q} < "
                         f"stale_rebuild_min_batch="
                         f"{cfg.stale_rebuild_min_batch}")
+        if shard_ok:
+            verb = ("publishing" if self._snapshot is None
+                    else "republishing")
+            return sharded(f"sharded over {nsh} shards; {verb} for "
+                           f"batch of {q}", rebuild=True)
         if self._snapshot is None:
             return device(f"no published snapshot yet: publishing for "
                           f"batch of {q}")
@@ -936,9 +1108,11 @@ class SpatialIndex:
                       f"republishing for batch of {q}")
 
     def _plan_knn(self, batch: QueryBatch) -> QueryPlan:
-        """The reference planner's knn branch without the sharded backend: a
-        stale snapshot with a patchable delta plans ``device+delta`` (the
-        delta ranked in line), otherwise ``device`` republishes first."""
+        """The reference planner's knn branch: ``sharded`` when a mesh is
+        configured and the store is big enough (a stale snapshot is
+        republished first); else a stale snapshot with a patchable delta
+        plans ``device+delta`` (the delta ranked in line), otherwise
+        ``device`` republishes first."""
         cfg = self.config
         q = len(batch)
         seed = cfg.knn_seed or "cdf"
@@ -947,10 +1121,14 @@ class SpatialIndex:
 
         def knn_plan(backend, reason):
             return QueryPlan(backend, "knn", None, None,
-                             backend == "device" and stale, reason, delta)
+                             backend in ("device", "sharded") and stale,
+                             reason, delta)
 
         if batch.backend == "host":
             return knn_plan("host", "forced by caller")
+        if batch.backend == "sharded":
+            self._require_mesh()
+            return knn_plan("sharded", "forced by caller")
         if batch.backend in ("device", "device+delta"):
             return knn_plan(batch.backend, "forced by caller")
         _check_backend(batch.backend)
@@ -960,6 +1138,14 @@ class SpatialIndex:
                    if q < cfg.knn_device_min_batch
                    else "no piecewise function published")
             return knn_plan("host", f"knn executes on the host index ({why})")
+        if (self._sharded_available()
+                and self.glin.num_records >= cfg.shard_min_records):
+            nsh = self._shard_count()
+            return knn_plan(
+                "sharded",
+                f"device-complete knn over {nsh} shards: {seed}-seeded "
+                f"radii, shard-local top-{batch.k}, one-collective "
+                f"k-merge ({q} points)")
         patchable = (self._snapshot is not None
                      and delta <= cfg.delta_patch_max
                      and delta < cfg.refresh_threshold)
@@ -975,6 +1161,10 @@ class SpatialIndex:
             f"device-complete knn: {seed}-seeded dwithin ladder + "
             f"device top-{batch.k} ({q} points >= knn_device_min_batch="
             f"{cfg.knn_device_min_batch})")
+
+    def _require_mesh(self) -> None:
+        if not self._sharded_available():
+            raise ValueError("backend='sharded' requires EngineConfig.mesh")
 
     # ------------------------------------------------------------------ query
     def query(self, batch, relation: Optional[str] = None,
@@ -1114,9 +1304,6 @@ class SpatialIndex:
 
 
 def _check_backend(backend: Optional[str]) -> None:
-    """Refuse a forced backend the port does not serve."""
-    if backend == "sharded":
-        raise ValueError("backend='sharded' is not ported yet (the sharded "
-                         "backend: ROADMAP A8)")
+    """Refuse a forced backend the planner does not know."""
     if backend is not None:
         raise ValueError(f"unknown backend {backend!r}")

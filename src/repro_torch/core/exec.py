@@ -8,9 +8,11 @@ What differs per backend is which *implementation* serves each stage and how
 many adjacent stages it fuses: the host loop walks the mutable tree one
 window at a time (probe+compact+refine in one pass), the device
 ``batch_query`` composes the same three stages as THREE device dispatches
-(probe, compact kernel, exact gather+check), and ``batch_query_fused``
+(probe, compact kernel, exact gather+check), ``batch_query_fused``
 collapses them into ONE (:class:`FusedDeviceStage`, selected by
-``EngineConfig.fusion``). Delta patching (the ``device+delta`` backend:
+``EngineConfig.fusion``), and the sharded step runs them per record shard
+over a mesh (:class:`ShardedRefineStage`, ``core.distributed``). Delta
+patching (the ``device+delta`` backend:
 tombstones masked, the added set checked) and complement finishing are
 backend-independent — they operate on id lists against state frozen under
 the facade lock — so exactly ONE implementation of each exists, here.
@@ -20,7 +22,8 @@ and the rank: :class:`KnnHostStage` (the fp64 host ladder, one point at a
 time) or :class:`KnnDeviceStage` (seeded radius rungs of ``intersects``
 probes, each ranked on the device by exact distance and a top-k; on
 ``device+delta`` with the tombstones masked and the added set merged into
-the rank).
+the rank) or :class:`KnnShardedStage` (each record shard ranks its own
+candidates, and a k-merge takes the global k).
 
 ``SpatialIndex.plan()`` picks a backend; :func:`compile_plan` turns that
 :class:`QueryPlan` into an :class:`ExecutionPlan` — an ordered stage tuple —
@@ -60,6 +63,11 @@ epoch no matter how writers interleave.
 into ``StageStats.dispatches`` (a staged two-stage attempt is 3 — probe,
 compact, exact; a dense attempt 2; a fused attempt 1; each disambiguating
 bounds probe adds 1).
+
+**Locking on a mesh**: the sharded stages run entirely under the facade
+lock, as the reference's do (its mesh owns every device; here one
+controller drives every position in turn), and freeze the delta and
+live-id sets in that same critical section for the shared stages.
 """
 from __future__ import annotations
 
@@ -77,7 +85,8 @@ from .relations import get_relation
 
 __all__ = ["StageStats", "ExecContext", "Stage", "ExecutionPlan",
            "OverflowLadder", "DeltaPatchStage", "KnnHostStage",
-           "KnnDeviceStage", "compile_plan", "PIPELINE_STAGES"]
+           "KnnDeviceStage", "ShardedRefineStage", "KnnShardedStage",
+           "compile_plan", "PIPELINE_STAGES"]
 
 # canonical stage order
 PIPELINE_STAGES = ("probe", "compact", "refine", "delta-patch",
@@ -106,7 +115,8 @@ class StageStats:
     +1 per disambiguating bounds probe — 0 for host/shared stages)."""
 
     stage: str                       # primary canonical stage name
-    impl: str                        # "host" | "device" | "fused" | "shared"
+    impl: str                        # "host" | "device" | "fused" |
+                                     # "sharded" | "shared"
     covers: Tuple[str, ...] = ()     # canonical stages this impl fuses
     wall_ms: float = 0.0
     queries: int = 0
@@ -124,6 +134,7 @@ class StageStats:
     rung_hist: Tuple[int, ...] = ()  # points settled per rung; [0] = seeded
     seed_hits: int = 0               # points settled at their seeded radius
     seed_radius: float = 0.0         # median seed radius
+    merge_bytes: int = 0             # sharded kNN: the k-merge's block bytes
 
 
 @dataclasses.dataclass
@@ -265,6 +276,26 @@ class OverflowLadder:
             raise AssertionError(
                 "fused overflow without an active budget")  # unreachable
         self.grow_budget(use_budget, int(-(counts.min()) - 1))
+
+    def on_sharded_overflow(self, counts: np.ndarray, use_budget: int,
+                            compaction: str) -> None:
+        """Sharded retry: the step encodes the exact LOCAL need — no global
+        bounds probe, whose run is a useless overestimate of any one
+        shard's. The compact kernel walks the whole local run (capless), so
+        with a budget active its overflow is ALWAYS the budget. (The
+        sharded stages keep the reference's cap-bound ``use_budget``: their
+        ladder is built without ``compaction``.)"""
+        self.escalations += 1
+        need = int(-(counts.min()) - 1)
+        if use_budget and compaction == "kernel":
+            self.grow_budget(use_budget, need)
+        elif need > self.cap:
+            self.grow_cap(need)
+        elif not use_budget:
+            raise AssertionError(
+                "single-stage overflow with run <= cap")  # unreachable
+        else:
+            self.grow_budget(use_budget, need)
 
 
 # ------------------------------------------------------------------- stages
@@ -457,6 +488,64 @@ class FusedDeviceStage(_DeviceStage):
         self._finish(ctx, st, hits, ladder)
 
 
+class ShardedRefineStage(Stage):
+    """Per-record-shard probe+compact+refine over the mesh
+    (``core.distributed.build_glin_query_step``), query windows split over
+    the model axis. Runs entirely under the facade lock (one controller
+    drives every mesh position) and freezes the delta + live-id sets in
+    that same critical section for the downstream shared stages. A stale
+    snapshot is served with its delta patched on top, unless the plan
+    republishes first."""
+
+    name = "refine"
+    covers = ("probe", "compact", "refine")
+    impl = "sharded"
+    dispatches = 3
+
+    def run(self, ctx: ExecContext, st: StageStats) -> None:
+        idx, batch = ctx.index, ctx.batch
+        cfg = idx.config
+        with idx._lock:
+            if ctx.plan.rebuild_snapshot:
+                idx.snapshot()
+            else:
+                idx._published_snapshot()
+            patch = idx.snapshot_is_stale()
+            q = len(batch)
+            # pad the batch to a model-axis multiple (the step splits Q
+            # evenly); padded rows repeat the last window, sliced off after
+            m = cfg.mesh.shape["model"]
+            wins32 = batch.windows.astype(np.float32)
+            qpad = (-q) % m
+            if qpad:
+                wins32 = np.concatenate(
+                    [wins32, np.repeat(wins32[-1:], qpad, axis=0)])
+            snap_repl, table, _, maxw = idx._sharded_placement()
+            ladder = OverflowLadder(cfg, idx._cap)
+            base = ctx.base.name
+            comp = idx._compaction(base)
+            while True:
+                ub = ladder.use_budget
+                step = idx._sharded_step(base, ladder.cap, ub, comp, maxw)
+                hits, counts = step(snap_repl, wins32, table)
+                st.dispatches += 3 if ub else 2
+                counts = counts.cpu().numpy()
+                if (counts >= 0).all():
+                    idx._cap = max(idx._cap, ladder.cap)
+                    break
+                ladder.on_sharded_overflow(counts, ub, comp)
+            hits = hits.cpu().numpy()[:q]            # (Q, shards, K)
+            ctx.ids = [np.sort(row[row >= 0]).astype(np.int64)
+                       for row in hits.reshape(q, -1)]
+            ctx.frozen_delta = idx._freeze_delta() if patch else None
+            ctx.live = idx._freeze_live(ctx.rel)
+            ctx.epoch = idx._epoch
+            ctx.snap = idx._snapshot
+        st.survivors = _total(ctx.ids)
+        st.escalations = ladder.escalations
+        st.cap, st.budget = ladder.cap, ladder.use_budget
+
+
 class DeltaPatchStage(Stage):
     """Restore exactness of snapshot results at the frozen epoch: mask out
     tombstoned records and check the added set (fp32, the device precision
@@ -561,21 +650,32 @@ class KnnHostStage(Stage):
         st.survivors = _total(ids)
 
 
-def _seed_radii(snap, wins, k, seed_mode, r_global, st) -> np.ndarray:
+def _pow2_radii(r: np.ndarray) -> np.ndarray:
+    """Per-point power-of-two radius snap: each (bucket, radius) pair builds
+    one sharded step, not one per distinct estimate."""
+    return np.power(2.0, np.ceil(np.log2(np.maximum(r, 1e-9))))
+
+
+def _seed_radii(snap, wins, k, seed_mode, r_global, st,
+                pow2: bool = True) -> np.ndarray:
     """Initial radii for the degenerate windows ``wins``. CDF seeds route
     through the published model (``device.knn_seed_radii``); a seed that
     comes back non-finite or non-positive (a point routed to an empty leaf,
     whose aggregate-MBR sentinel has no area) falls back to the global
     density radius — the seed is a performance prior, never allowed to
-    poison the probe."""
+    poison the probe. ``pow2`` snaps UP to powers of two — what the sharded
+    ``dwithin:<r>`` classes need (the radius is part of the relation); the
+    device stage passes ``pow2=False``: its radii ride in the window
+    coordinates, and an up-snap only widens the probe."""
     if seed_mode != "cdf":
-        return np.full(wins.shape[0], r_global)
-    wq = torch.as_tensor(wins.astype(np.float32)).to(snap.device)
-    seeds = knn_seed_radii(snap, wq, k).cpu().numpy().astype(np.float64)
-    st.dispatches += 1
-    bad = ~np.isfinite(seeds) | (seeds <= 0.0)
-    seeds[bad] = r_global
-    return seeds
+        seeds = np.full(wins.shape[0], r_global)
+    else:
+        wq = torch.as_tensor(wins.astype(np.float32)).to(snap.device)
+        seeds = knn_seed_radii(snap, wq, k).cpu().numpy().astype(np.float64)
+        st.dispatches += 1
+        bad = ~np.isfinite(seeds) | (seeds <= 0.0)
+        seeds[bad] = r_global
+    return _pow2_radii(seeds) if pow2 else seeds
 
 
 def _knn_backstop(idx, cfg) -> tuple:
@@ -671,7 +771,8 @@ class KnnDeviceStage(Stage):
         if k <= 0 or n_live == 0 or q == 0:
             st.survivors = 0
             return
-        radius = _seed_radii(snap, wins, k, seed_mode, r_global, st)
+        radius = _seed_radii(snap, wins, k, seed_mode, r_global, st,
+                             pow2=False)
         st.seed_radius = float(np.median(radius))
         st.note = f"seed={seed_mode} topk={impl}"
         # tier-1 budget: the CONFIGURED exact budget, pinned — the rank
@@ -792,6 +893,135 @@ def _knn_refine(idx, eng, snap, pods, wt, ladder, st):
             return hits
 
 
+class KnnShardedStage(Stage):
+    """Device-complete knn over the mesh: every record shard ranks its own
+    dwithin survivors to a local ``(Q, k)`` block (exact squared distances
+    gathered from the shard-local vertex pool at the widest surviving width
+    bucket), then the blocks meet on the merge device for a two-key
+    k-merge — the host sees only the final ``(Q, k)`` ids + distances plus
+    the per-shard within-radius counts driving the ladder.
+    ``merge_bytes`` accounts the blocks' payload (k f32 distances and k i32
+    ids per shard and point, plus the counts), as the reference counts its
+    all-gather.
+
+    Exactness contract: the k-merge ranks SNAPSHOT records only, so a stale
+    snapshot is always republished before probing — the fresh snapshot has
+    no delta to merge, and results are exact at the published epoch. Radii
+    are CDF-seeded and snapped up to powers of two; each rung groups the
+    undone points by radius (one ``dwithin:<r>`` step per class, the batch
+    bucket rounded up to a model-axis multiple) and doubles the undone
+    points' radii. A straggler whose run outgrows ``max_cap`` finishes on
+    the host loop, and ``note`` says so."""
+
+    name = "knn-rank"
+    covers = ("probe", "compact", "refine", "knn-rank")
+    impl = "sharded"
+    dispatches = 4
+
+    def run(self, ctx: ExecContext, st: StageStats) -> None:
+        idx, batch = ctx.index, ctx.batch
+        cfg = idx.config
+        pts = np.asarray(batch.points, np.float64)
+        q, k = len(batch), int(batch.k)
+        wins = np.concatenate([pts, pts], axis=1)
+        with idx._lock:     # one controller drives the mesh: under the lock
+            if idx.snapshot_is_stale():
+                idx.snapshot()         # k-merge exactness: no delta on top
+            else:
+                idx._published_snapshot()
+            snap_repl, table, shards, maxw = idx._sharded_placement()
+            snap = idx._snapshot
+            ctx.snap = snap
+            ctx.epoch = idx._epoch
+            n_live = idx.glin.num_records
+            r_global = initial_knn_radius(idx.glin, k)
+            seed_mode, impl = _knn_backstop(idx, cfg)
+            ladder = OverflowLadder(cfg, idx._cap, max_budget=cfg.max_cap)
+            m = cfg.mesh.shape["model"]
+            out_ids: List[np.ndarray] = [np.empty(0, np.int64)] * q
+            out_d: List[np.ndarray] = [np.empty(0, np.float64)] * q
+            ctx.ids, ctx.distances = out_ids, out_d
+            if k <= 0 or n_live == 0 or q == 0:
+                st.survivors = 0
+                return
+            radius = _seed_radii(snap, wins, k, seed_mode, r_global, st)
+            st.seed_radius = float(np.median(radius))
+            st.note = f"seed={seed_mode} topk={impl}"
+            done = np.zeros(q, bool)
+            probes = np.zeros(q, np.int32)
+            for _ in range(64):
+                todo = np.nonzero(~done)[0]
+                if todo.size == 0:
+                    break
+                for r in [float(v) for v in np.unique(radius[todo])]:
+                    sel = todo[radius[todo] == r]
+                    sub = wins[sel].astype(np.float32)
+                    # pow2 bucket rounded up to a model-axis multiple (the
+                    # step splits Q evenly)
+                    b = 1 << max(len(sel) - 1, 0).bit_length()
+                    b += (-b) % m
+                    if b > len(sel):
+                        sub = np.concatenate(
+                            [sub, np.repeat(sub[-1:], b - len(sel), 0)])
+                    relname = f"dwithin:{r:.17g}"
+                    probes[sel] += 1
+                    try:
+                        idk, dk, within = self._rank(
+                            idx, snap_repl, table, sub, relname, k, maxw,
+                            impl, ladder, st, b, shards)
+                    except OverflowError:
+                        st.note = ("straggler radius outgrew max_cap: "
+                                   "host fallback")
+                        for i in sel:
+                            hi, hd = _host_knn(idx.glin, pts[int(i)], k)
+                            out_ids[int(i)] = np.asarray(hi, np.int64)
+                            out_d[int(i)] = np.asarray(hd)
+                        done[sel] = True
+                        continue
+                    idk, dk = idk[: len(sel)], dk[: len(sel)]
+                    within = within[: len(sel)]
+                    settle = (within >= k) | (within >= n_live)
+                    for j in np.nonzero(settle)[0]:
+                        i = int(sel[j])
+                        keep = idk[j] >= 0
+                        out_ids[i] = idk[j][keep].astype(np.int64)
+                        out_d[i] = dk[j][keep].astype(np.float64)
+                    done[sel[settle]] = True
+                radius[~done] *= 2.0
+            else:
+                raise RuntimeError("knn did not converge")
+        st.survivors = _total(out_ids)
+        st.escalations = ladder.escalations
+        st.cap, st.budget = ladder.cap, ladder.use_budget
+        maxp = int(probes.max())
+        st.rungs = maxp
+        st.rung_hist = tuple(int((probes == i).sum())
+                             for i in range(1, maxp + 1))
+        st.seed_hits = int((probes == 1).sum())
+
+    @staticmethod
+    def _rank(idx, snap_repl, table, wins, relname, k, maxw, impl, ladder,
+              st, qpad, shards):
+        """One sharded probe+rank+k-merge under the ladder -> numpy ``(ids,
+        dists, within)``. Caller holds the facade lock."""
+        while True:
+            ub = ladder.use_budget
+            comp = idx._compaction(relname)
+            step = idx._sharded_knn_step(relname, k, ladder.cap, ub, comp,
+                                         maxw, impl)
+            idk, dk, counts = step(snap_repl, wins, table)
+            st.dispatches += 4 if ub else 3
+            # the (shards, Q, k) blocks — k f32 distances + k i32 ids per
+            # shard — plus the (Q, shards) i32 counts
+            st.merge_bytes += qpad * shards * (k * 8 + 4)
+            counts = counts.cpu().numpy()
+            if (counts >= 0).all():
+                idx._cap = max(idx._cap, ladder.cap)
+                return (idk.cpu().numpy(), dk.cpu().numpy(),
+                        counts.sum(axis=1))
+            ladder.on_sharded_overflow(counts, ub, comp)
+
+
 # ------------------------------------------------------------- execution plan
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
@@ -824,6 +1054,8 @@ def compile_plan(plan) -> ExecutionPlan:
     no-op with ``skipped=True``, so the pipeline shape is static per
     backend."""
     if plan.kind == "knn":
+        if plan.backend == "sharded":
+            return ExecutionPlan("sharded", (KnnShardedStage(),))
         if plan.backend in ("device", "device+delta"):
             return ExecutionPlan(plan.backend, (KnnDeviceStage(),))
         if plan.backend == "host":
@@ -832,6 +1064,10 @@ def compile_plan(plan) -> ExecutionPlan:
     if plan.backend == "host":
         return ExecutionPlan("host", (HostRefineStage(),
                                       ComplementFinishStage()))
+    if plan.backend == "sharded":
+        return ExecutionPlan("sharded", (ShardedRefineStage(),
+                                         DeltaPatchStage(),
+                                         ComplementFinishStage()))
     refine = FusedDeviceStage() if plan.fused else DeviceRefineStage()
     if plan.backend == "device":
         return ExecutionPlan("device", (refine, ComplementFinishStage()))

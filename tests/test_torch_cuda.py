@@ -753,3 +753,120 @@ def test_async_swap_on_the_card_with_a_held_build(cuda, monkeypatch):
                     else torch.cuda.current_device()]
     assert victim not in res[0] and late in res[0]
     assert victim in idx._tombstones and late in idx._added
+
+
+@pytest.fixture(scope="module")
+def padded_store():
+    """3,003 records: over the 4 shards of a (4, 2) mesh the last shard
+    holds one padding slot."""
+    gs = generate("mixed", 3003, seed=8)
+    gs.verts = gs.verts.astype(np.float32).astype(np.float64)
+    gs.mbrs = mbrs_of_verts(gs.verts, gs.nverts)
+    wins = make_query_windows(gs, 0.004, 32, seed=4).astype(np.float32)
+    return gs, wins
+
+
+def _sharded_index(gs, cuda, **cfg):
+    from repro_torch.core.distributed import make_mesh
+
+    mesh = make_mesh((4, 2), ("data", "model"), [cuda] * 8)
+    idx = _index(gs, cuda, mesh=mesh, shard_min_records=1,
+                 knn_device_min_batch=1, **cfg)
+    idx.snapshot()
+    return idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relation", ["intersects", "within",
+                                      "dwithin:0.004"])
+@pytest.mark.parametrize("budget", [8, 256])
+def test_sharded_window_step_kernel_matches_plain(padded_store, cuda,
+                                                  relation, budget):
+    """The sharded window step on a (4, 2) mesh of one card: compaction by
+    the compact kernel over each shard's walk against the scan, hit for hit
+    and code for code (the cap covers every run, so both encode the
+    survivors), the padded last shard included."""
+    from repro_torch.core import distributed as tdist
+
+    gs, wins = padded_store
+    idx = _sharded_index(gs, cuda)
+    snaps, table, shards, maxw = idx._sharded_placement()
+    last = table.at(shards - 1, idx.config.mesh.merge_device)
+    assert (last.recs < 0).any() and last.walk.leaf_mbr.shape[0] >= 2
+    w = torch.from_numpy(wins)
+    out = {}
+    for comp in ("kernel", "scan"):
+        n0 = kr.refine_compact.launches
+        step = tdist.build_glin_query_step(idx.config.mesh, relation,
+                                           cap=4096, exact_budget=budget,
+                                           compaction=comp, max_width=maxw)
+        out[comp] = step(snaps, w, table)
+        torch.cuda.synchronize()
+        assert (kr.refine_compact.launches - n0
+                == (8 if comp == "kernel" else 0))
+    assert torch.equal(out["kernel"][0], out["scan"][0])
+    assert torch.equal(out["kernel"][1], out["scan"][1])
+    if budget == 8 and relation != "within":   # few records cover a window
+        assert (out["kernel"][1] < 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,budget", [(10, 256), (20, 8), (10, 0)])
+def test_sharded_knn_step_kernel_matches_plain(padded_store, cuda, k,
+                                               budget):
+    """The sharded kNN step: the compact kernel and the top-k kernel (the
+    shard-local top-k and the k-merge) against the scan and the plain sort
+    on the same mesh, ids and distances exactly; budget 8 < k pads the
+    local columns, budget 0 is the dense path (its rows cap wide: the
+    top-k's block route)."""
+    from repro_torch.core import distributed as tdist
+
+    gs, wins = padded_store
+    idx = _sharded_index(gs, cuda)
+    snaps, table, _, maxw = idx._sharded_placement()
+    pts = (wins[:, :2] + wins[:, 2:]) / 2
+    pw = torch.from_numpy(np.concatenate([pts, pts], 1))
+    out = {}
+    for comp, topk in (("kernel", "kernel"), ("scan", "sort")):
+        n0 = kk.knn_topk.launches
+        step = tdist.build_glin_knn_step(idx.config.mesh, "dwithin:0.02", k,
+                                         cap=4096, exact_budget=budget,
+                                         compaction=comp, max_width=maxw,
+                                         topk=topk)
+        out[topk] = step(snaps, pw, table)
+        torch.cuda.synchronize()
+        assert kk.knn_topk.launches - n0 == (9 if topk == "kernel" else 0)
+    for a, b in zip(out["kernel"], out["sort"]):
+        assert torch.equal(a, b)
+    assert (out["kernel"][0] >= 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relation", RELATIONS + ("disjoint",))
+def test_sharded_facade_on_the_card_matches_host(padded_store, cuda,
+                                                 relation):
+    gs, wins = padded_store
+    idx = _sharded_index(gs, cuda, exact_budget=16)
+    w = wins.astype(np.float64)
+    n0 = kr.refine_compact.launches
+    res = idx.query(w, relation)
+    assert res.plan.backend == "sharded"
+    assert kr.refine_compact.launches > n0
+    for x, y in zip(res.ids, idx.query(w, relation, backend="host").ids):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.gpu
+def test_sharded_knn_facade_on_the_card_matches_host(padded_store, cuda):
+    gs, wins = padded_store
+    idx = _sharded_index(gs, cuda, exact_budget=16)
+    pts = ((wins[:, :2] + wins[:, 2:]) / 2).astype(np.float64)
+    n0 = kk.knn_topk.launches
+    res = idx.query(QueryBatch.knn(pts, 10))
+    assert res.plan.backend == "sharded" and kk.knn_topk.launches > n0
+    host = idx.query(QueryBatch.knn(pts, 10, backend="host"))
+    for i in range(len(pts)):
+        np.testing.assert_array_equal(res.ids[i], host.ids[i])
+        np.testing.assert_allclose(res.distances[i], host.distances[i],
+                                   rtol=1e-4, atol=1e-7)
+    assert res.stages[0].merge_bytes > 0

@@ -171,7 +171,7 @@ def test_plan_backends_and_reasons_match_reference():
     tail = "republishing for batch of 80; fused one-kernel refine"
     assert a.reason.startswith(head) and b.reason.startswith(head)
     assert a.reason.endswith(tail) and b.reason.endswith(tail)
-    with pytest.raises(ValueError, match="backend"):
+    with pytest.raises(ValueError, match="requires EngineConfig.mesh"):
         idx.plan(QueryBatch.window(w8, "intersects", backend="sharded"))
     from repro.core.engine import QueryBatch as RBatch   # kNN plans too
     a = idx.plan(QueryBatch.knn([[0.5, 0.5]], k=3))

@@ -312,7 +312,7 @@ def test_planner_matches_reference(world):
     assert not any(int(near) in r for r in got.ids)
     st = port.stats()["stages"]["device"]["knn-rank"]
     assert st["calls"] == 1 and sum(st["rung_hist"]) == len(pts)
-    with pytest.raises(ValueError, match="backend"):
+    with pytest.raises(ValueError, match="requires EngineConfig.mesh"):
         port.plan(QueryBatch.knn(pts, 3, backend="sharded"))
     with pytest.raises(ValueError, match="points"):
         QueryBatch.knn(np.zeros((3, 3)), 2)
