@@ -51,6 +51,20 @@ Phases (any failure raises, and the script exits non-zero):
    plain two-key sort and, on 64 points, the fp64 host kNN; then one top-k
    line per (row width, k) the drive launched, with its route, on that
    shape's inputs from one more batch;
+5b. (after 6) the paper's baselines on phase 3's store as the facade holds
+   it: ``RTree`` and ``QuadTree`` built over it (each build's wall and
+   ``stats()`` index bytes beside GLIN's ``total_index_bytes``; phase 5's
+   deleted record deleted from each), the first 64 main windows through
+   each tree for ``intersects`` and ``contains`` (per-window ms beside the
+   fused 1024-window batch's wall over its windows), ids equal to the
+   fused batch and to the fp64 host path; ``SortedArray`` on 4 of them;
+   1,024 published records deleted from each tree and inserted again (ms
+   per operation), then the same windows and checks again;
+5c. (after 5b) the port's examples, each ``main`` in-process on the card:
+   quickstart at 100,000 ``cluster`` records, ``serve_queries --n 20000
+   --batches 5 --batch-size 128``, ``distributed_glin`` at 100,000 records
+   on a (4, 2) mesh (its hits also against its facade's ``device``
+   batch); any of their checks fails the run;
 6a. the write stream on phase 3's store: 2,048 inserts (``mixed``, seed 3,
    fp32) and 1,024 deletes of published records (numpy seed 5), a delta of
    3,072: the 1024 main windows through ``device+delta`` for the seven
@@ -103,7 +117,9 @@ Phases (any failure raises, and the script exits non-zero):
 7. the kernel-level ``ops`` entry point: the Morton keys of every record
    against the host's, the candidate mask against the candidate counts, and
    the keys, the mask, the counts and the compaction (both in slot-as-leaf
-   mode) against the entry point's plain side (``use_kernel=False``);
+   mode) and the fused query (64 windows over phase 3's snapshot, over its
+   cached walk and over the walk derived from the packed tables) against
+   the entry point's plain side (``use_kernel=False``);
 8. LM serving: ``granite_3_2b`` at full width in bf16 (weights drawn on the
    card from seed 0) behind the port's ``SlotServer``: 8 slots, max_ctx
    1024, 16 requests of 512-token prompts with ``main_lm``'s generation
@@ -131,15 +147,34 @@ Phases (any failure raises, and the script exits non-zero):
    across tiles shows), bf16 and fp32; 128 decode steps after a 384-token
    prefill against one 512-token forward, and the kernel path against the
    plain path (prefill + 32 decode steps of 2 requests), each in fp32 and
-   in bf16 (the bf16 paths held against the fp32 weights' result);
-10. one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+   in bf16 (the bf16 paths held against the fp32 weights' result; decode
+   against the forward also in the first 8, 16 and 32 layers);
+10. hybrid serving: ``hymba_1p5b`` at full width in bf16 (seed 0; 32
+   layers of 25 query heads over 5 kv heads of 64 beside 50 SSM heads of
+   64 with a state of 16, a 1,024-token window, 128 meta tokens) behind the
+   same ``SlotServer``: 8 slots, max_ctx 1024, 10 requests of 512-token
+   prompts (two admitted into reused slots) — prefill and decode ms,
+   tokens/s, peak memory, the busy share
+   of profiled decode steps; then the three kernels against their plain
+   versions on layer 0's inputs of a real prefill (640 positions) and
+   decode step, and of a prefill of two 1,024-token prompts (the window
+   slides) and its decode step (the ring wraps), bf16 and fp32, with
+   times, bounds and SDPA for the bf16 cases; 128 decode steps after a
+   384-token prefill against one 512-token forward, and the kernel path
+   against the plain path (prefill + 16 decode steps of 2 requests), in
+   fp32 at ``LM_FP32_TOL`` and in bf16 as phase 9's (decode against the
+   forward also in the first 8 and 16 layers);
+11. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
+   their hymba numbers under ``hymba``), and last the ``{"ok": true, ...}``
+   line.
 
-Launch counters are zeroed just before each of phases 5, 6, 6a, 6b, 6c, 6d
-(its two paths), 7, 8's and 9's serving runs and read just after (6a's, 6c's
-and 6d's before the comparisons that check them): every kernel of that path
-must have launched, and a kernel's ``launches`` in the last line is its
-count from its path, summed over phases 5-6d for ``refine_compact``,
-``refine_fused`` and ``knn_topk``.
+Launch counters are zeroed just before each of phases 5, 6, 5b, 5c, 6a, 6b,
+6c, 6d (its two paths), 7, 8's, 9's and 10's serving runs and read just
+after (6a's, 6c's and 6d's before the comparisons that check them): every
+kernel of that path must have launched, and a kernel's ``launches`` in the
+last line is its count from its path, summed over phases 5-6d for
+``refine_compact``, ``refine_fused`` and ``knn_topk`` and over phases 8-10
+for ``flash_attention``, ``decode_attention`` and ``ssd_scan``.
 """
 import collections
 import dataclasses
@@ -236,6 +271,33 @@ SHARD_DELETES = 16
 # stays near 90 s
 SHARD_HOST_FULL = ("intersects", "contains", "covers")
 SHARD_HOST_FEW = 16
+# phase 5b: the paper's baselines on phase 3's store
+BASE_WINDOWS = 64           # of the main windows, through each tree
+BASE_SORTED_WINDOWS = 4     # SortedArray refines its whole augmented run
+BASE_RELATIONS = ("intersects", "contains")
+BASE_MAINTAIN = 1024        # published records deleted and inserted again
+# phase 5c: the port's examples at the verify skill's sizes
+EXAMPLES_ARGS = {"quickstart": ["--n", "100000"],
+                 "serve_queries": ["--n", "20000", "--batches", "5",
+                                   "--batch-size", "128"],
+                 "distributed_glin": ["--n", "100000"]}
+# phase 10: hybrid serving (hymba_1p5b), 10 requests in 8 slots: the last
+# two are admitted into slots freed while the others still decode, so both
+# caches (the windowed KV ring and the SSM state) are written into a reused
+# slot
+HYBRID_ARCH = "hymba_1p5b"
+HYBRID_SLOTS, HYBRID_CTX, HYBRID_REQUESTS, HYBRID_PROMPT = 8, 1024, 10, 512
+# decode against the forward: a prefill of 384 tokens (512 positions with
+# the meta tokens), then the prompt's last 128 one decode step at a time,
+# against one forward over the 512 (the SSD scan takes multiples of its
+# 128-step chunk, as the reference's)
+HYBRID_FORWARD_PROMPT = 384
+HYBRID_TEACHER_STEPS = 16    # kernel path vs plain path, teacher-forced
+# the bf16 checks take phase 9's drift rule at 8, 16 and all 32 layers,
+# not its share of the range: at full width in 8 layers the reference's
+# own decode path strays 12% of the logits' range from its forward, the
+# port's 15% (a CPU run of tests/test_torch_hybrid.py as a script)
+HYBRID_DEPTHS = (8, 16)
 _CU = "src/repro_torch/kernels/csrc/"
 CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
         "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
@@ -648,7 +710,7 @@ def lm_phase(katt, counters) -> tuple:
                                          for t in leaves(server.cache)),
                       "init_s": time.perf_counter() - t0}})
 
-    # ------------------------------------------------ serve 16 requests
+    # ------------------------------------------------ serve the requests
     run = serve(server, cfg, counters, LM_REQUESTS, LM_PROMPT, LM_CTX)
     prompts, outputs, cur = run.prompts, run.outputs, run.cur
     launches = {"flash_attention": katt.flash_attention.launches,
@@ -970,12 +1032,203 @@ def ssd_errors(got, want, mag) -> tuple:
     return float(d.max()), float((d / lim).max())
 
 
+def ssd_check(kssd, name, args, chunk) -> dict:
+    """``ssd_scan`` against its plain version on ``args`` (x, dt, a, b, c):
+    y and the final state within :func:`ssd_errors`' bound, both finite;
+    raises otherwise. Returns the result line."""
+    import torch
+
+    y, st = kssd.ssd_scan(*args, chunk, return_state=True)
+    want_y, want_st = kssd.ssd_scan_plain(*args, chunk, return_state=True)
+    mag_y, mag_st = kssd.ssd_scan_plain(
+        args[0].float().abs(), args[1], args[2], args[3].float().abs(),
+        args[4].float().abs(), chunk, return_state=True)
+    ey, shy = ssd_errors(y, want_y, mag_y)
+    es, shs = ssd_errors(st, want_st, mag_st)
+    line = {"name": name,
+            "shape": {"x": list(args[0].shape), "b": list(args[3].shape)},
+            "strides": {"x": list(args[0].stride()),
+                        "b": list(args[3].stride())},
+            "max_abs_err": ey, "state_max_abs_err": es,
+            "worst_share_of_bound": max(shy, shs),
+            "y_max_abs": float(want_y.float().abs().max()),
+            "y_terms_max_abs": float(mag_y.abs().max()),
+            "state_max_abs": float(want_st.abs().max()),
+            "tolerance": {"atol": SSD_TOL[0], "rtol_of_terms": SSD_TOL[1],
+                          "rtol_of_y": (SSD_BF16_STEP
+                                        if y.dtype == torch.bfloat16
+                                        else 0.0)}}
+    if not (max(shy, shs) <= 1 and torch.isfinite(y.float()).all()
+            and torch.isfinite(st).all()):
+        raise RuntimeError(f"{name}: off its plain version ({line})")
+    return line
+
+
+def step_errs(got, want) -> list:
+    """Per step: the largest |got - want| and want's largest magnitude."""
+    return [(max_err(g, w), float(w.abs().max())) for g, w in zip(got, want)]
+
+
+def swap_in(swaps):
+    """Set each ``(module, attribute, value)`` of ``swaps``; returns the
+    swaps that put the old values back."""
+    old = [(m, a, getattr(m, a)) for m, a, _ in swaps]
+    for m, a, v in swaps:
+        setattr(m, a, v)
+    return old
+
+
+def check_launches(what, kernels, before, c, steps, plain=False):
+    """Each of ``kernels`` ({name: (wrapper, "prefill" or "decode")}) ran
+    once a layer in the prefill, or once a layer in each of ``steps``
+    decode steps, since the counts ``before``; on the plain path, never."""
+    got = {k: fn.launches - before[k] for k, (fn, _) in kernels.items()}
+    want = {k: 0 if plain else c.n_layers * (1 if when == "prefill"
+                                             else steps)
+            for k, (_, when) in kernels.items()}
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got}, expected {want}")
+
+
+def lm_path_checks(tag, prm, c, toks, prompts, kernels, plain_swaps, *,
+                   split, teacher_steps, depths, rel_depth=None,
+                   ctx=None) -> None:
+    """Phases 9 and 10's end-to-end checks of a full-width bf16 model with
+    weights ``prm``:
+
+    - decode against the forward: prefill the first ``split`` tokens of
+      ``toks`` (1, S), teacher-force the rest one decode step at a time, and
+      hold the logits of positions split - 1 .. S - 1 against one forward
+      over all S;
+    - the kernel path against the plain path (``plain_swaps`` installed):
+      a prefill of ``prompts[:2]`` and ``teacher_steps`` decode steps of the
+      same tokens;
+
+    each with the weights upcast to fp32 (the same function without bf16
+    rounding) at LM_FP32_TOL, and in bf16 within SSM_BF16_DRIFT_RATIO times
+    its counterpart's distance from the fp32 run, decode against the
+    forward also cut to the first ``depths`` layers (and at ``rel_depth``
+    layers within LM_BF16_REL of the logits' range). Every path checks the
+    launches of ``kernels`` (:func:`check_launches`). Raises on any check
+    past its limit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    kw = {} if ctx is None else {"seq_len_cache": ctx}
+
+    def counts():
+        return {k: fn.launches for k, (fn, _) in kernels.items()}
+
+    def decode_path(p, cc):
+        before = counts()
+        last, cache = tf.prefill(p, cc, {"tokens": toks[:, :split]}, **kw)
+        out = [last]
+        for t in range(split, toks.shape[1]):
+            last, cache = tf.decode_step(p, cc, {"tokens": toks[:, t]},
+                                         cache)
+            out.append(last)
+        check_launches(f"{tag} decode path", kernels, before, cc,
+                       toks.shape[1] - split)
+        return torch.cat(out)
+
+    def forward_path(p, cc):
+        full, _ = tf.forward(p, cc, {"tokens": toks})
+        return full[0, split - 1:]
+
+    def teacher_paths(p, cc):
+        gen = np.random.default_rng(1)
+        two = torch.from_numpy(np.stack(prompts[:2])).to(DEVICE)
+        feed = torch.from_numpy(gen.integers(
+            0, cc.vocab, (teacher_steps, 2)).astype(np.int32)).to(DEVICE)
+        runs = {}
+        for path in ("kernel", "plain"):
+            before = counts()
+            old = swap_in(plain_swaps if path == "plain" else ())
+            try:
+                logits, cache = tf.prefill(p, cc, {"tokens": two}, **kw)
+                out = [logits]
+                for t in range(teacher_steps):
+                    logits, cache = tf.decode_step(
+                        p, cc, {"tokens": feed[t]}, cache)
+                    out.append(logits)
+                runs[path] = torch.stack(out)
+            finally:
+                swap_in(old)
+            check_launches(f"{tag} {path} path", kernels, before, cc,
+                           teacher_steps, plain=path == "plain")
+        return runs
+
+    def first(p, cc, n):
+        """The model cut to its first n layers (views of the weights)."""
+        return ({**p, "blocks": tree_map(p["blocks"], lambda t: t[:n])},
+                dataclasses.replace(cc, n_layers=n))
+
+    c32 = dataclasses.replace(c, dtype="float32")
+    p32 = tree_map(prm, lambda t: t.float())
+    atol32, rtol32 = LM_FP32_TOL
+    fwd32 = forward_path(p32, c32)
+    teach32 = teacher_paths(p32, c32)
+    report = {
+        "decode_vs_forward[fp32]": [
+            (e, atol32 + rtol32 * r)
+            for e, r in step_errs(decode_path(p32, c32), fwd32)],
+        "kernel_vs_plain[fp32]": [
+            (e, atol32 + rtol32 * r)
+            for e, r in step_errs(teach32["kernel"], teach32["plain"])]}
+    # bf16 against depth: the decode path against the forward, each limit
+    # SSM_BF16_DRIFT_RATIO times the forward's largest distance to its fp32
+    # run of the same layers
+    for n in tuple(depths) + (c.n_layers,):
+        f32 = fwd32 if n == c.n_layers else forward_path(*first(p32, c32, n))
+        f16 = forward_path(*first(prm, c, n))
+        d16 = decode_path(*first(prm, c, n))
+        gap = step_errs(d16, f16)
+        drift = max(e for e, _ in step_errs(f16, f32))
+        rng = float(f32.abs().max())
+        name = "" if n == c.n_layers else f", {n} layers"
+        report[f"decode_vs_forward[bf16{name}]"] = [
+            (e, SSM_BF16_DRIFT_RATIO * drift) for e, _ in gap]
+        if n == rel_depth:
+            report[f"decode_vs_forward[bf16{name}, share of range]"] = [
+                (e, LM_BF16_REL * r) for e, r in gap]
+        log({f"lm_{tag}_bf16_depth": n, "logits_range": rng,
+             "gap_max": max(e for e, _ in gap), "gap_first": gap[0][0],
+             "forward_drift": drift,
+             "decode_drift": max(e for e, _ in step_errs(d16, f32)),
+             "gap_share_of_range": max(e for e, _ in gap) / rng,
+             "drift_share_of_range": drift / rng,
+             "gap_over_drift": max(e for e, _ in gap) / drift})
+        del f16, d16
+    del p32
+    torch.cuda.empty_cache()
+    teach16 = teacher_paths(prm, c)
+    drift = max(e for e, _ in step_errs(teach16["plain"], teach32["plain"]))
+    report["kernel_vs_plain[bf16]"] = [
+        (e, SSM_BF16_DRIFT_RATIO * drift)
+        for e, _ in step_errs(teach16["kernel"], teach16["plain"])]
+    log({f"lm_{tag}_bf16_teacher": "kernel_vs_plain", "plain_drift": drift,
+         "kernel_drift": max(e for e, _ in step_errs(teach16["kernel"],
+                                                teach32["kernel"]))})
+    failed = []
+    for what, errs_ in report.items():
+        log({f"lm_{tag}_check": what, "steps": len(errs_) - 1,
+             "max_abs_err": max(e for e, _ in errs_),
+             "limit": min(lim for _, lim in errs_),
+             "per_step": [round(e, 6) for e, _ in errs_]})
+        bad = [i for i, (e, lim) in enumerate(errs_) if not e <= lim]
+        if bad:
+            failed.append(f"{tag} {what}: logits off at steps {bad}: "
+                          f"{[errs_[i] for i in bad]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    torch.cuda.empty_cache()
+
+
 def ssm_phase(kssd, counters) -> tuple:
     """9. SSM serving on the port: returns ({"ssd_scan": result line},
     {"ssd_scan": launches of the serving run})."""
-    import dataclasses
-
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_arch
@@ -1006,7 +1259,7 @@ def ssm_phase(kssd, counters) -> tuple:
         "cache_bytes_per_slot": cache_bytes // SSM_SLOTS,
         "init_s": time.perf_counter() - t0}})
 
-    # ------------------------------------------------ serve 16 requests
+    # ------------------------------------------------ serve the requests
     run = serve(server, cfg, counters, SSM_REQUESTS, SSM_PROMPT, SSM_CTX)
     prompts, cur = run.prompts, run.cur
     got = {k: fn.launches for k, fn in counters.items()}
@@ -1071,30 +1324,7 @@ def ssm_phase(kssd, counters) -> tuple:
     chunk = cfg.ssd_chunk
     result = None
     for case, args in cases:
-        y, st = kssd.ssd_scan(*args, chunk, return_state=True)
-        want_y, want_st = kssd.ssd_scan_plain(*args, chunk, return_state=True)
-        mag_y, mag_st = kssd.ssd_scan_plain(
-            args[0].float().abs(), args[1], args[2], args[3].float().abs(),
-            args[4].float().abs(), chunk, return_state=True)
-        ey, shy = ssd_errors(y, want_y, mag_y)
-        es, shs = ssd_errors(st, want_st, mag_st)
-        line = {"name": f"ssd_scan[{case}]",
-                "shape": {"x": list(x.shape), "b": list(bm.shape)},
-                "strides": {"x": list(args[0].stride()),
-                            "b": list(args[3].stride())},
-                "max_abs_err": ey, "state_max_abs_err": es,
-                "worst_share_of_bound": max(shy, shs),
-                "y_max_abs": float(want_y.float().abs().max()),
-                "y_terms_max_abs": float(mag_y.abs().max()),
-                "state_max_abs": float(want_st.abs().max()),
-                "tolerance": {"atol": SSD_TOL[0],
-                              "rtol_of_terms": SSD_TOL[1],
-                              "rtol_of_y": (SSD_BF16_STEP if "bf16" in case
-                                            else 0.0)}}
-        if not (max(shy, shs) <= 1 and torch.isfinite(y.float()).all()
-                and torch.isfinite(st).all()):
-            raise RuntimeError(f"ssd_scan[{case}]: off its plain version "
-                               f"({line})")
+        line = ssd_check(kssd, f"ssd_scan[{case}]", args, chunk)
         if case == "real bf16":       # the main path's inputs: timed
             seen = {}
             _, dev_ssd, _ = profiled(lambda: kssd.ssd_scan(
@@ -1126,138 +1356,15 @@ def ssm_phase(kssd, counters) -> tuple:
         log(line)
     del cap, synth, cases
 
-    # ----------------- decode against the full forward, through the kernel
-    toks = torch.from_numpy(prompts[0]).to(DEVICE)[None]
-
-    def decode_path(prm, c):
-        """Prefill SSM_FORWARD_PROMPT tokens, then teacher-force the rest of
-        the 512-token prompt one decode step at a time: the logits of
-        positions SSM_FORWARD_PROMPT - 1 .. 511, one row per step."""
-        m = SSM_FORWARD_PROMPT
-        n0 = kssd.ssd_scan.launches
-        last, cache = tf.prefill(prm, c, {"tokens": toks[:, :m]})
-        out = [last]
-        for t in range(m, toks.shape[1]):
-            last, cache = tf.decode_step(prm, c, {"tokens": toks[:, t]},
-                                         cache)
-            out.append(last)
-        if kssd.ssd_scan.launches - n0 != c.n_layers:
-            raise RuntimeError("decode path: the kernel did not run")
-        return torch.cat(out)
-
-    def forward_path(prm, c):
-        """One forward over all 512 tokens: the same positions' logits."""
-        full, _ = tf.forward(prm, c, {"tokens": toks})
-        return full[0, SSM_FORWARD_PROMPT - 1:]
-
-    def teacher_paths(prm, c, n_steps):
-        """Prefill + n decode steps of 2 requests, the same tokens fed to
-        the kernel path and to the plain path (every ssd_scan call by the
-        plain version): {path: logits (n_steps + 1, 2, V)}."""
-        gen = np.random.default_rng(1)
-        two = torch.from_numpy(np.stack(prompts[:2])).to(DEVICE)
-        feed = torch.from_numpy(gen.integers(0, c.vocab, (n_steps, 2)).astype(
-            np.int32)).to(DEVICE)
-        runs = {}
-        for path in ("kernel", "plain"):
-            n0 = kssd.ssd_scan.launches
-            if path == "plain":
-                mssm.kssd = types.SimpleNamespace(
-                    ssd_scan=kssd.ssd_scan_plain)
-            try:
-                logits, cache = tf.prefill(prm, c, {"tokens": two})
-                out = [logits]
-                for t in range(n_steps):
-                    logits, cache = tf.decode_step(prm, c,
-                                                   {"tokens": feed[t]}, cache)
-                    out.append(logits)
-                runs[path] = torch.stack(out)
-            finally:
-                mssm.kssd = kssd
-            n = kssd.ssd_scan.launches - n0
-            if n != (c.n_layers if path == "kernel" else 0):
-                raise RuntimeError(f"the {path} path launched {n} ssd_scan "
-                                   "kernels")
-        return runs
-
-    def errs(a_, b_):
-        """Per step: the largest |a - b| and b's largest magnitude."""
-        return [(max_err(x_, y_), float(y_.abs().max()))
-                for x_, y_ in zip(a_, b_)]
-
-    # fp32 weights (the bf16 weights upcast: the same function) give the
-    # decode path, the forward and the kernel and plain paths without bf16
-    # rounding: held to each other at LM_FP32_TOL, and the anchor of the
-    # bf16 checks
+    # ------ decode against the full forward, the kernel path against plain
     del server
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = tree_map(params, lambda t: t.float())
-    atol32, rtol32 = LM_FP32_TOL
-    fwd32 = forward_path(params32, cfg32)
-    dec32 = decode_path(params32, cfg32)
-    teach32 = teacher_paths(params32, cfg32, SSM_TEACHER_STEPS)
-    report = {
-        "decode_vs_forward[fp32]": [
-            (e, atol32 + rtol32 * r) for e, r in errs(dec32, fwd32)],
-        "kernel_vs_plain[fp32]": [
-            (e, atol32 + rtol32 * r)
-            for e, r in errs(teach32["kernel"], teach32["plain"])]}
-
-    def first(prm, c, n):
-        """The model cut to its first n layers (views of the weights)."""
-        return ({**prm, "blocks": tree_map(prm["blocks"], lambda t: t[:n])},
-                dataclasses.replace(c, n_layers=n))
-
-    # bf16 against depth: the decode path against the forward, each bf16
-    # path's limit SSM_BF16_DRIFT_RATIO times the forward's largest
-    # distance to its fp32 run
-    for n in SSM_DEPTHS + (cfg.n_layers,):
-        if n == cfg.n_layers:
-            f32 = fwd32
-        else:
-            f32 = forward_path(*first(params32, cfg32, n))
-        f16 = forward_path(*first(params, cfg, n))
-        d16 = decode_path(*first(params, cfg, n))
-        gap = errs(d16, f16)
-        drift = max(e for e, _ in errs(f16, f32))
-        rng = float(f32.abs().max())
-        tag = "" if n == cfg.n_layers else f", {n} layers"
-        report[f"decode_vs_forward[bf16{tag}]"] = [
-            (e, SSM_BF16_DRIFT_RATIO * drift) for e, _ in gap]
-        if n == SSM_REL_DEPTH:
-            report[f"decode_vs_forward[bf16{tag}, share of range]"] = [
-                (e, LM_BF16_REL * r) for e, r in gap]
-        log({"lm_ssm_bf16_depth": n, "logits_range": rng,
-             "gap_max": max(e for e, _ in gap), "gap_first": gap[0][0],
-             "forward_drift": drift,
-             "decode_drift": max(e for e, _ in errs(d16, f32)),
-             "gap_share_of_range": max(e for e, _ in gap) / rng,
-             "drift_share_of_range": drift / rng,
-             "gap_over_drift": max(e for e, _ in gap) / drift})
-        del f16, d16
-    del params32
     torch.cuda.empty_cache()
-    teach16 = teacher_paths(params, cfg, SSM_TEACHER_STEPS)
-    drift = max(e for e, _ in errs(teach16["plain"], teach32["plain"]))
-    report["kernel_vs_plain[bf16]"] = [
-        (e, SSM_BF16_DRIFT_RATIO * drift)
-        for e, _ in errs(teach16["kernel"], teach16["plain"])]
-    log({"lm_ssm_bf16_teacher": "kernel_vs_plain", "plain_drift": drift,
-         "kernel_drift": max(e for e, _ in errs(teach16["kernel"],
-                                                teach32["kernel"]))})
-    failed = []
-    for what, errs_ in report.items():
-        log({"lm_ssm_check": what, "steps": len(errs_) - 1,
-             "max_abs_err": max(e for e, _ in errs_),
-             "limit": min(lim for _, lim in errs_),
-             "per_step": [round(e, 6) for e, _ in errs_]})
-        bad = [i for i, (e, lim) in enumerate(errs_) if not e <= lim]
-        if bad:
-            failed.append(f"ssm {what}: logits off at steps {bad}: "
-                          f"{[errs_[i] for i in bad]}")
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    torch.cuda.empty_cache()
+    lm_path_checks(
+        "ssm", params, cfg, torch.from_numpy(prompts[0]).to(DEVICE)[None],
+        prompts, {"ssd_scan": (kssd.ssd_scan, "prefill")},
+        [(mssm, "kssd", types.SimpleNamespace(ssd_scan=kssd.ssd_scan_plain))],
+        split=SSM_FORWARD_PROMPT, teacher_steps=SSM_TEACHER_STEPS,
+        depths=SSM_DEPTHS, rel_depth=SSM_REL_DEPTH)
     return {"ssd_scan": result}, launches
 
 
@@ -1943,6 +2050,438 @@ def sharded_phase(idx, wins, wins_hi, pts, counters, read_path):
     torch.cuda.empty_cache()
     log({"sharded_phase_s": time.perf_counter() - t_phase})
     return launches
+
+
+def baselines_phase(idx, wins, counters, read_path):
+    """5b. The paper's baselines (``core.baselines``: ``RTree``,
+    ``QuadTree``, ``SortedArray``; host structures, as in the reference) on
+    phase 3's store as the facade holds it after phase 5's write (one
+    record inserted, one deleted: each tree deletes the facade's dead
+    records after its build, ``SortedArray``, which cannot delete, has
+    them filtered from its answers). Each tree's build wall and
+    ``stats()`` index bytes beside GLIN's ``total_index_bytes``; the first
+    :data:`BASE_WINDOWS` main windows for ``intersects`` and ``contains``
+    through each tree (per-window ms beside the fused 1024-window batch's
+    wall over its windows), ids equal to that fused batch and to the fp64
+    host path; ``SortedArray`` on :data:`BASE_SORTED_WINDOWS` of them;
+    then :data:`BASE_MAINTAIN` published records (hits of those windows)
+    deleted from each tree and inserted again, per operation, and the
+    windows once more with the same checks. Returns the path's launches
+    of the fused kernel (the facade's batches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.baselines import QuadTree, RTree, SortedArray
+    from repro_torch.core.engine import QueryBatch
+
+    t_phase = time.perf_counter()
+    gs = idx.gs
+    live = idx.glin._live_mask()
+    dead = np.flatnonzero(~live)
+    glin_bytes = idx.stats()["total_index_bytes"]
+    w = wins[:BASE_WINDOWS]
+    for fn in counters.values():
+        fn.launches = 0
+    fused, host = {}, {}
+    for rel in BASE_RELATIONS:
+        idx.query(QueryBatch.window(wins, rel))      # allocations, untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = idx.query(QueryBatch.window(wins, rel))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if not (res.plan.backend == "device" and res.plan.fused):
+            raise RuntimeError(f"baselines: the facade's {rel} batch did not "
+                               f"take the fused plan ({res.plan})")
+        t0 = time.perf_counter()
+        h = idx.query(QueryBatch.window(w, rel, backend="host"))
+        host_ms = (time.perf_counter() - t0) * 1e3
+        same_ids(res.ids[:BASE_WINDOWS], h.ids, f"baselines: {rel} fused vs "
+                 "host")
+        fused[rel], host[rel] = res.ids[:BASE_WINDOWS], h.ids
+        log({"baselines_facade": {
+            "relation": rel, "windows": len(wins), "fused_wall_ms": wall,
+            "fused_ms_per_window": wall / len(wins),
+            "host_windows": BASE_WINDOWS, "host_ms": host_ms,
+            "host_ms_per_window": host_ms / BASE_WINDOWS,
+            "hits_first_windows": int(sum(len(r) for r in fused[rel]))}})
+    launches = read_path("baselines", ("refine_fused",))
+
+    def through(tree, name, windows, tag, filt=None):
+        """Each window through ``tree``, one at a time: ids (ascending)
+        against the fused batch's and the host path's, and the walls."""
+        per = {}
+        for rel in BASE_RELATIONS:
+            walls, got = [], []
+            for row in windows:
+                t0 = time.perf_counter()
+                ids = np.sort(tree.query(row, rel))
+                walls.append((time.perf_counter() - t0) * 1e3)
+                got.append(ids if filt is None else ids[filt[ids]])
+            n = len(got)
+            same_ids(got, fused[rel][:n], f"baselines: {name} {rel} vs fused")
+            same_ids(got, host[rel][:n], f"baselines: {name} {rel} vs host")
+            per[rel] = {"windows": n, "ms_per_window": statistics.mean(walls),
+                        "ms_per_window_median": statistics.median(walls),
+                        "ms_per_window_max": max(walls)}
+        log({"baselines_query": {"index": name, "pass": tag, **per}})
+
+    trees = {}
+    for cls in (RTree, QuadTree):
+        t0 = time.perf_counter()
+        tree = cls.build(gs)
+        build_s = time.perf_counter() - t0
+        for rec in dead:
+            if not tree.delete(int(rec)):
+                raise RuntimeError(f"baselines: {cls.__name__} lost record "
+                                   f"{rec}")
+        st = tree.stats()
+        log({"baselines_build": {
+            "index": cls.__name__, "records": len(gs),
+            "dead_deleted": len(dead), "build_s": build_s, **st,
+            "glin_total_index_bytes": glin_bytes,
+            "bytes_over_glin": st["index_bytes"] / glin_bytes}})
+        trees[cls.__name__] = tree
+        through(tree, cls.__name__, w, "built")
+    t0 = time.perf_counter()
+    sa = SortedArray.build(gs, idx.glin.cfg.piece_limitation)
+    sa_s = time.perf_counter() - t0
+    log({"baselines_build": {"index": "SortedArray", "records": len(gs),
+                             "build_s": sa_s, **sa.stats(),
+                             "glin_total_index_bytes": glin_bytes}})
+    through(sa, "SortedArray", w[:BASE_SORTED_WINDOWS], "built", filt=live)
+
+    # maintenance: published records that the windows hit, deleted from
+    # each tree and inserted again (dead records stay out of both lists)
+    hits = np.unique(np.concatenate(fused["intersects"]))
+    rng = np.random.default_rng(7)
+    recs = rng.choice(hits, min(BASE_MAINTAIN, hits.size), replace=False)
+    if recs.size < BASE_MAINTAIN:
+        rest = np.setdiff1d(np.flatnonzero(live), recs)
+        recs = np.concatenate([recs, rng.choice(rest, BASE_MAINTAIN
+                                                - recs.size, replace=False)])
+    for name, tree in trees.items():
+        walls = {"delete": [], "insert": []}
+        for rec in recs:
+            t0 = time.perf_counter()
+            ok = tree.delete(int(rec))
+            walls["delete"].append((time.perf_counter() - t0) * 1e3)
+            if not ok:
+                raise RuntimeError(f"baselines: {name} could not delete "
+                                   f"record {rec}")
+        for rec in recs:
+            t0 = time.perf_counter()
+            tree.insert(int(rec))
+            walls["insert"].append((time.perf_counter() - t0) * 1e3)
+        log({"baselines_maintenance": {
+            "index": name, "records": len(recs),
+            **{f"{op}_ms_per_op": statistics.mean(t)
+               for op, t in walls.items()},
+            **{f"{op}_ms_per_op_median": statistics.median(t)
+               for op, t in walls.items()},
+            **{f"{op}_ops_per_s": len(t) / (sum(t) / 1e3)
+               for op, t in walls.items()},
+            "index_bytes_after": tree.stats()["index_bytes"]}})
+        through(tree, name, w, "after maintenance")
+    log({"baselines_phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def examples_phase(counters, read_path):
+    """5c. The port's three GLIN examples, each ``main`` called in-process
+    on the card at the verify skill's sizes (their own checks raise on a
+    mismatch); the sharded example's hits also against its facade's
+    ``device`` batch (both fp32). Returns the path's launches of the fused
+    kernel (quickstart's batched query, the serving loop's batches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import QueryBatch
+    from repro_torch.examples import distributed_glin, quickstart, \
+        serve_queries
+
+    for fn in counters.values():
+        fn.launches = 0
+    for mod in (quickstart, serve_queries, distributed_glin):
+        name = mod.__name__.rsplit(".", 1)[1]
+        argv = EXAMPLES_ARGS[name]
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        line = {"example": name, "argv": argv,
+                "wall_s": time.perf_counter() - t0}
+        if name == "quickstart":
+            line.update(batched_backend=out["batched"].plan.backend,
+                        batched_hits=out["batched"].total_hits)
+        elif name == "serve_queries":
+            line.update({k: out[k] for k in ("total_hits", "writes",
+                                              "refreshes", "backends",
+                                              "p50_ms", "qps")})
+        else:
+            hits, index = out["hits"], out["index"]
+            dev = index.query(QueryBatch.window(
+                out["windows"].astype(np.float64), "intersects",
+                backend="device"))
+            same_ids([np.sort(h[h >= 0]) for h in hits.reshape(
+                len(out["windows"]), -1)], dev.ids,
+                "distributed_glin vs the device batch")
+            line.update(ms_per_batch=out["ms_per_batch"],
+                        hits=int(out["counts"].sum()),
+                        devices=[str(d) for d in
+                                 out["mesh"].distinct_devices()])
+        log(line)
+        del out
+    torch.cuda.empty_cache()
+    return read_path("examples", ("refine_fused",))
+
+
+def band_pairs(s: int, window: int) -> int:
+    """(query, key) pairs of a causal, optionally windowed, prompt of s."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def hybrid_phase(katt, kssd, counters) -> tuple:
+    """10. Hybrid serving on the port: ``hymba_1p5b`` at full width in bf16
+    behind ``SlotServer``, then the three kernels against their plain
+    versions at its shapes, decode against the full forward and the kernel
+    path against the plain path. Returns ({kernel: its hymba result line},
+    {kernel: launches of the serving run})."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import SlotServer
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import ssm as mssm
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(HYBRID_ARCH)
+    meta, win = cfg.meta_tokens, cfg.window
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    server = SlotServer(cfg, params, HYBRID_SLOTS, HYBRID_CTX, DEVICE)
+    torch.cuda.synchronize()
+    log({"lm_hybrid_model": {
+        "arch": HYBRID_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "window": win, "meta_tokens": meta,
+        "ssm_heads": cfg.ssm_heads, "ssm_head_dim": cfg.ssm_head_dim,
+        "ssm_state": cfg.ssm_state, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "dtype": cfg.dtype,
+        "params": sum(t.numel() for t in leaves(params)),
+        "param_count": cfg.param_count(),
+        "weight_bytes": sum(t.numel() * t.element_size()
+                            for t in leaves(params)),
+        "cache_bytes": sum(t.numel() * t.element_size()
+                           for t in leaves(server.cache)),
+        "init_s": time.perf_counter() - t0}})
+    if sum(t.numel() for t in leaves(params)) != cfg.param_count():
+        raise RuntimeError("hymba_1p5b: the parameter tree does not count "
+                           "param_count()")
+
+    # ------------------------------------------------ serve the requests
+    run = serve(server, cfg, counters, HYBRID_REQUESTS, HYBRID_PROMPT,
+                HYBRID_CTX)
+    prompts, cur = run.prompts, run.cur
+    got = {k: fn.launches for k, fn in counters.items()}
+    log({"path": "lm hybrid serving", "launches": got})
+    steps = len(run.step_ms)
+    launches = {"flash_attention": got["flash_attention"],
+                "decode_attention": got["decode_attention"],
+                "ssd_scan": got["ssd_scan"]}
+    want = {"flash_attention": cfg.n_layers * HYBRID_REQUESTS,
+            "decode_attention": cfg.n_layers * steps,
+            "ssd_scan": cfg.n_layers * HYBRID_REQUESTS}
+    if launches != want or any(n for k, n in got.items() if k not in want):
+        raise RuntimeError(f"hybrid serving: launches {got}, expected "
+                           f"{want} and nothing else")
+    line = serving_line(run, HYBRID_SLOTS, HYBRID_CTX, HYBRID_PROMPT,
+                        base_mem, launches)
+    line["max_position"] = int(server.cache["attn"]["pos"].max())
+    log({"lm_hybrid_serving": line})
+    prof_wall, dev, n_kernels = profiled(lambda: server.step(cur), reps=4)
+    busy = sum(dev.values())
+    log({"lm_hybrid_decode_profile": {
+        "steps": 4, "wall_ms_per_step": prof_wall,
+        "device_ms_per_step": busy, "device_kernels_per_step": n_kernels,
+        "device_busy_share": busy / prof_wall if dev else None,
+        "top_kernels": dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8])}})
+
+    # ---------------- the three kernels against their plain versions
+    # layer 0's inputs of a real prefill and decode step (the meta tokens
+    # and a 512-token prompt: 640 positions), and of a prefill of two
+    # 1,024-token prompts (1,152 positions: the window slides) and its
+    # decode step (a ring that wraps)
+    cap = {}
+
+    def grab(tag):
+        def wrap(mod, name):
+            def wrapper(*args, **kw):
+                cap.setdefault(name.split("_")[0] + tag, tuple(
+                    t.clone() for t in args[:5]
+                    if isinstance(t, torch.Tensor)))
+                return getattr(mod, name)(*args, **kw)
+            return wrapper
+        return (types.SimpleNamespace(
+                    flash_attention=wrap(katt, "flash_attention"),
+                    decode_attention=wrap(katt, "decode_attention")),
+                types.SimpleNamespace(ssd_scan=wrap(kssd, "ssd_scan")))
+
+    long = torch.from_numpy(np.stack([np.concatenate(prompts[i:i + 2])
+                                      for i in (0, 2)])).to(DEVICE)
+    try:
+        mattn.katt, mssm.kssd = grab("")
+        server.admit(0, prompts[0], 1)
+        server.step(cur)
+        mattn.katt, mssm.kssd = grab("_w")
+        _, cache_w = tf.prefill(params, cfg, {"tokens": long},
+                                seq_len_cache=HYBRID_CTX)
+        tf.decode_step(params, cfg, {"tokens": long[:, 0]}, cache_w)
+        del cache_w
+    finally:
+        mattn.katt, mssm.kssd = katt, kssd
+    ap, pos = cap["decode_w"][3], cap["decode_w"][4]
+    if not (cap["flash_w"][0].shape[2] == long.shape[1] + meta > win
+            and ap.shape[1] == win and int(pos.min()) > win):
+        raise RuntimeError("hybrid: the long prompt's window did not slide "
+                           "or its ring did not wrap")
+
+    def fp32(args):
+        return tuple(t.float() if t.is_floating_point() else t for t in args)
+
+    att_cases = [("flash_attention", "bf16", cap["flash"]),
+                 ("flash_attention", "fp32", fp32(cap["flash"])),
+                 ("flash_attention", f"bf16 S {long.shape[1] + meta}",
+                  cap["flash_w"]),
+                 ("decode_attention", "bf16", cap["decode"]),
+                 ("decode_attention", "fp32", fp32(cap["decode"])),
+                 ("decode_attention", "bf16 wrapped", cap["decode_w"])]
+    results = {}
+    for name, case, args in att_cases:
+        kern = getattr(katt, name)
+        plain = getattr(katt, name + "_plain")
+        got_, want_ = kern(*args, win), plain(*args, win)
+        err = max_err(got_, want_)
+        tol = ATT_TOL[str(args[0].dtype).split(".")[1]]
+        line = {"name": f"{name}[hymba {case}]",
+                "shape": {"q": list(args[0].shape), "k": list(args[1].shape)},
+                "window": win, "max_abs_err": err, "tolerance": tol}
+        if not err < tol:
+            raise RuntimeError(f"{name}[hymba {case}]: max abs err {err} "
+                               f"from the plain version, tolerance {tol}")
+        if case.startswith("fp32"):
+            log(line)
+            continue
+        q, k, v = args[:3]
+        if name == "flash_attention":
+            b_, hq, s_, d_ = q.shape
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            ops = 4 * b_ * hq * d_ * band_pairs(s_, win)
+            qi = torch.arange(s_, device=DEVICE)
+            band = None if s_ <= win else (qi[:, None] >= qi[None, :]) & (
+                qi[:, None] - qi[None, :] < win)
+
+            def lib(q=q, k=k, v=v, band=band):
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=band, is_causal=band is None,
+                    enable_gqa=True)
+            line["plan"] = katt.flash_plan(b_, k.shape[1], hq // k.shape[1],
+                                           s_, d_, q.dtype)
+            call = ("torch.nn.functional.scaled_dot_product_attention ("
+                    + ("is_causal: the window does not bind"
+                       if band is None else "boolean causal window band")
+                    + ", enable_gqa)")
+        else:
+            b_, hq, d_ = q.shape
+            apos, p_ = args[3], args[4]
+            valid = (apos >= 0) & (apos <= p_[:, None]) & (
+                p_[:, None] - apos < win)
+            live = int(valid.sum())
+            hkv = k.shape[1]
+            nbytes = (2 * live * hkv * d_ * 2 + 2 * 2 * q.numel()
+                      + apos.numel() * 4 + p_.numel() * 4)
+            ops = 4 * live * hq * d_
+            mask = valid[:, None, None, :]
+
+            def lib(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], k, v, attn_mask=mask,
+                    enable_gqa=True)[:, :, 0]
+            line.update(live_slots=live,
+                        plan=katt.decode_plan(b_, k.shape[1]))
+            call = ("torch.nn.functional.scaled_dot_product_attention "
+                    "(boolean mask from abs_pos/pos and the window, "
+                    "enable_gqa)")
+        line.update({
+            "kernel_ms": queued_ms(lambda: kern(*args, win), 50),
+            "event_ms": cuda_ms(lambda: kern(*args, win), 25),
+            "plain_ms": queued_ms(lambda: plain(*args, win), 20),
+            "library_ms": queued_ms(lib, 50),
+            "library_event_ms": cuda_ms(lib, 25),
+            "library_call": call,
+            "library_max_abs_err": max_err(lib(), want_),
+            **bound(nbytes, ops, BF16_OPS_PER_S)})
+        log(line)
+        if case == "bf16":
+            results[name] = line
+
+    x, dt, a, bm, cm = cap["ssd"]
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    synth = (torch.randn(x.shape, device=DEVICE, generator=g),
+             torch.rand(dt.shape, device=DEVICE, generator=g) * 0.099 + 0.001,
+             -(torch.rand(a.shape, device=DEVICE, generator=g) * 0.9 + 0.1),
+             torch.randn(bm.shape, device=DEVICE, generator=g),
+             torch.randn(cm.shape, device=DEVICE, generator=g))
+
+    def as_dtype(args, dtype):
+        return (args[0].to(dtype), args[1], args[2], args[3].to(dtype),
+                args[4].to(dtype))
+
+    chunk = cfg.ssd_chunk
+    for case, args in (("real bf16", cap["ssd"]),
+                       ("real fp32", as_dtype(cap["ssd"], torch.float32)),
+                       (f"real bf16 S {long.shape[1] + meta}", cap["ssd_w"]),
+                       ("synthetic bf16", as_dtype(synth, torch.bfloat16)),
+                       ("synthetic fp32", synth)):
+        line = ssd_check(kssd, f"ssd_scan[hymba {case}]", args, chunk)
+        if case == "real bf16":
+            line.update({
+                "kernel_ms": queued_ms(lambda: kssd.ssd_scan(
+                    *args, chunk, return_state=True), 50),
+                "event_ms": cuda_ms(lambda: kssd.ssd_scan(
+                    *args, chunk, return_state=True), 25),
+                "plain_ms": queued_ms(lambda: kssd.ssd_scan_plain(
+                    *args, chunk, return_state=True), 20),
+                "library_ms": None,
+                **ssd_bound(args[0], args[1], args[3], kssd.TILE)})
+            results["ssd_scan"] = line
+        log(line)
+    del cap, synth
+
+    # ----- decode against the full forward, the kernel path against plain
+    del server
+    torch.cuda.empty_cache()
+    lm_path_checks(
+        "hybrid", params, cfg,
+        torch.from_numpy(prompts[0]).to(DEVICE)[None], prompts,
+        {"flash_attention": (katt.flash_attention, "prefill"),
+         "decode_attention": (katt.decode_attention, "decode"),
+         "ssd_scan": (kssd.ssd_scan, "prefill")},
+        [(mattn, "katt", types.SimpleNamespace(
+            flash_attention=katt.flash_attention_plain,
+            decode_attention=katt.decode_attention_plain)),
+         (mssm, "kssd", types.SimpleNamespace(ssd_scan=kssd.ssd_scan_plain))],
+        split=HYBRID_FORWARD_PROMPT, teacher_steps=HYBRID_TEACHER_STEPS,
+        depths=HYBRID_DEPTHS, ctx=HYBRID_CTX)
+    log({"lm_hybrid_phase_s": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
+    return results, launches
 
 
 def leaves(tree):
@@ -2696,6 +3235,14 @@ def main() -> int:
                          k), "drive_launches": n})
     del grabbed
 
+    # ------------------------------------------------ 5b. the baselines
+    # (the fused kernel's launches of 5b and 5c add to its count)
+    for kn, n in baselines_phase(idx, wins, counters, read_path).items():
+        launches[kn] += n
+    # ------------------------------------------------ 5c. the examples
+    for kn, n in examples_phase(counters, read_path).items():
+        launches[kn] += n
+
     # ------------------------------------- 6a-6c. writes, async swap, serving
     # each path's launches of B1, B2 and B3 add to theirs in the last line
     # (and 6d's of B1 and B3)
@@ -2738,11 +3285,32 @@ def main() -> int:
                                                       budget=BUDGET),
             kops.refine_compact(wm, bm, lm, rm, budget=BUDGET,
                                 use_kernel=False))
+    # the fused query over phase 3's snapshot's packed operands, over the
+    # snapshot's walk and over the walk the entry point derives (``dev`` is
+    # a profile's dict by now)
+    from repro_torch.core import device as core_dev
+
+    frel = core_dev._device_relation("intersects")
+    wf = w[:MASK_WINDOWS]
+    f_args = (wf, frel.probe_window(wf), torch.stack(
+        core_dev._raw_query_keys(snap, wf, frel), dim=1),
+        *snap.fused_operands,
+        pods.headers, pods.pool, lm, rm)
+    f_kw = dict(budget=BUDGET, prefilter=frel.prefilter_kind, code=frel.code,
+                dist=frel.dist, augment=bool(frel.augment)
+                and snap.pw_zmax_hi.shape[0] > 0,
+                search_steps=snap.search_steps, depth=snap.depth)
+    f_want = kops.refine_fused(*f_args, **f_kw, use_kernel=False)
+    compare("ops.refine_fused", kops.refine_fused(
+        *f_args, **f_kw, leaves=snap.leaf_walk), f_want)
+    compare("ops.refine_fused[derived walk]",
+            kops.refine_fused(*f_args, **f_kw), f_want)
     torch.cuda.synchronize()
     log({"batch": "ops", "wall_ms": (time.perf_counter() - t0) * 1e3,
          "records": nrec, "mask_windows": MASK_WINDOWS})
     launches.update(read_path("ops", ("morton_encode", "refine_mask",
-                                      "refine_count", "refine_compact"),
+                                      "refine_count", "refine_compact",
+                                      "refine_fused"),
                               keep=("morton_encode", "refine_mask")))
 
     # ------------------------------------------------------ 8. LM serving
@@ -2756,20 +3324,33 @@ def main() -> int:
     results.update(ssm_results)
     launches.update(ssm_launches)
 
-    # ------------------------------------------------------------ 10. report
+    # ------------------------------------------------ 10. hybrid serving
+    torch.cuda.empty_cache()
+    hybrid_results, hybrid_launches = hybrid_phase(katt, kssd, counters)
+    for kn, n in hybrid_launches.items():
+        launches[kn] += n
+
+    # ------------------------------------------------------------ 11. report
     entries = []
     for k in counters:
         r_ = results[k]
-        entries.append({"name": k, "route": "cuda", "source": CSRC[k],
-                        "replaces": REPLACES[k], "launches": launches[k],
-                        "max_abs_err": r_["max_abs_err"],
-                        "ms": r_["kernel_ms"], "plain_ms": r_["plain_ms"],
-                        "bound_ms": r_["bound_ms"],
-                        "bound_by": r_["bound_by"],
-                        "library_ms": r_.get("library_ms"),
-                        **{key: r_[key] for key in (
-                            "device_ms", "queued_ms", "bound_slot_ms",
-                            "leaves_walked", "groups_walked") if key in r_}})
+        entry = {"name": k, "route": "cuda", "source": CSRC[k],
+                 "replaces": REPLACES[k], "launches": launches[k],
+                 "max_abs_err": r_["max_abs_err"],
+                 "ms": r_["kernel_ms"], "plain_ms": r_["plain_ms"],
+                 "bound_ms": r_["bound_ms"], "bound_by": r_["bound_by"],
+                 "library_ms": r_.get("library_ms"),
+                 **{key: r_[key] for key in (
+                     "device_ms", "queued_ms", "bound_slot_ms",
+                     "leaves_walked", "groups_walked") if key in r_}}
+        if k in hybrid_results:     # the same kernel at hymba_1p5b's shapes
+            h_ = hybrid_results[k]
+            entry["hymba"] = {
+                "launches": hybrid_launches[k], "shape": h_["shape"],
+                **{key: h_[key] for key in (
+                    "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}}
+        entries.append(entry)
     log(card_line())
     log({"kernels": entries})
     log({"ok": True, "device": {"platform": "gpu",

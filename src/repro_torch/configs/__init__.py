@@ -1,4 +1,5 @@
-"""Architecture configurations of the LM serving slice: the dense and SSM families."""
+"""Architecture configurations of the LM serving slice: the dense, SSM and
+hybrid families."""
 from .base import ARCH_IDS, ArchConfig, get_arch
 
 __all__ = ["ARCH_IDS", "ArchConfig", "get_arch"]

@@ -3,8 +3,8 @@ variant and ``get_arch``.
 
 The port's own copy of the reference's ``configs/base.py`` (which the port
 must not import): the dataclass is the same field for field, so a config
-means the same thing in both packages. ``get_arch`` knows only the dense
-and SSM configurations this port serves; the other architectures of the
+means the same thing in both packages. ``get_arch`` knows only the dense,
+SSM and hybrid configurations this port serves; the other architectures of the
 reference's pool raise ``NotImplementedError`` naming the slice that brings
 their family.
 """
@@ -142,12 +142,11 @@ class ArchConfig:
 
 # the configurations this port serves (modules of this package)
 ARCH_IDS = ["granite_3_2b", "phi4_mini_3p8b", "codeqwen1p5_7b", "granite_34b",
-            "mamba2_2p7b"]
+            "mamba2_2p7b", "hymba_1p5b"]
 
 # the reference's other architectures, with the slice that ports their family
 _LATER = "a later slice (ROADMAP A10)"
 UNPORTED = {
-    "hymba_1p5b": f"family 'hybrid' (attention + SSM heads) comes with {_LATER}",
     "mixtral_8x22b": f"family 'moe' comes with {_LATER}",
     "qwen3_moe_235b": f"family 'moe' (with qk_norm) comes with {_LATER}",
     "qwen2_vl_2b": f"family 'vlm' (M-RoPE, embed_stub frontend) comes with {_LATER}",

@@ -9,10 +9,13 @@ attention and SSD functions any S and W.
 """
 from __future__ import annotations
 
+import torch
+
 from . import attention, knn, morton, refine, ssd
 
 __all__ = ["morton_encode", "refine_mask", "refine_count", "refine_compact",
-           "knn_topk", "flash_attention", "decode_attention", "ssd_scan"]
+           "refine_fused", "knn_topk", "flash_attention", "decode_attention",
+           "ssd_scan"]
 
 
 def morton_encode(qx, qy, use_kernel: bool = True):
@@ -52,6 +55,63 @@ def refine_compact(windows, bounds, leaf_mbrs, rec_mbrs, *, budget: int,
                                            rec_mbrs, budget, prefilter)
     return refine.refine_compact(windows, bounds, leaf_mbrs, rec_mbrs,
                                  budget=budget, prefilter=prefilter)
+
+
+def fused_leaf_walk(leaf_i, leaf_mbrs) -> refine.LeafWalk:
+    """The fused kernel's walk tables from its own operands: each leaf's
+    slot run is ``leaf_i[:, 0]`` (``leaf_start``), a slot's leaf the last
+    leaf starting at or before it, and a leaf's MBR the slot-aligned
+    ``leaf_mbrs`` row of its first slot (empty leaves, which no walk
+    enters, get a far-away row). On a snapshot's operands this is
+    ``GLINSnapshot.leaf_walk`` wherever a walk reads it."""
+    from ..core.device import leaf_group_mbrs
+
+    starts = leaf_i[:, 0].contiguous()
+    n, nl = leaf_mbrs.shape[0], starts.shape[0] - 1
+    slot = torch.arange(n, dtype=torch.int32, device=leaf_mbrs.device)
+    rec_leaf = torch.searchsorted(starts, slot, right=True) - 1
+    rec_leaf = rec_leaf.clamp(0, max(nl - 1, 0)).to(torch.int32)
+    first = starts[:nl].clamp(max=max(n - 1, 0)).long()
+    empty = (starts[1:] <= starts[:nl])[:, None]
+    leaf_mbr = torch.where(empty, 2e30, leaf_mbrs[first]).contiguous()
+    return refine.LeafWalk(rec_leaf, starts, leaf_mbr,
+                           leaf_group_mbrs(leaf_mbr, starts))
+
+
+def refine_fused(windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f, node_i,
+                 node_f, codes, pw, pod_i, pool, leaf_mbrs, rec_mbrs, *,
+                 budget: int, prefilter: str, code: int, dist: float = 0.0,
+                 augment: bool, search_steps: int, depth: int,
+                 leaves: refine.LeafWalk | None = None,
+                 use_kernel: bool = True):
+    """One-dispatch probe + compact + exact refine over the packed operands
+    of ``core.device.GLINSnapshot.fused_operands`` (the layout
+    ``kernels.refine.refine_fused`` documents) -> (hits (Q, budget) i32
+    [-1 padded], counts (Q,) i32, ``-(survivors) - 1`` past the budget).
+
+    The operands are the reference's ``ops.refine_fused``'s, column for
+    column, except how the exact predicate is named: the reference takes a
+    traced ``predicate`` callable and the pods' ``num_buckets``; here the
+    relation's predicate ``code`` (``geometry.PRED_*``, its
+    ``Relation.code``) and ``dist`` (the ``dwithin`` distance) name it, and
+    the pod headers carry each record's bucket. The kernel walks each run
+    group -> leaf -> slot over ``leaves`` (a snapshot's cached
+    ``GLINSnapshot.leaf_walk``); without them, over tables derived here
+    from ``leaf_i`` and ``leaf_mbrs`` (:func:`fused_leaf_walk`), as the
+    reference's kernel derives its leaf tiles from the same operands."""
+    if not use_kernel:
+        return refine.refine_fused_plain(
+            windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f, node_i,
+            node_f, codes, pw, pod_i, pool, leaf_mbrs, rec_mbrs,
+            budget=budget, prefilter=prefilter, code=code, dist=dist,
+            augment=augment, search_steps=search_steps, depth=depth)
+    return refine.refine_fused(
+        windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f, node_i, node_f,
+        codes, pw, pod_i, pool, leaf_mbrs, rec_mbrs, budget=budget,
+        prefilter=prefilter, code=code, dist=dist, augment=augment,
+        search_steps=search_steps, depth=depth,
+        leaves=fused_leaf_walk(leaf_i, leaf_mbrs) if leaves is None
+        else leaves)
 
 
 def knn_topk(d, ids, *, k: int, use_kernel: bool = True):

@@ -7,7 +7,9 @@ ring, an SSM's conv window and state) spliced into a free slot
 (per-sequence positions keep the slots independent); finished sequences
 free their slot; reports the first prefill's time and tokens/s. ``--arch``
 picks a dense config (through the ``flash_attention`` and
-``decode_attention`` kernels) or ``mamba2_2p7b`` (through ``ssd_scan``). It
+``decode_attention`` kernels), ``mamba2_2p7b`` (through ``ssd_scan``) or
+the hybrid ``hymba_1p5b`` (all three; its cache holds both the KV ring
+and the SSM state, its prompts follow its meta tokens). It
 runs on the card (``--device cuda``, the default), or on the CPU with
 ``--device cpu`` (the kernels' plain versions).
 
@@ -58,7 +60,7 @@ class SlotServer:
 
     def admit(self, slot: int, prompt: np.ndarray, gen_len: int) -> None:
         """Prefill a request at batch 1 and splice every cache leaf (k, v,
-        abs_pos, pos; or conv, state) into ``slot`` along axis 1."""
+        abs_pos, pos; conv, state; or both) into ``slot`` along axis 1."""
         tokens = torch.as_tensor(np.asarray(prompt)[None, :],
                                  device=self.device)
         _, cache1 = tf.prefill(self.params, self.cfg, {"tokens": tokens},

@@ -1,15 +1,18 @@
 """The decoder stack in PyTorch: parameters, the full forward, prefill and
 the decode step — the reference's ``models/transformer.py`` for the
-``dense`` family (attention + SwiGLU or GELU MLP, tied or untied head) and
-the ``ssm`` family (the Mamba-2 mixer alone: no attention, no MLP).
+``dense`` family (attention + SwiGLU or GELU MLP, tied or untied head), the
+``ssm`` family (the Mamba-2 mixer alone: no attention, no MLP) and the
+``hybrid`` family (Hymba: the attention and SSM mixers side by side on the
+same normed input, their sum over the two paths, then the MLP), with meta
+tokens (learned rows ahead of every prompt, stripped before the head).
 
 Parameters are a dict of tensors shaped as the reference's pytree: per-layer
 weights stacked on a leading layer axis (``params["blocks"]["attn"]["wq"]``
 is (L, d, Hq*Dh)), dense weights (in, out). The stack is a Python loop over
-layer views. The families this port does not serve yet — ``moe``,
-``hybrid``, ``vlm`` (M-RoPE), ``audio`` (``embed_stub``), ``qk_norm``,
-meta tokens — raise ``NotImplementedError``; training (remat, the loss)
-waits for a later slice.
+layer views. The families this port does not serve yet — ``moe``, ``vlm``
+(M-RoPE), ``audio`` (``embed_stub``), ``qk_norm`` — raise
+``NotImplementedError``; training (remat, the loss) waits for a later
+slice.
 """
 from __future__ import annotations
 
@@ -31,19 +34,21 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what this slice does not port."""
     why = None
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         why = f"family {cfg.family!r} comes with a later slice (ROADMAP A10)"
-    elif cfg.is_moe or cfg.qk_norm or cfg.mrope or cfg.meta_tokens or (
-            cfg.frontend != "text"):
-        why = ("MoE, qk_norm, M-RoPE, meta tokens and stub frontends come "
-               "with a later slice (ROADMAP A10)")
+    elif cfg.is_moe or cfg.qk_norm or cfg.mrope or cfg.frontend != "text":
+        why = ("MoE, qk_norm, M-RoPE and stub frontends come with a later "
+               "slice (ROADMAP A10)")
     elif cfg.family == "dense" and (not cfg.has_attention or cfg.has_ssm
                                     or cfg.d_ff <= 0):
         why = "a dense config needs attention and an MLP, and no SSM"
     elif cfg.family == "ssm" and (cfg.has_attention or not cfg.has_ssm
                                   or cfg.d_ff > 0):
         why = ("an ssm config is the Mamba-2 mixer alone (attention + SSM "
-               "heads are the hybrid family: a later slice, ROADMAP A10)")
+               "heads are the hybrid family)")
+    elif cfg.family == "hybrid" and not (cfg.has_attention and cfg.has_ssm
+                                         and cfg.d_ff > 0):
+        why = "a hybrid config needs attention, an SSM and an MLP"
     if why:
         raise NotImplementedError(f"{cfg.name}: {why}")
 
@@ -62,20 +67,23 @@ def param_shapes(cfg) -> Dict[str, Any]:
     nl, d, f, v = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
     a, kv = cfg.attn_dim, cfg.kv_dim
     blocks: Dict[str, Any] = {"ln1": Leaf((nl, d))}
+    if cfg.has_attention:
+        blocks["attn"] = {
+            "wq": Leaf((nl, d, a), d), "wk": Leaf((nl, d, kv), d),
+            "wv": Leaf((nl, d, kv), d), "wo": Leaf((nl, a, d), a)}
     if cfg.has_ssm:
         blocks["ssm"] = ssm.ssm_param_shapes(cfg)
-    else:
+    if f > 0:
         mlp = {"wu": Leaf((nl, d, f), d), "wd": Leaf((nl, f, d), f)}
         if cfg.mlp_gated:
             mlp["wg"] = Leaf((nl, d, f), d)
-        blocks.update(
-            attn={"wq": Leaf((nl, d, a), d), "wk": Leaf((nl, d, kv), d),
-                  "wv": Leaf((nl, d, kv), d), "wo": Leaf((nl, a, d), a)},
-            ln2=Leaf((nl, d)), mlp=mlp)
+        blocks.update(ln2=Leaf((nl, d)), mlp=mlp)
     tree: Dict[str, Any] = {"embed": Leaf((v, d), d),
                             "final_norm": Leaf((d,)), "blocks": blocks}
     if not cfg.tie_embeddings:
         tree["lm_head"] = Leaf((d, v), d)
+    if cfg.meta_tokens:
+        tree["meta"] = Leaf((cfg.meta_tokens, d), d)
     return tree
 
 
@@ -123,29 +131,55 @@ def _mlp_apply(x, p, cfg):
     return dense(h, p["wd"])
 
 
+# Each block: (x, the layer's params, cfg, rope tables) -> (x, the layer's
+# cache {"attn": {k, v}} / {"ssm": {conv, state}} / both) for the full
+# sequence; (x, params, cfg, the layer's cache, rope tables) -> x for a
+# decode step, which updates that cache in place.
 def _block_full(x, pl, cfg, rot):
     a_out, kv = attn.attention_full(rms_norm(x, pl["ln1"]), pl["attn"], cfg,
                                     rot)
     x = x + a_out
-    return x + _mlp_apply(rms_norm(x, pl["ln2"]), pl["mlp"], cfg), kv
+    x = x + _mlp_apply(rms_norm(x, pl["ln2"]), pl["mlp"], cfg)
+    return x, {"attn": kv}
 
 
 def _block_decode(x, pl, cfg, cache, rot):
     x = x + attn.attention_decode(rms_norm(x, pl["ln1"]), pl["attn"], cfg,
-                                  cache, rot)
+                                  cache["attn"], rot)
     return x + _mlp_apply(rms_norm(x, pl["ln2"]), pl["mlp"], cfg)
 
 
 def _ssm_block_full(x, pl, cfg, rot):
     """The ssm family's block: the mixer alone (the reference's
     ``x + mix / 1``), no MLP."""
-    s_out, cache = ssm.ssm_mixer_full(rms_norm(x, pl["ln1"]), pl["ssm"], cfg)
-    return x + s_out, cache
+    s_out, sc = ssm.ssm_mixer_full(rms_norm(x, pl["ln1"]), pl["ssm"], cfg)
+    return x + s_out, {"ssm": sc}
 
 
 def _ssm_block_decode(x, pl, cfg, cache, rot):
     return x + ssm.ssm_mixer_decode(rms_norm(x, pl["ln1"]), pl["ssm"], cfg,
-                                    cache)
+                                    cache["ssm"])
+
+
+def _hybrid_block_full(x, pl, cfg, rot):
+    """The hybrid family's block (Hymba): the attention and SSM mixers on
+    the same normed input, their sum divided by the two paths (in the
+    activation dtype, as the reference's ``mix / n_paths``), then the
+    MLP."""
+    h = rms_norm(x, pl["ln1"])
+    a_out, kv = attn.attention_full(h, pl["attn"], cfg, rot)
+    s_out, sc = ssm.ssm_mixer_full(h, pl["ssm"], cfg)
+    x = x + (a_out + s_out) / 2
+    x = x + _mlp_apply(rms_norm(x, pl["ln2"]), pl["mlp"], cfg)
+    return x, {"attn": kv, "ssm": sc}
+
+
+def _hybrid_block_decode(x, pl, cfg, cache, rot):
+    h = rms_norm(x, pl["ln1"])
+    a_out = attn.attention_decode(h, pl["attn"], cfg, cache["attn"], rot)
+    s_out = ssm.ssm_mixer_decode(h, pl["ssm"], cfg, cache["ssm"])
+    x = x + (a_out + s_out) / 2
+    return x + _mlp_apply(rms_norm(x, pl["ln2"]), pl["mlp"], cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -169,53 +203,64 @@ def _lm_head(x, params, cfg) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
+_BLOCKS = {"dense": (_block_full, _block_decode),
+           "ssm": (_ssm_block_full, _ssm_block_decode),
+           "hybrid": (_hybrid_block_full, _hybrid_block_decode)}
+
+
+def _embed_inputs(params, cfg, batch):
+    """The token embeddings (B,S,d) and their positions (B,S) int32; with
+    meta tokens, the learned ``meta`` rows ahead of every row's tokens and
+    the positions shifted past them (the meta tokens at 0 .. M-1)."""
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.long()]
+    b, s = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(b, s)
+    m = cfg.meta_tokens
+    if m:
+        meta = params["meta"].to(x.dtype)[None].expand(b, m, x.shape[-1])
+        x = torch.cat([meta, x], dim=1)
+        mpos = torch.arange(m, dtype=torch.int32,
+                            device=tokens.device)[None].expand(b, m)
+        positions = torch.cat([mpos, positions + m], dim=1)
+    return x, positions
+
+
 def forward(params, cfg, batch, collect_cache: bool = False,
             logits_last_only: bool = False):
     """The full-sequence forward without remat (the reference's
     ``forward_train(remat=False)``). batch: {tokens (B,S)[, positions]}.
     Returns (fp32 logits (B,S,V) — (B,1,V) with ``logits_last_only`` —,
-    the per-layer cache list — {k, v}, or {conv, state} for ssm — or
-    None)."""
+    the per-layer cache list — {"attn": {k, v}}, {"ssm": {conv, state}}
+    or both, over the meta tokens too — or None)."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
-    b, s = tokens.shape
-    if cfg.has_ssm:                     # attention-free: no rope table
-        block, rot = _ssm_block_full, None
-    else:
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(s, dtype=torch.int32,
-                                     device=tokens.device)[None].expand(b, s)
-        block = _block_full
-        rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x, positions = _embed_inputs(params, cfg, batch)
+    block = _BLOCKS[cfg.family][0]
+    rot = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+           if cfg.has_attention else None)    # attention-free: no rope table
     caches = [] if collect_cache else None
     for pl in _layers(params["blocks"]):
         x, kv = block(x, pl, cfg, rot)
         if collect_cache:
             caches.append(kv)
     x = rms_norm(x, params["final_norm"])
+    if cfg.meta_tokens:
+        x = x[:, cfg.meta_tokens:]
     if logits_last_only:
         x = x[:, -1:]
     return _lm_head(x, params, cfg), caches
 
 
-def prefill(params, cfg, batch, seq_len_cache: Optional[int] = None):
-    """Forward over the prompt, then the decode cache.
-
-    Returns (last-token logits (B,V), {"attn": {k, v (L,B,W,Hkv,Dh),
-    abs_pos (L,B,W), pos (L,B)}}): absolute position p lives in ring slot
-    p % W. With W <= S the last W keys are rolled into place; with W > S
-    (decode headroom past the prompt) the keys are padded and the empty
-    slots marked -1. The ssm family's cache is {"ssm": {conv (L,B,K-1,C),
-    state (L,B,H,N,P) fp32}}, whatever ``seq_len_cache``."""
-    logits, caches = forward(params, cfg, batch, collect_cache=True,
-                             logits_last_only=True)
-    if cfg.has_ssm:
-        return logits[:, -1], {"ssm": {
-            k: torch.stack([c[k] for c in caches]) for k in ("conv", "state")}}
-    k = torch.stack([c["k"] for c in caches])       # (L,B,S,Hkv,Dh)
-    v = torch.stack([c["v"] for c in caches])
+def _ring(kv, cfg, seq_len_cache):
+    """The attention cache of a prefill from its per-layer {k, v} (B,S,..):
+    absolute position p in ring slot p % W. With W <= S the last W keys are
+    rolled into place; with W > S (decode headroom past the prompt) the
+    keys are padded and the empty slots marked -1."""
+    k = torch.stack([c["k"] for c in kv])        # (L,B,S,Hkv,Dh)
+    v = torch.stack([c["v"] for c in kv])
     nl, b, s_tot = k.shape[:3]
     w = attn.cache_window(cfg, max(seq_len_cache or s_tot, s_tot))
     slots = torch.arange(w, dtype=torch.int32, device=k.device)
@@ -229,28 +274,46 @@ def prefill(params, cfg, batch, seq_len_cache: Optional[int] = None):
         k = F.pad(k, pad)
         v = F.pad(v, pad)
         abs_pos = torch.where(slots < s_tot, slots, -1).to(torch.int32)
-    cache = {"k": k.contiguous(), "v": v.contiguous(),
-             "abs_pos": abs_pos.expand(nl, b, w).contiguous(),
-             "pos": torch.full((nl, b), s_tot, dtype=torch.int32,
-                               device=k.device)}
-    return logits[:, -1], {"attn": cache}
+    return {"k": k.contiguous(), "v": v.contiguous(),
+            "abs_pos": abs_pos.expand(nl, b, w).contiguous(),
+            "pos": torch.full((nl, b), s_tot, dtype=torch.int32,
+                              device=k.device)}
+
+
+def prefill(params, cfg, batch, seq_len_cache: Optional[int] = None):
+    """Forward over the prompt (and the meta tokens ahead of it), then the
+    decode cache.
+
+    Returns (last-token logits (B,V), the cache): {"attn": {k, v
+    (L,B,W,Hkv,Dh), abs_pos (L,B,W), pos (L,B)}} for an attention model
+    (:func:`_ring`; ``pos`` counts the meta tokens), {"ssm": {conv
+    (L,B,K-1,C), state (L,B,H,N,P) fp32}} for an SSM, whatever
+    ``seq_len_cache``, and both for a hybrid."""
+    logits, caches = forward(params, cfg, batch, collect_cache=True,
+                             logits_last_only=True)
+    out = {}
+    if cfg.has_attention:
+        out["attn"] = _ring([c["attn"] for c in caches], cfg, seq_len_cache)
+    if cfg.has_ssm:
+        out["ssm"] = {k: torch.stack([c["ssm"][k] for c in caches])
+                      for k in ("conv", "state")}
+    return logits[:, -1], out
 
 
 def decode_step(params, cfg, batch, cache):
     """One decode step. batch: {tokens (B,)}. Returns (fp32 logits (B,V),
     cache) — the same cache dict, updated IN PLACE (each layer's new K/V
-    slot, abs_pos and pos; for ssm each layer's conv window and state)."""
+    slot, abs_pos and pos; each layer's conv window and SSM state)."""
     check_supported(cfg)
     x = params["embed"][batch["tokens"].long()][:, None, :]
-    if cfg.has_ssm:
-        block, rot, layer_caches = _ssm_block_decode, None, cache["ssm"]
-    else:
+    block = _BLOCKS[cfg.family][1]
+    rot = None
+    if cfg.has_attention:
         # every layer's pos is the same (prefill sets them together, each
         # step advances each by one): one rope table serves the whole stack
         pos = cache["attn"]["pos"][0]
-        block, layer_caches = _block_decode, cache["attn"]
         rot = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    for pl, lc in zip(_layers(params["blocks"]), _layers(layer_caches)):
+    for pl, lc in zip(_layers(params["blocks"]), _layers(cache)):
         x = block(x, pl, cfg, lc, rot)
     x = rms_norm(x, params["final_norm"])
     return _lm_head(x[:, 0], params, cfg), cache
@@ -260,7 +323,10 @@ def init_cache(cfg, batch: int, seq_len: int, device="cuda"):
     """An empty decode cache for ``batch`` rows of ``seq_len`` context (the
     SSM's cache has no context length)."""
     check_supported(cfg)
+    out = {}
+    if cfg.has_attention:
+        out["attn"] = attn.init_decode_cache(cfg, batch, seq_len,
+                                             dtype_of(cfg), device)
     if cfg.has_ssm:
-        return {"ssm": ssm.init_ssm_cache(cfg, batch, dtype_of(cfg), device)}
-    return {"attn": attn.init_decode_cache(cfg, batch, seq_len,
-                                           dtype_of(cfg), device)}
+        out["ssm"] = ssm.init_ssm_cache(cfg, batch, dtype_of(cfg), device)
+    return out

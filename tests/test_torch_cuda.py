@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each against its plain version on the same
 inputs, the facade's kernel paths (window queries and kNN) against its
-host path, and the LM's decode through both attention kernels (dense) or
-the SSD scan (mamba2_2p7b) against its full forward.
+host path, the LM's decode through both attention kernels (dense), the
+SSD scan (mamba2_2p7b) or all three (hymba_1p5b) against its full
+forward, and the three LM kernels at hymba_1p5b's shapes.
 
 Every test here is marked ``gpu`` and skips without a card (decided inside
 the ``cuda`` fixture). The file imports only the port, so it needs nothing
@@ -870,3 +871,128 @@ def test_sharded_knn_facade_on_the_card_matches_host(padded_store, cuda):
         np.testing.assert_allclose(res.distances[i], host.distances[i],
                                    rtol=1e-4, atol=1e-7)
     assert res.stages[0].merge_bytes > 0
+
+
+# ------------------------------------------ ops.refine_fused on the card --
+@pytest.mark.gpu
+@pytest.mark.parametrize("relation", ("intersects", "contains",
+                                      "dwithin:0.004"))
+def test_ops_refine_fused_kernel_matches_plain(store, cuda, relation):
+    """``ops.refine_fused`` on the snapshot's packed operands: the kernel,
+    over the snapshot's walk and over the walk it derives from ``leaf_i``
+    and ``leaf_mbrs``, against ``use_kernel=False`` and the facade's fused
+    path, exactly."""
+    from repro_torch.kernels import ops as kops
+
+    gs, wins = store
+    idx = _index(gs, cuda)
+    s, pods = idx.snapshot(), idx._device_payload()
+    rel = tdev._device_relation(relation)
+    w = torch.from_numpy(wins).to(cuda)
+    args = (w, rel.probe_window(w), torch.stack(
+        tdev._raw_query_keys(s, w, rel), dim=1), *s.fused_operands,
+        pods.headers, pods.pool, s.slot_lmbr, s.slot_rmbr)
+    kw = dict(budget=64, prefilter=rel.prefilter_kind, code=rel.code,
+              dist=rel.dist,
+              augment=bool(rel.augment) and s.pw_zmax_hi.shape[0] > 0,
+              search_steps=s.search_steps, depth=s.depth)
+    want = kops.refine_fused(*args, **kw, use_kernel=False)
+    n0 = kr.refine_fused.launches
+    got = kops.refine_fused(*args, **kw, leaves=s.leaf_walk)
+    derived = kops.refine_fused(*args, **kw)
+    assert kr.refine_fused.launches == n0 + 2
+    facade = tdev.batch_query_fused(s, w, pods, relation=relation,
+                                    exact_budget=64, mode="kernel")
+    torch.cuda.synchronize()
+    for a in (derived, want, facade):
+        assert torch.equal(got[0], a[0]) and torch.equal(got[1], a[1])
+
+
+# ------------------------------------------------ hymba_1p5b's shapes --
+# 25 query heads over 5 kv heads (a group of 5: 12 tokens a flash block, 60
+# of its 64 rows), head dim 64, a 1,024-token window, 128 meta tokens ahead
+# of a 512-token prompt (640) and of a 1,024-token one (1,152: the window
+# slides), and the SSM's 50 heads of 64 with a state of 16
+HYMBA = dict(hkv=5, group=5, d=64, window=1024, meta=128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,prompt", [(1, 512), (2, 1024), (1, 3)])
+def test_flash_kernel_at_hymba_shapes(cuda, dtype, b, prompt):
+    s = prompt + HYMBA["meta"]
+    hkv, group, d = HYMBA["hkv"], HYMBA["group"], HYMBA["d"]
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn(b, s, hkv * group, d, device=cuda, generator=g).to(dtype)
+    k = torch.randn(b, s, hkv, d, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, s, hkv, d, device=cuda, generator=g).to(dtype)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # the model's views
+    n0 = katt.flash_attention.launches
+    a = katt.flash_attention(qt, kt, vt, HYMBA["window"])
+    assert katt.flash_attention.launches == n0 + 1
+    assert katt.flash_plan(b, hkv, group, s, d, dtype)[
+        "tokens_per_block"] == 12
+    assert _att_err(a, katt.flash_attention_plain(
+        qt, kt, vt, HYMBA["window"])) < ATT_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,fresh", [(8, 0), (8, 640), (1, 0)])
+def test_decode_kernel_at_hymba_shapes(cuda, dtype, b, fresh):
+    """8 slots over a 1,024-slot windowed ring: positions up to 3 W (rings
+    that wrap), and fresh rings at 640 (the meta tokens and a 512-token
+    prompt)."""
+    q, k, v, ap, pos = _decode_inputs(cuda, dtype, b, HYMBA["hkv"],
+                                      HYMBA["group"], 1024, HYMBA["d"],
+                                      b * 31 + fresh, fresh)
+    n0 = katt.decode_attention.launches
+    a = katt.decode_attention(q, k, v, ap, pos, HYMBA["window"])
+    assert katt.decode_attention.launches == n0 + 1
+    assert _att_err(a, katt.decode_attention_plain(
+        q, k, v, ap, pos, HYMBA["window"])) < ATT_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(1, 640), (2, 1152), (1, 136)])
+def test_ssd_kernel_at_hymba_shapes(cuda, dtype, b, s):
+    """50 heads of 64, N = 16 (one 16-wide tile of the state, under the
+    pass kernel's 32-wide tile), x/B/C as views of the convolution output."""
+    args = _ssd_inputs(cuda, dtype, b, s, 50, 64, 16, s + 16, strided=True)
+    n0 = kssd.ssd_scan.launches
+    y, state = kssd.ssd_scan(*args, 128, return_state=True)
+    assert kssd.ssd_scan.launches == n0 + 1
+    want_y, want_state = kssd.ssd_scan_plain(*args, 128, return_state=True)
+    _ssd_close(y, want_y)
+    _ssd_close(state, want_state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_decode_matches_forward_through_kernels(cuda, dtype):
+    """Reduced hymba_1p5b on the card (8 meta tokens, window 32): prefill
+    of 40 tokens (48 with the meta tokens: the ring rolls) + 6 decode steps
+    through the three kernels equal the full forward; one flash and one
+    SSD launch per layer per prefill, one decode launch per layer per
+    step."""
+    cfg = dataclasses.replace(get_arch("hymba_1p5b").reduced(), dtype=dtype)
+    params = tf.init_params(cfg, 3, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 46), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(3))
+    tol = (2e-4, 1e-3) if dtype == "float32" else (0.25, 0.0)
+    n0 = (katt.flash_attention.launches, kssd.ssd_scan.launches)
+    last, cache = tf.prefill(params, cfg, {"tokens": toks[:, :40]},
+                             seq_len_cache=64)
+    assert (katt.flash_attention.launches, kssd.ssd_scan.launches) == (
+        n0[0] + cfg.n_layers, n0[1] + cfg.n_layers)
+    full, _ = tf.forward(params, cfg, {"tokens": toks[:, :40]})
+    torch.testing.assert_close(last, full[:, -1], atol=tol[0], rtol=tol[1])
+    for t in range(6):
+        n0 = katt.decode_attention.launches
+        dec, cache = tf.decode_step(params, cfg, {"tokens": toks[:, 40 + t]},
+                                    cache)
+        assert katt.decode_attention.launches == n0 + cfg.n_layers
+        full, _ = tf.forward(params, cfg, {"tokens": toks[:, :41 + t]})
+        torch.testing.assert_close(dec, full[:, -1], atol=max(tol[0], 5e-4),
+                                   rtol=max(tol[1], 1e-2))

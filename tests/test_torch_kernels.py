@@ -7,7 +7,8 @@ compact (both prefilters, empty and inverted runs, odd budgets, a budget
 past the fused kernel's bound), ``batch_query_fused(mode="reference")`` for
 the fused query over the seven relation forms, the two-key sort
 (``ops.knn_topk(use_pallas=False)``) for the kNN top-k, and the Pallas
-kernels in interpret mode for ``morton_encode`` and ``refine_mask``.
+kernels in interpret mode for ``morton_encode``, ``refine_mask`` and
+``ops.refine_fused``.
 (``test_torch_cuda.py`` holds each CUDA kernel against its plain version on
 the card.)
 """
@@ -357,3 +358,49 @@ def test_ops_refine_compact_both_ways(world, use_kernel):
                               budget=16, use_kernel=use_kernel)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def test_ops_refine_fused_matches_reference_interpret(world):
+    """``ops.refine_fused`` (the wrapper's plain version on the CPU, with
+    and without the snapshot's walk, and ``use_kernel=False``) over the
+    packed operands == the reference's
+    ``ops.refine_fused`` in interpret mode, hit for hit and count for
+    count; the walk it derives from ``leaf_i`` and ``leaf_mbrs`` is the
+    snapshot's."""
+    rs, ts, rpods, tpods = (world[k] for k in ("rs", "ts", "rpods", "tpods"))
+    name = "dwithin:0.004"
+    rrel, trel_ = rdev._device_relation(name), tdev._device_relation(name)
+    wins = world["wins"]
+    wj = jnp.asarray(wins)
+    rqk = jnp.stack(rdev._raw_query_keys(rs, wj, rrel), axis=1)
+    rpod_i = jnp.stack([rpods.off, rpods.nv, rpods.kd, rpods.bucket], 1)
+    want = rops.refine_fused(
+        wj, rrel.probe_window(wj, xp=jnp), rqk, *rdev._fused_operands(rs),
+        rpod_i, rpods.pool, rs.slot_lmbr, rs.slot_rmbr, budget=16,
+        prefilter=rrel.prefilter_kind,
+        predicate=lambda w, vv, nn, kk_: rrel.predicate(w, vv, nn, kk_,
+                                                        xp=jnp),
+        augment=True, search_steps=rs.search_steps, depth=rs.depth,
+        num_buckets=rpods.num_buckets, interpret=True)
+    w = _t(wins)
+    ops_ = tdev._fused_operands(ts)
+    args = (w, trel_.probe_window(w), torch.stack(
+        tdev._raw_query_keys(ts, w, trel_), dim=1), *ops_, tpods.headers,
+        tpods.pool, ts.slot_lmbr, ts.slot_rmbr)
+    kw = dict(budget=16, prefilter=trel_.prefilter_kind, code=trel_.code,
+              dist=trel_.dist, augment=True, search_steps=ts.search_steps,
+              depth=ts.depth)
+    before = kr.refine_fused.launches
+    for use_kernel, leaves in ((True, None), (True, ts.leaf_walk),
+                               (False, None)):
+        hits, counts = tops.refine_fused(*args, **kw, leaves=leaves,
+                                         use_kernel=use_kernel)
+        np.testing.assert_array_equal(hits.numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(want[1]))
+    assert kr.refine_fused.launches == before        # CPU: plain version
+    assert (np.asarray(want[1]) < 0).any() and (np.asarray(want[1]) > 0).any()
+    walk, snap_walk = tops.fused_leaf_walk(ops_[2], ts.slot_lmbr), ts.leaf_walk
+    assert torch.equal(walk.rec_leaf, snap_walk.rec_leaf)
+    assert torch.equal(walk.leaf_start, snap_walk.leaf_start)
+    full = snap_walk.leaf_start[1:] > snap_walk.leaf_start[:-1]
+    assert torch.equal(walk.leaf_mbr[full], snap_walk.leaf_mbr[full])

@@ -379,17 +379,33 @@ def test_overlapped_flush_atomicity_on_group_failure():
 
 # -------------------------------------------------------------- replicas ----
 def _replicas(pkg):
+    """Three flushes of two relation groups. Each group picks the
+    least-loaded replica as it starts; a barrier holds each group's facade
+    query until both groups have picked, so the two never run one after
+    the other on one replica (which the worker pool's timing would
+    otherwise allow)."""
     idx = _fp32_index(pkg, n=3000)
     server = pkg.serve.SpatialQueryServer(
-        idx, config=pkg.serve.ServerConfig(replicas=2))
+        idx, config=pkg.serve.ServerConfig(replicas=2, max_workers=2))
     assert idx.config.replicas == 2      # the server raised the engine knob
+    both_picked = threading.Barrier(2, timeout=WAIT_S)
+    query = idx.query
+
+    def held_query(*args, **kw):
+        both_picked.wait()
+        return query(*args, **kw)
+
     outs = []
-    for rnd in range(3):
-        wins = _fp32_windows(idx, 2e-3, 4, seed=20 + rnd)
-        for rel in ("intersects", "contains"):
-            for w in wins:
-                server.submit(w, rel)
-        outs.append((wins, server.flush()))
+    idx.query = held_query
+    try:
+        for rnd in range(3):
+            wins = _fp32_windows(idx, 2e-3, 4, seed=20 + rnd)
+            for rel in ("intersects", "contains"):
+                for w in wins:
+                    server.submit(w, rel)
+            outs.append((wins, server.flush()))
+    finally:
+        del idx.query
     with server._lock:
         picks = {server._pick_replica_locked(), server._pick_replica_locked()}
         server._replica_inflight = [0, 0]
