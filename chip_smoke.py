@@ -48,7 +48,7 @@ Phases (any failure raises, and the script exits non-zero):
    then a forced ``device`` batch that republishes;
 6. the kNN path through the facade: 1024 points (the windows' centres) at
    k = 10 and 100, the default plan (top-k and compact kernels) against the
-   plain two-key sort and, on 64 points, the fp64 host kNN; then one top-k
+   plain two-key sort and, on 32 points, the fp64 host kNN; then one top-k
    line per (row width, k) the drive launched, with its route, on that
    shape's inputs from one more batch;
 5b. (after 6) the paper's baselines on phase 3's store as the facade holds
@@ -57,7 +57,7 @@ Phases (any failure raises, and the script exits non-zero):
    deleted record deleted from each), the first 64 main windows through
    each tree for ``intersects`` and ``contains`` (per-window ms beside the
    fused 1024-window batch's wall over its windows), ids equal to the
-   fused batch and to the fp64 host path; ``SortedArray`` on 4 of them;
+   fused batch and to the fp64 host path; ``SortedArray`` on 1 of them;
    1,024 published records deleted from each tree and inserted again (ms
    per operation), then the same windows and checks again;
 5c. (after 5b) the port's examples, each ``main`` in-process on the card:
@@ -74,7 +74,7 @@ Phases (any failure raises, and the script exits non-zero):
    1024 kNN points at k = 10 through ``device+delta``. Every batch equal to
    the same batch on a synchronous republish at the same epoch (a second
    facade over the same host tree; its wall split into capture, build,
-   upload and payload) and, on 64 windows, to the fp64 host path; kNN ids
+   upload and payload) and, on 32 windows, to the fp64 host path; kNN ids
    and distances equal to the republished device result;
 6b. the async swap: ``async_republish`` set on the index (as the server
    sets it), 1,536 more inserts past ``refresh_threshold``, 1024-window
@@ -83,7 +83,7 @@ Phases (any failure raises, and the script exits non-zero):
    landing mid-build: batches in flight, their median and largest wall
    beside the synchronous republish's, the build's start to the swap; the
    first and last in-flight batches and the first after the swap equal to
-   the host path on 64 windows;
+   the host path on 32 windows;
 6c. serving: ``SpatialQueryServer`` with the reference launcher's settings
    (2 replicas, max_queue 2048, min_batch 8, max_batch 4096, two tenants;
    ``intersects``, ``contains``, ``dwithin:0.003`` over a pool of 65,536
@@ -103,17 +103,16 @@ Phases (any failure raises, and the script exits non-zero):
    and 1024 kNN points at k = 10 and 100, each planned ``sharded`` (wall
    ms, dispatches, escalations, merge bytes, launches) and equal to the
    primary facade's ``device`` batch (kNN ids exactly, distances within
-   1e-4 relative) and to the host path on 64 windows for ``intersects``,
-   ``contains`` and ``covers``, on 16 for the other relations and the
-   ladder (the fp64 host walk takes ~12 s per 64 windows of an augmented
-   probe at this size);
+   1e-4 relative) and to the host path on 32 windows for ``intersects``,
+   on 16 for the other relations and the ladder (the fp64 host walk takes
+   ~12 s per 64 windows of an augmented probe at this size);
    the compact kernel with a shard's walk against its plain version on
    that shard's tables (a position of the main batch, one of the ladder),
    the k-merge's top-k against the plain sort; then 64 inserts (one in
    each of the first 64 windows) and 16 deletes (a hit of each of the
    first 16) through the sharded facade and a 1024-window ``intersects``
    batch served sharded with the delta patched on top, equal to the host
-   path on 64 windows;
+   path on 32 windows;
 7. the kernel-level ``ops`` entry point: the Morton keys of every record
    against the host's, the candidate mask against the candidate counts, and
    the keys, the mask, the counts and the compaction (both in slot-as-leaf
@@ -122,7 +121,7 @@ Phases (any failure raises, and the script exits non-zero):
    the entry point's plain side (``use_kernel=False``);
 8. LM serving: ``granite_3_2b`` at full width in bf16 (weights drawn on the
    card from seed 0) behind the port's ``SlotServer``: 8 slots, max_ctx
-   1024, 16 requests of 512-token prompts with ``main_lm``'s generation
+   1024, 8 requests of 512-token prompts with ``main_lm``'s generation
    lengths (numpy seed 0) — prefill ms per request, decode ms per step,
    tokens/s, peak memory, the device busy share of a few decode steps; then
    the two attention kernels against their plain versions on q/k/v captured
@@ -148,7 +147,7 @@ Phases (any failure raises, and the script exits non-zero):
    prefill against one 512-token forward, and the kernel path against the
    plain path (prefill + 32 decode steps of 2 requests), each in fp32 and
    in bf16 (the bf16 paths held against the fp32 weights' result; decode
-   against the forward also in the first 8, 16 and 32 layers);
+   against the forward also in the first 8 layers);
 10. hybrid serving: ``hymba_1p5b`` at full width in bf16 (seed 0; 32
    layers of 25 query heads over 5 kv heads of 64 beside 50 SSM heads of
    64 with a state of 16, a 1,024-token window, 128 meta tokens) behind the
@@ -163,18 +162,49 @@ Phases (any failure raises, and the script exits non-zero):
    384-token prefill against one 512-token forward, and the kernel path
    against the plain path (prefill + 16 decode steps of 2 requests), in
    fp32 at ``LM_FP32_TOL`` and in bf16 as phase 9's (decode against the
-   forward also in the first 8 and 16 layers);
-11. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
-   their hymba numbers under ``hymba``), and last the ``{"ok": true, ...}``
-   line.
+   forward also in the first 8 layers);
+11. MoE serving: ``mixtral_8x22b`` (8 experts, top-2, a 4,096 window) and
+   ``qwen3_moe_235b`` (128 experts, top-8, QK-norm) at published widths
+   with every expert, cut to their first 8 layers (a full-depth model does
+   not fit the card), bf16, seed 0, one after the other behind the same
+   ``SlotServer`` (8 slots, max_ctx 1024, 8 requests of 512-token
+   prompts): prefill and decode ms, tokens/s, weight, cache and peak
+   bytes, the MoE drop counters (``models.moe.stats``), the busy share of
+   profiled decode steps; the two attention kernels against their plain
+   versions on layer 0's inputs of a real prefill and decode step (and
+   for mixtral of a 4,608-token prefill, where the window binds, and its
+   decode step on the wrapped 4,096-slot ring), bf16 and fp32, with times,
+   bounds and SDPA; layer 0's MoE FFN on the real prefill's input against
+   an fp32 oracle of the same capacity rule (:func:`moe_layer_check`);
+   decode against the forward (384 + 128 against 512, in the layers before
+   the first that drops a replica; where one drops, also 64 + 64 against
+   128 at full depth, where no replica can drop) and the kernel path
+   against the plain path, in fp32 in the first 2 layers and in bf16 by
+   phase 9's drift rule (the fp32 counterparts of 8 layers upcast a layer
+   at a time), every run's drops and the share of routes on which the
+   bf16 kernel and plain paths differ logged;
+12. the stub frontends: ``qwen2_vl_2b`` (M-RoPE; its prompts' first 256
+   embeddings on a 16 x 16 patch grid) and ``musicgen_medium`` at full
+   width and depth, bf16, seed 0, through ``prefill`` / ``decode_step``
+   with seeded embeddings (8 rows of 512, then 128 decode steps): prefill
+   and decode ms, tokens/s, peak bytes, the busy share; the two attention
+   kernels against their plain versions at their shapes with times,
+   bounds and SDPA; decode against the forward and the kernel path
+   against the plain path, fp32 at full depth and bf16;
+13. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
+   their hymba numbers under ``hymba``, the attention kernels' also each
+   phase 11 and 12 model's under its name), and last the ``{"ok": true,
+   ...}`` line.
 
 Launch counters are zeroed just before each of phases 5, 6, 5b, 5c, 6a, 6b,
-6c, 6d (its two paths), 7, 8's, 9's and 10's serving runs and read just
-after (6a's, 6c's and 6d's before the comparisons that check them): every
-kernel of that path must have launched, and a kernel's ``launches`` in the
-last line is its count from its path, summed over phases 5-6d for
-``refine_compact``, ``refine_fused`` and ``knn_topk`` and over phases 8-10
-for ``flash_attention``, ``decode_attention`` and ``ssd_scan``.
+6c, 6d (its two paths), 7, 8's, 9's, 10's and 11's serving runs and 12's
+runs, and read just after (6a's, 6c's and 6d's before the comparisons that
+check them): every kernel of that path must have launched, and a kernel's
+``launches`` in the last line is its count from its path, summed over
+phases 5-6d for ``refine_compact``, ``refine_fused`` and ``knn_topk`` and
+over phases 8-12 for ``flash_attention``, ``decode_attention`` and
+``ssd_scan``. Each phase's start is logged with the seconds since the
+script started (``{"phase": ..., "t_s": ...}``).
 """
 import collections
 import dataclasses
@@ -187,6 +217,7 @@ import sys
 import time
 import types
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"            # every index and tensor of the drive lives here
@@ -195,7 +226,7 @@ N_WINDOWS = 1024
 SELECTIVITY = 1e-4         # the main batch: ~200 records per window
 LADDER_SELECTIVITY = 1e-3  # ~2000 per window: past the budget, up the ladder
 BUDGET = 256
-HOST_CHECK = 64            # windows held against the fp64 host path
+HOST_CHECK = 32            # windows held against the fp64 host path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor-core rate (dense)
@@ -207,7 +238,7 @@ KNN_TOPK_WIDE = (4096, 100)  # (B, k) of the synthetic top-k case
 MASK_WINDOWS = 64            # the (Q, N) int8 mask: 2 MB per window
 LM_ARCH = "granite_3_2b"
 FLASH_D128_ARCH = "phi4_mini_3p8b"   # the flash kernel at head dim 128
-LM_SLOTS, LM_CTX, LM_REQUESTS, LM_PROMPT = 8, 1024, 16, 512
+LM_SLOTS, LM_CTX, LM_REQUESTS, LM_PROMPT = 8, 1024, 8, 512
 LM_WINDOW = 128              # the windowed case: a 128-slot ring that wraps
 LM_FORWARD_STEPS = 8         # decode steps held against the full forward
 LM_TEACHER_STEPS = 32        # kernel path vs plain path, teacher-forced
@@ -215,6 +246,12 @@ LM_FP32_STEPS = 2            # the same two checks with fp32 weights
 # attention kernel vs plain version (as the reference's kernel tests): the
 # kernels sum in another order (online softmax over key tiles)
 ATT_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# ... and never below one bf16 step of the plain output where it is bf16:
+# from a magnitude of 4 that step (2^-5) passes 3e-2, and two results that
+# agree to a few fp32 ulps still round to neighbouring bf16 values wherever
+# a rounding midpoint lies between them (the phases' real activations reach
+# it where a token attends to few keys; :func:`att_bound`)
+BF16_MANTISSA_BITS = 7
 # logits of two paths through the 40-layer bf16 model: activations are
 # rounded to bf16 (2^-8 relative) at every layer, and a rounding flip in one
 # path spreads; the bound is a share of the logits' range. fp32 weights:
@@ -222,7 +259,7 @@ ATT_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 LM_BF16_REL = 0.1
 LM_FP32_TOL = (2e-3, 1e-3)   # atol, rtol
 SSM_ARCH = "mamba2_2p7b"
-SSM_SLOTS, SSM_CTX, SSM_REQUESTS, SSM_PROMPT = 8, 1024, 16, 512
+SSM_SLOTS, SSM_CTX, SSM_REQUESTS, SSM_PROMPT = 8, 1024, 8, 512
 SSM_FORWARD_PROMPT = 384     # + 128 decode steps against one 512 forward
 SSM_TEACHER_STEPS = 32       # kernel path vs plain path, teacher-forced
 # bf16 logits of two paths through mamba2_2p7b: every layer rounds to bf16
@@ -232,10 +269,11 @@ SSM_TEACHER_STEPS = 32       # kernel path vs plain path, teacher-forced
 # counterpart within SSM_BF16_DRIFT_RATIO times how far the counterpart's
 # bf16 run strays from its fp32 run (two paths each no further from fp32
 # than that lie within twice it: the reference's own pairs stay within
-# 1.21x at full width, 2 to 16 layers), at every depth of SSM_DEPTHS and the full 64; at SSM_REL_DEPTH
-# layers also within phase 8's LM_BF16_REL of the range.
+# 1.21x at full width, 2 to 16 layers), at every depth of SSM_DEPTHS and
+# the full 64; at SSM_REL_DEPTH layers also within phase 8's LM_BF16_REL of
+# the range.
 SSM_BF16_DRIFT_RATIO = 2.0
-SSM_DEPTHS = (8, 16, 32)     # first layers of the same weights, + all 64
+SSM_DEPTHS = (8,)            # first layers of the same weights, + all 64
 SSM_REL_DEPTH = 8
 # ssd_scan vs its plain version: the kernel tiles 64 steps where the plain
 # version takes chunk 128, so fp32 differs by summation order — the
@@ -265,15 +303,14 @@ SHARD_MESH = (4, 2)       # (data, model): 4 record shards, 2 query columns
 SHARD_INSERTS = 64        # the delta patched on top of the sharded batch
 SHARD_DELETES = 16
 # 6d's host checks: the fp64 host walk takes ~12 s per 64 windows for an
-# augmented probe at 2M records (s19-c), so the phase checks 64 windows
-# for intersects (the delta's relation too) and the unaugmented contains
-# and covers, and 16 for the other relations and the ladder: the phase
-# stays near 90 s
-SHARD_HOST_FULL = ("intersects", "contains", "covers")
+# augmented probe at 2M records (s19-c), so the phase checks HOST_CHECK
+# windows for intersects (the delta's relation too), and 16 for the other
+# relations and the ladder
+SHARD_HOST_FULL = ("intersects",)
 SHARD_HOST_FEW = 16
 # phase 5b: the paper's baselines on phase 3's store
 BASE_WINDOWS = 64           # of the main windows, through each tree
-BASE_SORTED_WINDOWS = 4     # SortedArray refines its whole augmented run
+BASE_SORTED_WINDOWS = 1     # SortedArray refines its whole augmented run
 BASE_RELATIONS = ("intersects", "contains")
 BASE_MAINTAIN = 1024        # published records deleted and inserted again
 # phase 5c: the port's examples at the verify skill's sizes
@@ -293,11 +330,47 @@ HYBRID_SLOTS, HYBRID_CTX, HYBRID_REQUESTS, HYBRID_PROMPT = 8, 1024, 10, 512
 # 128-step chunk, as the reference's)
 HYBRID_FORWARD_PROMPT = 384
 HYBRID_TEACHER_STEPS = 16    # kernel path vs plain path, teacher-forced
-# the bf16 checks take phase 9's drift rule at 8, 16 and all 32 layers,
+# the bf16 checks take phase 9's drift rule at 8 and all 32 layers,
 # not its share of the range: at full width in 8 layers the reference's
 # own decode path strays 12% of the logits' range from its forward, the
 # port's 15% (a CPU run of tests/test_torch_hybrid.py as a script)
-HYBRID_DEPTHS = (8, 16)
+HYBRID_DEPTHS = (8,)
+# phase 11: MoE serving at the published widths with every expert, cut to
+# the first 8 layers (of 56 and 94: a full-depth model does not fit one
+# 80 GB card); every layer is attention + the MoE FFN, so 8 layers hold
+# every kind of layer the model has
+MOE_ARCHS = ("mixtral_8x22b", "qwen3_moe_235b")
+MOE_LAYERS = 8
+MOE_SLOTS, MOE_CTX, MOE_REQUESTS, MOE_PROMPT = 8, 1024, 8, 512
+MOE_FORWARD_PROMPT = 384     # + 128 decode steps against one 512 forward
+# a forward that drops replicas differs from decode steps (which never
+# drop): the decode-against-forward check then runs in the layers before the
+# first that drops, and also over the prompt's first 128 tokens at full
+# depth (64 + 64 decode steps), where the capacity floor of 128 slots holds
+# every replica
+MOE_SHORT_PROMPT = 128
+MOE_TEACHER_STEPS = 16       # kernel path vs plain path, teacher-forced
+MOE_FP32_LAYERS = 2          # the 8 layers in fp32 would need ~82 GB
+# bf16 decode against the forward also in the first 2 layers: at 8 the
+# bf16 model's expert choices part from the fp32 model's on a rounding and
+# its logits from fp32 by most of their range (mixtral on the card), so the
+# drift rule bounds little there
+MOE_DEPTHS = (2,)
+MOE_WINDOW_PROMPT = 4608     # mixtral: a prompt past its 4,096 window
+# the MoE layer against its fp32 oracle (same routing, fp32 expert FFNs of
+# the same bf16 weights and input): the port multiplies in bf16 with fp32
+# accumulation and rounds to bf16 three times (the expert products, the
+# gated SiLU, the expert output; then the gated sum), each 2^-9 relative;
+# 2% of the output's largest magnitude is ~5 bf16 steps there, and a
+# replica routed to a wrong expert, a wrong gate or a lost row is O(1)
+MOE_ORACLE_REL = 0.02
+# phase 12: the stub-frontend models at full width and depth, through
+# prefill / decode_step with embeddings (the slot server takes tokens only)
+STUB_ARCHS = ("qwen2_vl_2b", "musicgen_medium")
+STUB_ROWS, STUB_PROMPT, STUB_STEPS = 8, 512, 128
+STUB_GRID = 16               # qwen2_vl: a 16 x 16 patch grid of M-RoPE
+STUB_FORWARD_PROMPT = 384
+STUB_TEACHER_STEPS = 16
 _CU = "src/repro_torch/kernels/csrc/"
 CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
         "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
@@ -316,8 +389,16 @@ REPLACES = {"refine_count": "src/repro/kernels/refine.py:391",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:64"}
 
 
+T0 = time.perf_counter()
+
+
 def log(obj):
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def mark(phase: str) -> None:
+    """A phase starts: its name and the seconds since the script started."""
+    log({"phase": phase, "t_s": time.perf_counter() - T0})
 
 
 def card_line() -> str:
@@ -767,15 +848,12 @@ def lm_phase(katt, counters) -> tuple:
     if not (ap.shape[1] == LM_WINDOW and int(pos.min()) > LM_WINDOW):
         raise RuntimeError("windowed case: the ring did not wrap")
 
-    def fp32(args):
-        return tuple(t.float() if t.is_floating_point() else t for t in args)
-
     cases = [("flash_attention", "bf16", cap["flash"], 0),
-             ("flash_attention", "fp32", fp32(cap["flash"]), 0),
+             ("flash_attention", "fp32", fp32_args(cap["flash"]), 0),
              ("flash_attention", f"bf16 window {LM_WINDOW}", cap["flash_w"],
               LM_WINDOW),
              ("decode_attention", "bf16", cap["decode"], 0),
-             ("decode_attention", "fp32", fp32(cap["decode"]), 0),
+             ("decode_attention", "fp32", fp32_args(cap["decode"]), 0),
              ("decode_attention", f"bf16 window {LM_WINDOW}",
               cap["decode_w"], LM_WINDOW)]
     results = {}
@@ -784,14 +862,16 @@ def lm_phase(katt, counters) -> tuple:
         plain = getattr(katt, name + "_plain")
         got = kern(*args, window)
         want = plain(*args, window)
-        err = max_err(got, want)
+        err, share, ok = att_bound(got, want)
         tol = ATT_TOL[str(args[0].dtype).split(".")[1]]
         line = {"name": f"{name}[{case}]",
                 "shape": {"q": list(args[0].shape), "k": list(args[1].shape)},
-                "max_abs_err": err, "tolerance": tol}
-        if not err < tol:
+                "max_abs_err": err, "tolerance": tol,
+                "worst_share_of_bound": share,
+                "plain_max_abs": float(want.float().abs().max())}
+        if not ok:
             raise RuntimeError(f"{name}[{case}]: max abs err {err} from the "
-                               f"plain version, tolerance {tol}")
+                               f"plain version, past its bound ({line})")
         if case != "bf16":
             log(line)
             continue
@@ -1090,74 +1170,181 @@ def check_launches(what, kernels, before, c, steps, plain=False):
         raise RuntimeError(f"{what}: launches {got}, expected {want}")
 
 
-def lm_path_checks(tag, prm, c, toks, prompts, kernels, plain_swaps, *,
-                   split, teacher_steps, depths, rel_depth=None,
-                   ctx=None) -> None:
-    """Phases 9 and 10's end-to-end checks of a full-width bf16 model with
-    weights ``prm``:
+def prefix(batch, n: int) -> dict:
+    """The first ``n`` positions of a prompt batch: tokens (B, S), embeds
+    (B, S, d), M-RoPE positions (B, 3, S)."""
+    return {k: v[..., :n] if k == "positions" else v[:, :n]
+            for k, v in batch.items()}
 
-    - decode against the forward: prefill the first ``split`` tokens of
-      ``toks`` (1, S), teacher-force the rest one decode step at a time, and
-      hold the logits of positions split - 1 .. S - 1 against one forward
-      over all S;
+
+def at(batch, t: int) -> dict:
+    """The decode step input of position ``t`` of a prompt batch."""
+    return {k: v[:, t] for k, v in batch.items() if k != "positions"}
+
+
+class Upcast:
+    """The layers of a stacked bf16 ``blocks`` tree in fp32, one at a time:
+    iterating copies layer i into one fp32 layer's buffers and yields them,
+    so a forward or decode step (``models.transformer`` takes such an
+    iterable as its blocks) runs the fp32 model of the first ``n`` layers
+    while the card holds one fp32 layer (a full MoE model in fp32 would not
+    fit). Each layer is used before the next overwrites it: the stack runs
+    its layers in turn on one stream."""
+
+    def __init__(self, blocks, n: int):
+        import torch
+
+        self.blocks, self.n = blocks, n
+        self.buf = tree_map(blocks, lambda t: torch.empty(
+            t.shape[1:], dtype=torch.float32, device=t.device))
+
+    def __iter__(self):
+        def fill(dst, src, i):
+            for k, t in dst.items():
+                if isinstance(t, dict):
+                    fill(t, src[k], i)
+                else:
+                    t.copy_(src[k][i])
+        for i in range(self.n):
+            fill(self.buf, self.blocks, i)
+            yield self.buf
+
+
+class MoERecorder:
+    """Stands in for ``models.transformer.moe`` (the module the blocks call)
+    and, while ``runs`` is a list, records per MoE call, on the device, the
+    replicas the call's dispatch drops and each token's sorted experts
+    (``moe.route`` of the call's input: one dispatch chunk, which every
+    call of the phases is, at most 65,536 tokens); anything else is the
+    module's."""
+
+    def __init__(self, real):
+        self.real, self.runs = real, None
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def moe_ffn(self, x, p, cfg, **kw):
+        if self.runs is not None:
+            r = self.real.route(x.reshape(-1, x.shape[-1]), p["router"],
+                                cfg.top_k)
+            self.runs.append(((r.counts - r.cap).clamp(min=0).sum(),
+                              r.eidx.sort(-1).values))
+        return self.real.moe_ffn(x, p, cfg, **kw)
+
+    def record(self, fn):
+        """(fn's result, the dropped replicas of each of its MoE calls)."""
+        self.runs = []
+        try:
+            out = fn()
+        finally:
+            calls, self.runs = self.runs, None
+        return out, [int(d) for d, _ in calls], [e for _, e in calls]
+
+
+class Probe(NamedTuple):
+    """A decode-against-forward check: prefill the first ``split``
+    positions of ``seq`` (a one-row prompt batch: tokens, or embeddings
+    with their positions), feed the rest one decode step at a time, and
+    hold the logits of positions split - 1 .. S - 1 against one forward
+    over all S, in the first ``layers`` layers (all where None); ``note``
+    ends its report lines."""
+    seq: dict
+    split: int
+    layers: Optional[int] = None
+    note: str = ""
+
+
+def lm_path_checks(tag, prm, c, probes, two, feed, kernels, plain_swaps, *,
+                   depths, rel_depth=None, ctx=None, fp32_layers=None,
+                   recorder=None) -> None:
+    """Phases 9-12's end-to-end checks of a bf16 model with weights
+    ``prm``:
+
+    - decode against the forward, for each :class:`Probe` of ``probes``;
     - the kernel path against the plain path (``plain_swaps`` installed):
-      a prefill of ``prompts[:2]`` and ``teacher_steps`` decode steps of the
-      same tokens;
+      a prefill of the two-row batch ``two`` and one decode step for each
+      batch of ``feed``;
 
     each with the weights upcast to fp32 (the same function without bf16
-    rounding) at LM_FP32_TOL, and in bf16 within SSM_BF16_DRIFT_RATIO times
-    its counterpart's distance from the fp32 run, decode against the
-    forward also cut to the first ``depths`` layers (and at ``rel_depth``
-    layers within LM_BF16_REL of the logits' range). Every path checks the
-    launches of ``kernels`` (:func:`check_launches`). Raises on any check
+    rounding) at LM_FP32_TOL, in the first ``fp32_layers`` layers (all
+    where None), and in bf16 within SSM_BF16_DRIFT_RATIO times its
+    counterpart's distance from the fp32 run, decode against the forward
+    also cut to the first ``depths`` layers (and at ``rel_depth`` layers
+    within LM_BF16_REL of the logits' range). The fp32 runs deeper than
+    ``fp32_layers`` (the bf16 checks' counterparts) take the layers upcast
+    one at a time (:class:`Upcast`). Every path checks the launches of
+    ``kernels`` (:func:`check_launches`). With a :class:`MoERecorder`
+    installed as ``recorder``, every run's drops are logged, and the bf16
+    kernel and plain paths' expert choices compared. Raises on any check
     past its limit."""
-    import numpy as np
     import torch
 
     from repro_torch.models import transformer as tf
 
     kw = {} if ctx is None else {"seq_len_cache": ctx}
+    nl = c.n_layers
+    d32 = fp32_layers or nl
+    routes = {}
 
     def counts():
         return {k: fn.launches for k, (fn, _) in kernels.items()}
 
-    def decode_path(p, cc):
-        before = counts()
-        last, cache = tf.prefill(p, cc, {"tokens": toks[:, :split]}, **kw)
-        out = [last]
-        for t in range(split, toks.shape[1]):
-            last, cache = tf.decode_step(p, cc, {"tokens": toks[:, t]},
-                                         cache)
-            out.append(last)
-        check_launches(f"{tag} decode path", kernels, before, cc,
-                       toks.shape[1] - split)
-        return torch.cat(out)
+    def recorded(name, cc, fn):
+        if recorder is None:
+            return fn()
+        out, drops, experts = recorder.record(fn)
+        routes[name] = experts
+        log({f"lm_{tag}_moe_run": name, "layers": cc.n_layers,
+             "dtype": cc.dtype, "calls": len(drops),
+             "dropped": sum(drops), "dropped_by_call": drops})
+        return out
 
-    def forward_path(p, cc):
-        full, _ = tf.forward(p, cc, {"tokens": toks})
-        return full[0, split - 1:]
+    def decode_path(pr, p, cc):
+        seq_len = next(iter(pr.seq.values())).shape[1]
+
+        def run():
+            before = counts()
+            last, cache = tf.prefill(p, cc, prefix(pr.seq, pr.split), **kw)
+            out = [last]
+            for t in range(pr.split, seq_len):
+                last, cache = tf.decode_step(p, cc, at(pr.seq, t), cache)
+                out.append(last)
+            check_launches(f"{tag} decode path", kernels, before, cc,
+                           seq_len - pr.split)
+            return torch.cat(out)
+        return recorded(f"decode path {seq_len} {cc.n_layers} {cc.dtype}",
+                        cc, run)
+
+    def forward_path(pr, p, cc):
+        def run():
+            full, _ = tf.forward(p, cc, pr.seq)
+            return full[0, pr.split - 1:]
+        return recorded(f"forward {full_len(pr)} {cc.n_layers} {cc.dtype}",
+                        cc, run)
+
+    def full_len(pr):
+        return next(iter(pr.seq.values())).shape[1]
 
     def teacher_paths(p, cc):
-        gen = np.random.default_rng(1)
-        two = torch.from_numpy(np.stack(prompts[:2])).to(DEVICE)
-        feed = torch.from_numpy(gen.integers(
-            0, cc.vocab, (teacher_steps, 2)).astype(np.int32)).to(DEVICE)
         runs = {}
         for path in ("kernel", "plain"):
-            before = counts()
-            old = swap_in(plain_swaps if path == "plain" else ())
-            try:
-                logits, cache = tf.prefill(p, cc, {"tokens": two}, **kw)
-                out = [logits]
-                for t in range(teacher_steps):
-                    logits, cache = tf.decode_step(
-                        p, cc, {"tokens": feed[t]}, cache)
-                    out.append(logits)
-                runs[path] = torch.stack(out)
-            finally:
-                swap_in(old)
-            check_launches(f"{tag} {path} path", kernels, before, cc,
-                           teacher_steps, plain=path == "plain")
+            def run():
+                before = counts()
+                old = swap_in(plain_swaps if path == "plain" else ())
+                try:
+                    logits, cache = tf.prefill(p, cc, two, **kw)
+                    out = [logits]
+                    for step in feed:
+                        logits, cache = tf.decode_step(p, cc, step, cache)
+                        out.append(logits)
+                finally:
+                    swap_in(old)
+                check_launches(f"{tag} {path} path", kernels, before, cc,
+                               len(feed), plain=path == "plain")
+                return torch.stack(out)
+            runs[path] = recorded(f"{path} path {cc.n_layers} {cc.dtype}",
+                                  cc, run)
         return runs
 
     def first(p, cc, n):
@@ -1166,51 +1353,90 @@ def lm_path_checks(tag, prm, c, toks, prompts, kernels, plain_swaps, *,
                 dataclasses.replace(cc, n_layers=n))
 
     c32 = dataclasses.replace(c, dtype="float32")
-    p32 = tree_map(prm, lambda t: t.float())
+    top32 = {k: v.float() for k, v in prm.items() if k != "blocks"}
+    held = {"p32": {**top32, "blocks": tree_map(
+        prm["blocks"], lambda t: t[:d32].float())}}
+    fwd32 = {}
+
+    def fp32_at(n):
+        """The fp32 model of the first n layers: views of the upcast
+        weights while they are held, else the layers upcast in turn."""
+        if held["p32"] is not None and n <= d32:
+            return first(held["p32"], c32, n)
+        held["p32"] = None
+        torch.cuda.empty_cache()
+        return ({**top32, "blocks": Upcast(prm["blocks"], n)},
+                dataclasses.replace(c32, n_layers=n))
+
+    def forward32(i, n):
+        if (i, n) not in fwd32:
+            fwd32[i, n] = forward_path(probes[i], *fp32_at(n))
+        return fwd32[i, n]
+
+    def layers_name(n):
+        return "" if n == nl else f", {n} layers"
+
     atol32, rtol32 = LM_FP32_TOL
-    fwd32 = forward_path(p32, c32)
-    teach32 = teacher_paths(p32, c32)
-    report = {
-        "decode_vs_forward[fp32]": [
+    teach32 = teacher_paths(*fp32_at(d32))
+    report = {f"kernel_vs_plain[fp32{layers_name(d32)}]": [
+        (e, atol32 + rtol32 * r)
+        for e, r in step_errs(teach32["kernel"], teach32["plain"])]}
+    for i, pr in enumerate(probes):
+        n32 = min(d32, pr.layers or nl)
+        report[f"decode_vs_forward[fp32{layers_name(n32)}{pr.note}]"] = [
             (e, atol32 + rtol32 * r)
-            for e, r in step_errs(decode_path(p32, c32), fwd32)],
-        "kernel_vs_plain[fp32]": [
-            (e, atol32 + rtol32 * r)
-            for e, r in step_errs(teach32["kernel"], teach32["plain"])]}
+            for e, r in step_errs(decode_path(pr, *fp32_at(n32)),
+                                  forward32(i, n32))]
     # bf16 against depth: the decode path against the forward, each limit
     # SSM_BF16_DRIFT_RATIO times the forward's largest distance to its fp32
     # run of the same layers
-    for n in tuple(depths) + (c.n_layers,):
-        f32 = fwd32 if n == c.n_layers else forward_path(*first(p32, c32, n))
-        f16 = forward_path(*first(prm, c, n))
-        d16 = decode_path(*first(prm, c, n))
-        gap = step_errs(d16, f16)
-        drift = max(e for e, _ in step_errs(f16, f32))
-        rng = float(f32.abs().max())
-        name = "" if n == c.n_layers else f", {n} layers"
-        report[f"decode_vs_forward[bf16{name}]"] = [
-            (e, SSM_BF16_DRIFT_RATIO * drift) for e, _ in gap]
-        if n == rel_depth:
-            report[f"decode_vs_forward[bf16{name}, share of range]"] = [
-                (e, LM_BF16_REL * r) for e, r in gap]
-        log({f"lm_{tag}_bf16_depth": n, "logits_range": rng,
-             "gap_max": max(e for e, _ in gap), "gap_first": gap[0][0],
-             "forward_drift": drift,
-             "decode_drift": max(e for e, _ in step_errs(d16, f32)),
-             "gap_share_of_range": max(e for e, _ in gap) / rng,
-             "drift_share_of_range": drift / rng,
-             "gap_over_drift": max(e for e, _ in gap) / drift})
-        del f16, d16
-    del p32
+    for i, pr in enumerate(probes):
+        top = pr.layers or nl
+        for n in tuple(d for d in depths if d < top) + (top,):
+            f32 = forward32(i, n)
+            f16 = forward_path(pr, *first(prm, c, n))
+            d16 = decode_path(pr, *first(prm, c, n))
+            gap = step_errs(d16, f16)
+            drift = max(e for e, _ in step_errs(f16, f32))
+            rng = float(f32.abs().max())
+            name = layers_name(n) + pr.note
+            report[f"decode_vs_forward[bf16{name}]"] = [
+                (e, SSM_BF16_DRIFT_RATIO * drift) for e, _ in gap]
+            if n == rel_depth:
+                report[f"decode_vs_forward[bf16{name}, share of range]"] = [
+                    (e, LM_BF16_REL * r) for e, r in gap]
+            log({f"lm_{tag}_bf16_depth": n, "tokens": full_len(pr),
+                 "split": pr.split, "logits_range": rng,
+                 "gap_max": max(e for e, _ in gap), "gap_first": gap[0][0],
+                 "forward_drift": drift,
+                 "decode_drift": max(e for e, _ in step_errs(d16, f32)),
+                 "gap_share_of_range": max(e for e, _ in gap) / rng,
+                 "drift_share_of_range": drift / rng,
+                 "gap_over_drift": max(e for e, _ in gap) / drift})
+            del f16, d16
+    fwd32.clear()
+    teach32_full = teach32 if d32 == nl else teacher_paths(*fp32_at(nl))
+    held["p32"] = None
     torch.cuda.empty_cache()
     teach16 = teacher_paths(prm, c)
-    drift = max(e for e, _ in step_errs(teach16["plain"], teach32["plain"]))
+    drift = max(e for e, _ in step_errs(teach16["plain"],
+                                        teach32_full["plain"]))
     report["kernel_vs_plain[bf16]"] = [
         (e, SSM_BF16_DRIFT_RATIO * drift)
         for e, _ in step_errs(teach16["kernel"], teach16["plain"])]
-    log({f"lm_{tag}_bf16_teacher": "kernel_vs_plain", "plain_drift": drift,
-         "kernel_drift": max(e for e, _ in step_errs(teach16["kernel"],
-                                                teach32["kernel"]))})
+    line = {f"lm_{tag}_bf16_teacher": "kernel_vs_plain", "plain_drift": drift,
+            "kernel_drift": max(e for e, _ in step_errs(
+                teach16["kernel"], teach32_full["kernel"]))}
+    if recorder is not None:
+        # (token, layer) routes on which the two bf16 paths chose other
+        # experts: a near-tie in a router flips on a rounding
+        ks = routes[f"kernel path {nl} {c.dtype}"]
+        ps = routes[f"plain path {nl} {c.dtype}"]
+        differ = sum(int((a != b).any(-1).sum()) for a, b in zip(ks, ps))
+        total = sum(a.shape[0] for a in ks)
+        line.update(routes=total, routes_differ=differ,
+                    routes_differ_share=differ / total)
+    log(line)
     failed = []
     for what, errs_ in report.items():
         log({f"lm_{tag}_check": what, "steps": len(errs_) - 1,
@@ -1224,6 +1450,22 @@ def lm_path_checks(tag, prm, c, toks, prompts, kernels, plain_swaps, *,
     if failed:
         raise RuntimeError("\n".join(failed))
     torch.cuda.empty_cache()
+
+
+def token_inputs(prompts, vocab: int, steps: int) -> tuple:
+    """lm_path_checks' inputs for a token model: ``prompts[0]`` as a
+    one-row prompt batch, ``prompts[:2]`` as the two-row prefill and
+    ``steps`` teacher-forced decode steps of seeded tokens (numpy seed
+    1)."""
+    import numpy as np
+    import torch
+
+    gen = np.random.default_rng(1)
+    feed = torch.from_numpy(gen.integers(0, vocab, (steps, 2)).astype(
+        np.int32)).to(DEVICE)
+    return ({"tokens": torch.from_numpy(prompts[0]).to(DEVICE)[None]},
+            {"tokens": torch.from_numpy(np.stack(prompts[:2])).to(DEVICE)},
+            [{"tokens": f} for f in feed])
 
 
 def ssm_phase(kssd, counters) -> tuple:
@@ -1359,11 +1601,11 @@ def ssm_phase(kssd, counters) -> tuple:
     # ------ decode against the full forward, the kernel path against plain
     del server
     torch.cuda.empty_cache()
+    seq, two, feed = token_inputs(prompts, cfg.vocab, SSM_TEACHER_STEPS)
     lm_path_checks(
-        "ssm", params, cfg, torch.from_numpy(prompts[0]).to(DEVICE)[None],
-        prompts, {"ssd_scan": (kssd.ssd_scan, "prefill")},
+        "ssm", params, cfg, [Probe(seq, SSM_FORWARD_PROMPT)], two, feed,
+        {"ssd_scan": (kssd.ssd_scan, "prefill")},
         [(mssm, "kssd", types.SimpleNamespace(ssd_scan=kssd.ssd_scan_plain))],
-        split=SSM_FORWARD_PROMPT, teacher_steps=SSM_TEACHER_STEPS,
         depths=SSM_DEPTHS, rel_depth=SSM_REL_DEPTH)
     return {"ssd_scan": result}, launches
 
@@ -1391,7 +1633,7 @@ def write_phase(idx, wins, pts, counters, read_path):
     delta of 3072 records, patched on the published snapshot
     (``device+delta``) for every window relation and for kNN; each batch
     equal to the same batch on a synchronous republish at the same epoch
-    (a second facade over the same host tree) and, on 64 windows, to the
+    (a second facade over the same host tree) and, on 32 windows, to the
     fp64 host path. Returns the path's launches and the republish's ms."""
     import numpy as np
     import torch
@@ -1525,8 +1767,8 @@ def async_phase(idx, wins, counters, read_path, sync_ms):
     builds on the side; a delete of a record the pending snapshot holds and
     an insert land mid-build, right after the first in-flight batch. The
     first and last in-flight batches and the first after the swap equal
-    the fp64 host path on 64 windows at their epochs (the first's host
-    answer is taken before the stream: a host batch of 64 windows outlasts
+    the fp64 host path on 32 windows at their epochs (the first's host
+    answer is taken before the stream: a host batch of 32 windows outlasts
     the build)."""
     import numpy as np
     import torch
@@ -1545,7 +1787,7 @@ def async_phase(idx, wins, counters, read_path, sync_ms):
     pubs0 = idx.stats()["snapshot_publishes"]
 
     def host():
-        """The fp64 host path on 64 windows, through the host index itself:
+        """The fp64 host path on 32 windows, through the host index itself:
         a facade query would poll (and start) the async build."""
         with idx._lock:
             return [np.sort(idx.glin.query(w, "intersects"))
@@ -1820,7 +2062,7 @@ def sharded_phase(idx, wins, wins_hi, pts, counters, read_path):
     eight). The path: window batches for every relation, the 1e-3 ladder
     batch and kNN at k = 10 and 100, planned ``sharded``. Each equal to the
     primary facade's ``device`` batch and (windows) to the fp64 host path
-    on 64 windows (16 where :data:`SHARD_HOST_FULL` does not name the
+    on 32 windows (16 where :data:`SHARD_HOST_FULL` does not name the
     relation, and of the ladder). Outside the path's counts, the compact
     kernel on one (shard, model) position of the main batch and one of the
     ladder batch against its plain version on that shard's tables, and the
@@ -1909,7 +2151,7 @@ def sharded_phase(idx, wins, wins_hi, pts, counters, read_path):
     launches = read_path("sharded", kernels)
 
     # the checks at the same epoch: the primary facade's device batches (its
-    # own kernels, not counted) and the host path on 64 windows
+    # own kernels, not counted) and the host path on 32 windows
     t0 = time.perf_counter()
     for rel, batch, got in checks:
         dev_res = idx.query(QueryBatch.window(batch, rel, backend="device"))
@@ -2242,6 +2484,104 @@ def band_pairs(s: int, window: int) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
+def att_bound(got, want) -> tuple:
+    """(max abs error, worst share of the bound, whether every element
+    passes): an element passes within ATT_TOL of its dtype (strictly, as
+    before) or, for bf16, within one bf16 step of |want|."""
+    import torch
+
+    d = (got.float() - want.float()).abs()
+    tol = ATT_TOL[str(want.dtype).split(".")[1]]
+    ok, lim = d < tol, torch.full_like(d, tol)
+    if want.dtype == torch.bfloat16:
+        w = want.float().abs().clamp(min=2.0 ** -126)
+        step = torch.exp2(torch.floor(torch.log2(w)) - BF16_MANTISSA_BITS)
+        ok |= d <= step
+        lim = torch.maximum(lim, step)
+    return float(d.max()), float((d / lim).max()), bool(ok.all())
+
+
+def attention_check(katt, label, name, case, args, win) -> dict:
+    """``katt.<name>`` (``flash_attention`` or ``decode_attention``)
+    against its plain version on ``args`` (a layer's captured inputs) at
+    window ``win``, within :func:`att_bound` (raises past it); a bf16 case
+    also
+    timed by queued events beside the plain version and SDPA on the same
+    inputs, with the least time the card could take (the q/k/v bytes, or
+    the causal or windowed band's products at the bf16 rate; for decode the
+    live slots' K/V). Logs and returns the line ``name[label case]``."""
+    import torch
+    import torch.nn.functional as F
+
+    kern = getattr(katt, name)
+    plain = getattr(katt, name + "_plain")
+    got_, want_ = kern(*args, win), plain(*args, win)
+    err, share, ok = att_bound(got_, want_)
+    tol = ATT_TOL[str(args[0].dtype).split(".")[1]]
+    line = {"name": f"{name}[{label} {case}]",
+            "shape": {"q": list(args[0].shape), "k": list(args[1].shape)},
+            "window": win, "max_abs_err": err, "tolerance": tol,
+            "worst_share_of_bound": share,
+            "plain_max_abs": float(want_.float().abs().max())}
+    if not ok:
+        raise RuntimeError(f"{name}[{label} {case}]: max abs err {err} "
+                           f"from the plain version, past its bound "
+                           f"({line})")
+    if args[0].dtype != torch.bfloat16:
+        log(line)
+        return line
+    q, k, v = args[:3]
+    if name == "flash_attention":
+        b_, hq, s_, d_ = q.shape
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        ops = 4 * b_ * hq * d_ * band_pairs(s_, win)
+        qi = torch.arange(s_, device=q.device)
+        band = None if win <= 0 or s_ <= win else (
+            (qi[:, None] >= qi[None, :]) & (qi[:, None] - qi[None, :] < win))
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, is_causal=band is None,
+                enable_gqa=True)
+        line["plan"] = katt.flash_plan(b_, k.shape[1], hq // k.shape[1],
+                                       s_, d_, q.dtype)
+        call = ("torch.nn.functional.scaled_dot_product_attention ("
+                + ("is_causal" if band is None
+                   else "boolean causal window band") + ", enable_gqa)")
+    else:
+        b_, hq, d_ = q.shape
+        apos, p_ = args[3], args[4]
+        valid = (apos >= 0) & (apos <= p_[:, None])
+        if win > 0:
+            valid &= p_[:, None] - apos < win
+        live = int(valid.sum())
+        hkv = k.shape[1]
+        nbytes = (2 * live * hkv * d_ * 2 + 2 * 2 * q.numel()
+                  + apos.numel() * 4 + p_.numel() * 4)
+        ops = 4 * live * hq * d_
+        mask = valid[:, None, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask,
+                enable_gqa=True)[:, :, 0]
+        line.update(live_slots=live, plan=katt.decode_plan(b_, k.shape[1]))
+        call = ("torch.nn.functional.scaled_dot_product_attention "
+                "(boolean mask from abs_pos/pos"
+                + (" and the window" if win > 0 else "") + ", enable_gqa)")
+    line.update({
+        "kernel_ms": queued_ms(lambda: kern(*args, win), 50),
+        "event_ms": cuda_ms(lambda: kern(*args, win), 25),
+        "plain_ms": queued_ms(lambda: plain(*args, win), 20),
+        "library_ms": queued_ms(lib, 50),
+        "library_event_ms": cuda_ms(lib, 25),
+        "library_call": call,
+        "library_max_abs_err": max_err(lib(), want_),
+        **bound(nbytes, ops, BF16_OPS_PER_S)})
+    log(line)
+    return line
+
+
 def hybrid_phase(katt, kssd, counters) -> tuple:
     """10. Hybrid serving on the port: ``hymba_1p5b`` at full width in bf16
     behind ``SlotServer``, then the three kernels against their plain
@@ -2352,82 +2692,16 @@ def hybrid_phase(katt, kssd, counters) -> tuple:
         raise RuntimeError("hybrid: the long prompt's window did not slide "
                            "or its ring did not wrap")
 
-    def fp32(args):
-        return tuple(t.float() if t.is_floating_point() else t for t in args)
-
     att_cases = [("flash_attention", "bf16", cap["flash"]),
-                 ("flash_attention", "fp32", fp32(cap["flash"])),
+                 ("flash_attention", "fp32", fp32_args(cap["flash"])),
                  ("flash_attention", f"bf16 S {long.shape[1] + meta}",
                   cap["flash_w"]),
                  ("decode_attention", "bf16", cap["decode"]),
-                 ("decode_attention", "fp32", fp32(cap["decode"])),
+                 ("decode_attention", "fp32", fp32_args(cap["decode"])),
                  ("decode_attention", "bf16 wrapped", cap["decode_w"])]
     results = {}
     for name, case, args in att_cases:
-        kern = getattr(katt, name)
-        plain = getattr(katt, name + "_plain")
-        got_, want_ = kern(*args, win), plain(*args, win)
-        err = max_err(got_, want_)
-        tol = ATT_TOL[str(args[0].dtype).split(".")[1]]
-        line = {"name": f"{name}[hymba {case}]",
-                "shape": {"q": list(args[0].shape), "k": list(args[1].shape)},
-                "window": win, "max_abs_err": err, "tolerance": tol}
-        if not err < tol:
-            raise RuntimeError(f"{name}[hymba {case}]: max abs err {err} "
-                               f"from the plain version, tolerance {tol}")
-        if case.startswith("fp32"):
-            log(line)
-            continue
-        q, k, v = args[:3]
-        if name == "flash_attention":
-            b_, hq, s_, d_ = q.shape
-            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-            ops = 4 * b_ * hq * d_ * band_pairs(s_, win)
-            qi = torch.arange(s_, device=DEVICE)
-            band = None if s_ <= win else (qi[:, None] >= qi[None, :]) & (
-                qi[:, None] - qi[None, :] < win)
-
-            def lib(q=q, k=k, v=v, band=band):
-                return F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=band, is_causal=band is None,
-                    enable_gqa=True)
-            line["plan"] = katt.flash_plan(b_, k.shape[1], hq // k.shape[1],
-                                           s_, d_, q.dtype)
-            call = ("torch.nn.functional.scaled_dot_product_attention ("
-                    + ("is_causal: the window does not bind"
-                       if band is None else "boolean causal window band")
-                    + ", enable_gqa)")
-        else:
-            b_, hq, d_ = q.shape
-            apos, p_ = args[3], args[4]
-            valid = (apos >= 0) & (apos <= p_[:, None]) & (
-                p_[:, None] - apos < win)
-            live = int(valid.sum())
-            hkv = k.shape[1]
-            nbytes = (2 * live * hkv * d_ * 2 + 2 * 2 * q.numel()
-                      + apos.numel() * 4 + p_.numel() * 4)
-            ops = 4 * live * hq * d_
-            mask = valid[:, None, None, :]
-
-            def lib(q=q, k=k, v=v, mask=mask):
-                return F.scaled_dot_product_attention(
-                    q[:, :, None], k, v, attn_mask=mask,
-                    enable_gqa=True)[:, :, 0]
-            line.update(live_slots=live,
-                        plan=katt.decode_plan(b_, k.shape[1]))
-            call = ("torch.nn.functional.scaled_dot_product_attention "
-                    "(boolean mask from abs_pos/pos and the window, "
-                    "enable_gqa)")
-        line.update({
-            "kernel_ms": queued_ms(lambda: kern(*args, win), 50),
-            "event_ms": cuda_ms(lambda: kern(*args, win), 25),
-            "plain_ms": queued_ms(lambda: plain(*args, win), 20),
-            "library_ms": queued_ms(lib, 50),
-            "library_event_ms": cuda_ms(lib, 25),
-            "library_call": call,
-            "library_max_abs_err": max_err(lib(), want_),
-            **bound(nbytes, ops, BF16_OPS_PER_S)})
-        log(line)
+        line = attention_check(katt, "hymba", name, case, args, win)
         if case == "bf16":
             results[name] = line
 
@@ -2467,9 +2741,9 @@ def hybrid_phase(katt, kssd, counters) -> tuple:
     # ----- decode against the full forward, the kernel path against plain
     del server
     torch.cuda.empty_cache()
+    seq, two, feed = token_inputs(prompts, cfg.vocab, HYBRID_TEACHER_STEPS)
     lm_path_checks(
-        "hybrid", params, cfg,
-        torch.from_numpy(prompts[0]).to(DEVICE)[None], prompts,
+        "hybrid", params, cfg, [Probe(seq, HYBRID_FORWARD_PROMPT)], two, feed,
         {"flash_attention": (katt.flash_attention, "prefill"),
          "decode_attention": (katt.decode_attention, "decode"),
          "ssd_scan": (kssd.ssd_scan, "prefill")},
@@ -2477,10 +2751,473 @@ def hybrid_phase(katt, kssd, counters) -> tuple:
             flash_attention=katt.flash_attention_plain,
             decode_attention=katt.decode_attention_plain)),
          (mssm, "kssd", types.SimpleNamespace(ssd_scan=kssd.ssd_scan_plain))],
-        split=HYBRID_FORWARD_PROMPT, teacher_steps=HYBRID_TEACHER_STEPS,
         depths=HYBRID_DEPTHS, ctx=HYBRID_CTX)
     log({"lm_hybrid_phase_s": time.perf_counter() - t_phase})
     torch.cuda.empty_cache()
+    return results, launches
+
+
+def grab_attention(katt, fn) -> dict:
+    """Run ``fn`` with a stand-in for ``models.attention.katt`` that keeps
+    a copy of the first flash and the first decode launch's tensors (layer
+    0's q, k, v[, abs_pos, pos], in the layouts the model hands in) and
+    passes every launch on to the kernels."""
+    import torch
+
+    from repro_torch.models import attention as mattn
+
+    cap = {}
+
+    def wrap(name):
+        def wrapper(*args):
+            cap.setdefault(name, tuple(t.clone() for t in args
+                                       if isinstance(t, torch.Tensor)))
+            return getattr(katt, name)(*args)
+        return wrapper
+
+    old = swap_in([(mattn, "katt", types.SimpleNamespace(
+        flash_attention=wrap("flash_attention"),
+        decode_attention=wrap("decode_attention")))])
+    try:
+        fn()
+    finally:
+        swap_in(old)
+    return cap
+
+
+def fp32_args(args):
+    import torch
+
+    return tuple(t.float() if torch.is_floating_point(t) else t
+                 for t in args)
+
+
+def moe_layer_check(moe, x, p, cfg, arch) -> dict:
+    """One layer's ``moe_ffn`` (bf16) on ``x`` (a real prefill's normed
+    input) against a plain fp32 oracle: the router's fp32 probabilities
+    (the same product on the same card), the top-k by a stable sort on the
+    host (the lower expert first on a tie), gates renormalised, each
+    expert keeping its first ``cap`` replicas in (token, slot) order, and
+    per expert the fp32 FFN of its kept tokens (its bf16 weights upcast)
+    times their gates, summed per token. The port's experts and kept
+    replicas must be the oracle's, and its output within MOE_ORACLE_REL of
+    the oracle's largest magnitude. Returns the line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    t, k, e = xf.shape[0], cfg.top_k, cfg.n_experts
+    y = moe.moe_ffn(x, p, cfg).reshape(t, d)
+    r = moe.route(xf, p["router"], k)
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1).cpu().numpy()
+    eidx = np.argsort(-probs, axis=-1, kind="stable")[:, :k]
+    gates = np.take_along_axis(probs, eidx, -1)
+    gates = gates / np.maximum(gates.sum(-1, keepdims=True), 1e-9)
+    cap = moe.capacity(t, k, e)
+    load = np.zeros(e, np.int64)
+    keep = np.zeros((t, k), bool)
+    for tok in range(t):
+        for j in range(k):
+            keep[tok, j] = load[eidx[tok, j]] < cap
+            load[eidx[tok, j]] += 1
+    same = (np.array_equal(r.eidx.cpu().numpy(), eidx)
+            and np.array_equal(r.keep.view(t, k).cpu().numpy(), keep)
+            and np.array_equal(r.counts.cpu().numpy(), load))
+    want = torch.zeros(t, d, dtype=torch.float32, device=x.device)
+    x32 = xf.float()
+    g32 = torch.from_numpy(gates.astype(np.float32)).to(x.device)
+    for ex in range(e):
+        tok, slot = np.nonzero((eidx == ex) & keep)
+        if not len(tok):
+            continue
+        ti = torch.from_numpy(tok).to(x.device)
+        xe = x32[ti]
+        if cfg.mlp_gated:
+            h = F.silu(xe @ p["wg"][ex].float()) * (xe @ p["wu"][ex].float())
+        else:
+            h = F.gelu(xe @ p["wu"][ex].float(), approximate="tanh")
+        g = g32[ti, torch.from_numpy(slot).to(x.device)]
+        want.index_add_(0, ti, (h @ p["wd"][ex].float()) * g[:, None])
+    err, mag = max_err(y, want), float(want.abs().max())
+    line = {"moe_layer_check": arch, "tokens": t, "top_k": k, "experts": e,
+            "capacity": cap, "replicas": t * k, "kept": int(keep.sum()),
+            "dropped": int((~keep).sum()), "max_load": int(load.max()),
+            "routing_equal": same, "max_abs_err": err, "oracle_max_abs": mag,
+            "limit": MOE_ORACLE_REL * mag,
+            "zero_rows": int((~keep.any(-1)).sum()),
+            "moe_ffn_ms": queued_ms(lambda: moe.moe_ffn(x, p, cfg), 10)}
+    log(line)
+    if not (same and err <= MOE_ORACLE_REL * mag
+            and bool(torch.isfinite(y.float()).all())):
+        raise RuntimeError(f"{arch}: moe_ffn off its fp32 oracle: {line}")
+    return line
+
+
+def moe_model(arch, katt, counters) -> tuple:
+    """Phase 11 for one MoE config: returns ({label: {kernel: bf16 line}},
+    {kernel: launches of the serving run})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import SlotServer
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    t_model = time.perf_counter()
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    server = SlotServer(cfg, params, MOE_SLOTS, MOE_CTX, DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    log({"lm_moe_model": {
+        "arch": arch, "layers": cfg.n_layers,
+        "published_layers": full.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "window": cfg.window,
+        "qk_norm": cfg.qk_norm, "experts": cfg.n_experts,
+        "top_k": cfg.top_k, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "dtype": cfg.dtype, "params": n_params,
+        "param_count": cfg.param_count(),
+        "active_param_count": cfg.active_param_count(),
+        "weight_bytes": sum(t.numel() * t.element_size()
+                            for t in leaves(params)),
+        "cache_bytes": sum(t.numel() * t.element_size()
+                           for t in leaves(server.cache)),
+        "init_peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "init_s": time.perf_counter() - t0}})
+    if n_params != cfg.param_count():
+        raise RuntimeError(f"{arch}: the parameter tree holds {n_params}, "
+                           f"param_count() {cfg.param_count()}")
+
+    # ------------------------------------------------ serve the requests
+    moe.stats.reset()
+    run = serve(server, cfg, counters, MOE_REQUESTS, MOE_PROMPT, MOE_CTX)
+    got = {k: fn.launches for k, fn in counters.items()}
+    log({"path": f"lm moe serving {arch}", "launches": got})
+    steps = len(run.step_ms)
+    want = {"flash_attention": cfg.n_layers * MOE_REQUESTS,
+            "decode_attention": cfg.n_layers * steps}
+    launches = {k: got[k] for k in want}
+    if launches != want or any(n for k, n in got.items() if k not in want):
+        raise RuntimeError(f"{arch} serving: launches {got}, expected "
+                           f"{want} and nothing else")
+    line = serving_line(run, MOE_SLOTS, MOE_CTX, MOE_PROMPT, base_mem,
+                        launches)
+    stats = moe.stats.read()
+    if stats["calls"] != cfg.n_layers * (MOE_REQUESTS + steps):
+        raise RuntimeError(f"{arch} serving: {stats['calls']} MoE calls")
+    log({"lm_moe_serving": {"arch": arch, **line, "moe": stats}})
+    prof_wall, dev, n_kernels = profiled(lambda: server.step(run.cur),
+                                         reps=4)
+    busy = sum(dev.values())
+    log({"lm_moe_decode_profile": {
+        "arch": arch, "steps": 4, "wall_ms_per_step": prof_wall,
+        "device_ms_per_step": busy, "device_kernels_per_step": n_kernels,
+        "device_busy_share": busy / prof_wall if dev else None,
+        "top_kernels": dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8])}})
+
+    # ---- layer 0's inputs of a real prefill and decode step: the two
+    # attention kernels against their plain versions, the MoE layer
+    # against its fp32 oracle; for mixtral also a 4,608-token prefill (the
+    # 4,096 window binds) and its decode step (the ring wraps)
+    grabbed = {}
+
+    def grab_moe(x, p, c, **kw):
+        grabbed.setdefault("prefill" if x.shape[1] > 1 else "decode",
+                           (x.clone(), p))
+        return moe.moe_ffn(x, p, c, **kw)
+
+    def real():
+        server.admit(0, run.prompts[0], 1)
+        server.step(run.cur)
+
+    old = swap_in([(tf, "moe", types.SimpleNamespace(moe_ffn=grab_moe))])
+    try:
+        cap = grab_attention(katt, real)
+    finally:
+        swap_in(old)
+    cases = [("flash_attention", "bf16", cap["flash_attention"]),
+             ("flash_attention", "fp32", fp32_args(cap["flash_attention"])),
+             ("decode_attention", "bf16", cap["decode_attention"]),
+             ("decode_attention", "fp32",
+              fp32_args(cap["decode_attention"]))]
+    if 0 < cfg.window < MOE_WINDOW_PROMPT:
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab, (1, MOE_WINDOW_PROMPT)).astype(np.int32)).to(
+                DEVICE)
+
+        def long():
+            _, cache_w = tf.prefill(params, cfg, {"tokens": toks},
+                                    seq_len_cache=MOE_WINDOW_PROMPT)
+            tf.decode_step(params, cfg, {"tokens": toks[:, -1]}, cache_w)
+
+        cap_w = grab_attention(katt, long)
+        ap, pos = cap_w["decode_attention"][3:5]
+        if not (cap_w["flash_attention"][0].shape[2] == MOE_WINDOW_PROMPT
+                and ap.shape[1] == cfg.window
+                and int(pos.min()) > cfg.window):
+            raise RuntimeError(f"{arch}: the long prompt's window did not "
+                               "bind or its ring did not wrap")
+        cases += [("flash_attention", f"bf16 S {MOE_WINDOW_PROMPT}",
+                   cap_w["flash_attention"]),
+                  ("decode_attention", "bf16 wrapped",
+                   cap_w["decode_attention"])]
+        del cap_w
+    results = {}
+    for name, case, args in cases:
+        line = attention_check(katt, arch, name, case, args, cfg.window)
+        if case == "bf16":
+            results.setdefault(arch, {})[name] = line
+        elif case.startswith("bf16"):
+            results.setdefault(f"{arch} window", {})[name] = line
+    del cap, cases
+    x, p = grabbed["prefill"]
+    moe_layer_check(moe, x, p, cfg, arch)
+    xd, pd = grabbed["decode"]
+    t_dec = xd.shape[0] * xd.shape[1]
+    log({"moe_ffn_decode": arch, "tokens": t_dec,
+         "replicas": t_dec * cfg.top_k,
+         "rows_computed": cfg.n_experts * moe.capacity(
+             t_dec, cfg.top_k, cfg.n_experts),
+         "moe_ffn_ms": queued_ms(lambda: moe.moe_ffn(xd, pd, cfg), 20)})
+    del grabbed, x, p, xd, pd
+
+    # ----- decode against the full forward, the kernel path against plain
+    del server
+    torch.cuda.empty_cache()
+    seq, two, feed = token_inputs(run.prompts, cfg.vocab, MOE_TEACHER_STEPS)
+    rec = MoERecorder(moe)
+    old = swap_in([(tf, "moe", rec)])
+    try:
+        # the first layer where the forward over the prompt, or the
+        # prefill of its first MOE_FORWARD_PROMPT tokens, drops a replica
+        _, fwd_drops, _ = rec.record(lambda: tf.forward(
+            params, cfg, seq, logits_last_only=True))
+        _, pre_drops, _ = rec.record(lambda: tf.prefill(
+            params, cfg, prefix(seq, MOE_FORWARD_PROMPT),
+            seq_len_cache=MOE_CTX))
+        dropping = [i for i, (a, b) in enumerate(zip(fwd_drops, pre_drops))
+                    if a or b]
+        forward_layers = dropping[0] if dropping else cfg.n_layers
+        log({"lm_moe_forward_drops": {
+            "arch": arch, "forward_by_layer": fwd_drops,
+            "prefill_by_layer": pre_drops,
+            "forward_layers": forward_layers}})
+        # the prompt's check in the layers before the first that drops; if
+        # any drops, also the first MOE_SHORT_PROMPT tokens at full depth,
+        # where the capacity (at least 128) holds every replica
+        probes = []
+        if forward_layers:
+            probes.append(Probe(
+                seq, MOE_FORWARD_PROMPT, forward_layers,
+                "" if forward_layers == cfg.n_layers else
+                f" (layer {forward_layers} drops replicas)"))
+        if forward_layers < cfg.n_layers:
+            probes.append(Probe(
+                prefix(seq, MOE_SHORT_PROMPT), MOE_SHORT_PROMPT // 2,
+                note=f", {MOE_SHORT_PROMPT} tokens (no drop possible)"))
+        lm_path_checks(
+            arch, params, cfg, probes, two, feed,
+            {"flash_attention": (katt.flash_attention, "prefill"),
+             "decode_attention": (katt.decode_attention, "decode")},
+            [(mattn, "katt", types.SimpleNamespace(
+                flash_attention=katt.flash_attention_plain,
+                decode_attention=katt.decode_attention_plain))],
+            depths=MOE_DEPTHS, ctx=MOE_CTX, fp32_layers=MOE_FP32_LAYERS,
+            recorder=rec)
+    finally:
+        swap_in(old)
+    del params
+    torch.cuda.empty_cache()
+    log({"lm_moe_model_s": time.perf_counter() - t_model, "arch": arch})
+    return results, launches
+
+
+def moe_phase(katt, counters) -> tuple:
+    """11. MoE serving on the port: each of MOE_ARCHS at its published
+    widths with every expert, cut to MOE_LAYERS layers, in bf16 behind
+    ``SlotServer``, then its checks (:func:`moe_model`); each model freed
+    before the next is built. Returns ({label: {kernel: bf16 line}},
+    {arch: {kernel: launches of its serving run}})."""
+    results, launches = {}, {}
+    for arch in MOE_ARCHS:
+        res, launches[arch] = moe_model(arch, katt, counters)
+        results.update(res)
+    return results, launches
+
+
+def patch_grid(b: int, s: int, grid: int):
+    """(B, 3, S) int32 M-RoPE positions: a grid x grid patch grid first (t
+    0, h the row, w the column), then each position's index in all three
+    streams."""
+    import numpy as np
+
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, 3, s)).copy()
+    n = grid * grid
+    pos[:, 0, :n] = 0
+    pos[:, 1, :n] = np.arange(n) // grid
+    pos[:, 2, :n] = np.arange(n) % grid
+    return pos
+
+
+def stub_model(arch, katt, counters) -> tuple:
+    """Phase 12 for one stub-frontend config: returns ({arch: {kernel: bf16
+    line}}, {kernel: launches of its run})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import transformer as tf
+
+    t_model = time.perf_counter()
+    cfg = get_arch(arch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    total = STUB_PROMPT + STUB_STEPS
+    ctx = total + 4                 # room for 4 profiled steps past them
+    log({"lm_stub_model": {
+        "arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+        "mrope": cfg.mrope, "mrope_sections": list(cfg.mrope_sections),
+        "mlp_gated": cfg.mlp_gated, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "dtype": cfg.dtype, "params": n_params,
+        "param_count": cfg.param_count(),
+        "weight_bytes": sum(t.numel() * t.element_size()
+                            for t in leaves(params)),
+        "init_s": time.perf_counter() - t0}})
+    if n_params != cfg.param_count():
+        raise RuntimeError(f"{arch}: the parameter tree holds {n_params}, "
+                           f"param_count() {cfg.param_count()}")
+    rng = np.random.default_rng(0)
+    batch = {"embeds": torch.from_numpy(rng.standard_normal(
+        (STUB_ROWS, total, cfg.d_model)).astype(np.float32)).to(DEVICE)}
+    if cfg.mrope:
+        batch["positions"] = torch.from_numpy(
+            patch_grid(STUB_ROWS, total, STUB_GRID)).to(DEVICE)
+
+    # --------------------- a prefill of every row, then the decode steps
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t_run = time.perf_counter()
+    a, b = events()
+    a.record()
+    logits, cache = tf.prefill(params, cfg, prefix(batch, STUB_PROMPT),
+                               seq_len_cache=ctx)
+    b.record()
+    b.synchronize()
+    prefill_ms = a.elapsed_time(b)
+    step_ms = []
+    for t in range(STUB_PROMPT, total):
+        a, b = events()
+        a.record()
+        logits, cache = tf.decode_step(params, cfg, at(batch, t), cache)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    wall = time.perf_counter() - t_run
+    got = {k: fn.launches for k, fn in counters.items()}
+    launches = {"flash_attention": got["flash_attention"],
+                "decode_attention": got["decode_attention"]}
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * STUB_STEPS}
+    log({"path": f"lm stub {arch}", "launches": got})
+    if launches != want or any(n for k, n in got.items() if k not in want):
+        raise RuntimeError(f"{arch}: launches {got}, expected {want} and "
+                           "nothing else")
+    if tuple(logits.shape) != (STUB_ROWS, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError(f"{arch}: logits {tuple(logits.shape)} or not "
+                           "finite")
+    log({"lm_stub_run": {
+        "arch": arch, "rows": STUB_ROWS, "prompt": STUB_PROMPT,
+        "decode_steps": STUB_STEPS, "prefill_ms": prefill_ms,
+        "decode_step_ms_median": statistics.median(step_ms),
+        "decode_step_ms_min": min(step_ms),
+        "tokens_per_s": STUB_ROWS * STUB_STEPS / (sum(step_ms) / 1e3),
+        "wall_s": wall, "max_position": int(cache["attn"]["pos"].max()),
+        "cache_bytes": sum(t.numel() * t.element_size()
+                           for t in leaves(cache)),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "memory_before_model_bytes": base_mem, "launches": launches}})
+    step = at(batch, total - 1)
+    prof_wall, dev, n_kernels = profiled(
+        lambda: tf.decode_step(params, cfg, step, cache), reps=3)
+    busy = sum(dev.values())
+    log({"lm_stub_decode_profile": {
+        "arch": arch, "steps": 3, "wall_ms_per_step": prof_wall,
+        "device_ms_per_step": busy, "device_kernels_per_step": n_kernels,
+        "device_busy_share": busy / prof_wall if dev else None,
+        "top_kernels": dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8])}})
+    del cache
+
+    # ------ layer 0's inputs of the same prefill and its first decode step
+    def real():
+        _, c_ = tf.prefill(params, cfg, prefix(batch, STUB_PROMPT),
+                           seq_len_cache=ctx)
+        tf.decode_step(params, cfg, at(batch, STUB_PROMPT), c_)
+
+    cap = grab_attention(katt, real)
+    results = {}
+    for name in ("flash_attention", "decode_attention"):
+        for case, args in (("bf16", cap[name]), ("fp32", fp32_args(cap[name]))):
+            line = attention_check(katt, arch, name, case, args, cfg.window)
+            if case == "bf16":
+                results.setdefault(arch, {})[name] = line
+    del cap
+
+    # ----- decode against the full forward, the kernel path against plain
+    # (the first row's prompt; the first two rows and their next embeddings)
+    seq = {k: v[:1, ..., :STUB_PROMPT] if k == "positions"
+           else v[:1, :STUB_PROMPT] for k, v in batch.items()}
+    two = {k: v[:2, ..., :STUB_PROMPT] if k == "positions"
+           else v[:2, :STUB_PROMPT] for k, v in batch.items()}
+    feed = [{"embeds": batch["embeds"][:2, STUB_PROMPT + t]}
+            for t in range(STUB_TEACHER_STEPS)]
+    lm_path_checks(
+        arch, params, cfg, [Probe(seq, STUB_FORWARD_PROMPT)], two, feed,
+        {"flash_attention": (katt.flash_attention, "prefill"),
+         "decode_attention": (katt.decode_attention, "decode")},
+        [(mattn, "katt", types.SimpleNamespace(
+            flash_attention=katt.flash_attention_plain,
+            decode_attention=katt.decode_attention_plain))],
+        depths=(), ctx=ctx)
+    del params, batch
+    torch.cuda.empty_cache()
+    log({"lm_stub_model_s": time.perf_counter() - t_model, "arch": arch})
+    return results, launches
+
+
+def stub_phase(katt, counters) -> tuple:
+    """12. The stub-frontend models on the port: each of STUB_ARCHS at full
+    width and depth in bf16, through ``prefill`` / ``decode_step`` with
+    embeddings (:func:`stub_model`). Returns ({arch: {kernel: bf16
+    line}}, {arch: {kernel: launches of its run}})."""
+    results, launches = {}, {}
+    for arch in STUB_ARCHS:
+        res, launches[arch] = stub_model(arch, katt, counters)
+        results.update(res)
     return results, launches
 
 
@@ -2533,6 +3270,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---------------------------------------------------------- 2. build
+    mark("2")
     t0 = time.perf_counter()
     _build.load()
     log({"build_s": time.perf_counter() - t0,
@@ -2545,6 +3283,7 @@ def main() -> int:
             log("ptxas: " + line.strip())
 
     # ---------------------------------------------------------- 3. store
+    mark("3")
     t0 = time.perf_counter()
     gs = generate("mixed", N_RECORDS, seed=0)
     fp32_exact(gs)
@@ -2585,6 +3324,7 @@ def main() -> int:
     w = torch.from_numpy(wins.astype(np.float32)).to(DEVICE)
 
     # ------------------------------------------- 4. kernels vs plain versions
+    mark("4")
     results = {}
     lm, rm = snap.slot_lmbr, snap.slot_rmbr
 
@@ -2963,6 +3703,7 @@ def main() -> int:
     del got, want, wa, ba
 
     # -------------------------------------------- 5. the window path
+    mark("5")
     counters = {"refine_count": kr.refine_count,
                 "refine_compact": kr.refine_compact,
                 "refine_fused": kr.refine_fused,
@@ -3020,7 +3761,7 @@ def main() -> int:
     for rel_name in FACADE_RELATIONS:
         # a complement returns nearly every live record per window: its id
         # lists are O(N) each, so it runs on the host-checked windows only
-        batch = wins[:HOST_CHECK] if rel_name == "disjoint" else wins
+        batch = wins[:DISJOINT_WINDOWS] if rel_name == "disjoint" else wins
         n0 = kr.refine_fused.launches
         main = run(idx, "fused", batch, rel_name)
         if not (main.plan.backend == "device" and main.plan.fused
@@ -3114,6 +3855,7 @@ def main() -> int:
     launches = read_path("window", window_kernels)
 
     # -------------------------------------------------------- 6. the kNN path
+    mark("6")
     pts = ((wins[:, :2] + wins[:, 2:]) / 2).astype(np.float32).astype(
         np.float64)
     by_sort = SpatialIndex(idx.glin, EngineConfig(knn_topk="sort"),
@@ -3236,14 +3978,17 @@ def main() -> int:
     del grabbed
 
     # ------------------------------------------------ 5b. the baselines
+    mark("5b")
     # (the fused kernel's launches of 5b and 5c add to its count)
     for kn, n in baselines_phase(idx, wins, counters, read_path).items():
         launches[kn] += n
     # ------------------------------------------------ 5c. the examples
+    mark("5c")
     for kn, n in examples_phase(counters, read_path).items():
         launches[kn] += n
 
     # ------------------------------------- 6a-6c. writes, async swap, serving
+    mark("6a-6c")
     # each path's launches of B1, B2 and B3 add to theirs in the last line
     # (and 6d's of B1 and B3)
     write_launches, sync_ms = write_phase(idx, wins, pts, counters,
@@ -3256,11 +4001,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 6d. the sharded backend
+    mark("6d")
     for kn, n in sharded_phase(idx, wins, wins_hi, pts, counters,
                                read_path).items():
         launches[kn] += n
 
     # ------------------------------------------------ 7. the ops entry point
+    mark("7")
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -3314,23 +4061,39 @@ def main() -> int:
                               keep=("morton_encode", "refine_mask")))
 
     # ------------------------------------------------------ 8. LM serving
+    mark("8")
     torch.cuda.empty_cache()
     lm_results, lm_launches = lm_phase(katt, counters)
     results.update(lm_results)
     launches.update(lm_launches)
 
     # ------------------------------------------------------ 9. SSM serving
+    mark("9")
     ssm_results, ssm_launches = ssm_phase(kssd, counters)
     results.update(ssm_results)
     launches.update(ssm_launches)
 
     # ------------------------------------------------ 10. hybrid serving
     torch.cuda.empty_cache()
+    mark("10")
     hybrid_results, hybrid_launches = hybrid_phase(katt, kssd, counters)
     for kn, n in hybrid_launches.items():
         launches[kn] += n
 
-    # ------------------------------------------------------------ 11. report
+    # ------------------------------- 11. MoE serving, 12. stub frontends
+    # (their launches of B7 and B8 add to phases 8-10's)
+    mark("11")
+    moe_results, moe_launches = moe_phase(katt, counters)
+    mark("12")
+    stub_results, stub_launches = stub_phase(katt, counters)
+    family_results = {**moe_results, **stub_results}
+    family_launches = {**moe_launches, **stub_launches}
+    for per_model in family_launches.values():
+        for kn, n in per_model.items():
+            launches[kn] += n
+
+    # ------------------------------------------------------------ 13. report
+    mark("13")
     entries = []
     for k in counters:
         r_ = results[k]
@@ -3350,7 +4113,17 @@ def main() -> int:
                 **{key: h_[key] for key in (
                     "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms")}}
+        for label, lines in family_results.items():
+            if k in lines:          # the same kernel at a family's shapes
+                f_ = lines[k]
+                entry[label] = {
+                    "launches": family_launches.get(label, {}).get(k),
+                    "shape": f_["shape"], "window": f_["window"],
+                    **{key: f_[key] for key in (
+                        "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}}
         entries.append(entry)
+    log({"script_s": time.perf_counter() - T0})
     log(card_line())
     log({"kernels": entries})
     log({"ok": True, "device": {"platform": "gpu",

@@ -3,10 +3,9 @@ variant and ``get_arch``.
 
 The port's own copy of the reference's ``configs/base.py`` (which the port
 must not import): the dataclass is the same field for field, so a config
-means the same thing in both packages. ``get_arch`` knows only the dense,
-SSM and hybrid configurations this port serves; the other architectures of the
-reference's pool raise ``NotImplementedError`` naming the slice that brings
-their family.
+means the same thing in both packages. ``get_arch`` serves every language
+model of the reference's pool: the dense, MoE, SSM, hybrid, vision-language
+and audio families.
 """
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ import dataclasses
 import importlib
 from typing import Tuple
 
-__all__ = ["ArchConfig", "ARCH_IDS", "UNPORTED", "get_arch"]
+__all__ = ["ArchConfig", "ARCH_IDS", "get_arch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,23 +139,15 @@ class ArchConfig:
         )
 
 
-# the configurations this port serves (modules of this package)
+# the configurations this port serves (modules of this package): the
+# reference's language models (its pool's other entry, ``glin``, is the
+# spatial index, not a model)
 ARCH_IDS = ["granite_3_2b", "phi4_mini_3p8b", "codeqwen1p5_7b", "granite_34b",
-            "mamba2_2p7b", "hymba_1p5b"]
-
-# the reference's other architectures, with the slice that ports their family
-_LATER = "a later slice (ROADMAP A10)"
-UNPORTED = {
-    "mixtral_8x22b": f"family 'moe' comes with {_LATER}",
-    "qwen3_moe_235b": f"family 'moe' (with qk_norm) comes with {_LATER}",
-    "qwen2_vl_2b": f"family 'vlm' (M-RoPE, embed_stub frontend) comes with {_LATER}",
-    "musicgen_medium": f"family 'audio' (embed_stub frontend) comes with {_LATER}",
-}
+            "mamba2_2p7b", "hymba_1p5b", "mixtral_8x22b", "qwen3_moe_235b",
+            "qwen2_vl_2b", "musicgen_medium"]
 
 
 def get_arch(arch_id: str) -> ArchConfig:
-    if arch_id in UNPORTED:
-        raise NotImplementedError(f"{arch_id}: {UNPORTED[arch_id]}")
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r}; this port serves "
                        f"{ARCH_IDS}")

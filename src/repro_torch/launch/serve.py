@@ -7,9 +7,13 @@ ring, an SSM's conv window and state) spliced into a free slot
 (per-sequence positions keep the slots independent); finished sequences
 free their slot; reports the first prefill's time and tokens/s. ``--arch``
 picks a dense config (through the ``flash_attention`` and
-``decode_attention`` kernels), ``mamba2_2p7b`` (through ``ssd_scan``) or
-the hybrid ``hymba_1p5b`` (all three; its cache holds both the KV ring
-and the SSM state, its prompts follow its meta tokens). It
+``decode_attention`` kernels), a MoE one (``mixtral_8x22b``,
+``qwen3_moe_235b``: the same kernels, the MoE FFN in torch),
+``mamba2_2p7b`` (through ``ssd_scan``) or the hybrid ``hymba_1p5b`` (all
+three; its cache holds both the KV ring and the SSM state, its prompts
+follow its meta tokens). The server takes tokens only, as the
+reference's: an ``embed_stub`` architecture (``qwen2_vl_2b``,
+``musicgen_medium``) is refused. It
 runs on the card (``--device cuda``, the default), or on the CPU with
 ``--device cpu`` (the kernels' plain versions).
 
@@ -43,11 +47,21 @@ from ..models import transformer as tf
 __all__ = ["SlotServer", "main"]
 
 
+def _check_tokens_in(cfg) -> None:
+    if cfg.frontend != "text":
+        raise ValueError(f"{cfg.name}: its {cfg.frontend} frontend takes "
+                         "embeddings, and the slot server takes tokens only "
+                         "(drive models.transformer.prefill / decode_step "
+                         "with {'embeds': ...})")
+
+
 class SlotServer:
-    """Fixed-slot continuous batching around prefill / decode_step."""
+    """Fixed-slot continuous batching around prefill / decode_step, over
+    token models (a text frontend)."""
 
     def __init__(self, cfg, params, slots: int, max_ctx: int,
                  device="cuda"):
+        _check_tokens_in(cfg)
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -164,6 +178,7 @@ def main_lm(args) -> int:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    _check_tokens_in(cfg)
     device = torch.device(args.device)
     rng = np.random.default_rng(args.seed)
     params = tf.init_params(cfg, args.seed, device=device)

@@ -1,6 +1,8 @@
-"""Attention for the dense family: GQA / MQA / MHA with RoPE, causal or
-sliding-window.
+"""Attention: GQA / MQA / MHA with RoPE or M-RoPE (Qwen2-VL's three
+position streams), optional QK-norm (Qwen3), causal or sliding-window.
 
+* :func:`rot_tables`       — the rotary tables of a forward's or a decode
+  step's positions, built once and shared by q, k and every layer.
 * :func:`attention_full`   — the whole sequence (prefill and the full
   forward), computed by the ``flash_attention`` kernel.
 * :func:`attention_decode` — one token against the layer's ring KV cache,
@@ -21,26 +23,44 @@ from typing import Dict, Tuple
 import torch
 
 from ..kernels import attention as katt
-from .layers import apply_rot, dense
+from .layers import apply_rot, dense, mrope_tables, rms_norm, rope_tables
 
-__all__ = ["attention_full", "attention_decode", "cache_window",
+__all__ = ["rot_tables", "attention_full", "attention_decode", "cache_window",
            "init_decode_cache"]
 
 
+def rot_tables(cfg, positions):
+    """(cos, sin) of ``positions`` for every layer's q and k: M-RoPE's over
+    (B, 3, S) streams where ``cfg.mrope`` — a (B, S) stream, such as a text
+    prompt's or a decode step's ``pos[:, None]``, taken as t = h = w, as the
+    reference does — else RoPE's over (B, S) or (S,)."""
+    if not cfg.mrope:
+        return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    if positions.dim() == 2:
+        b, s = positions.shape
+        positions = positions[:, None, :].expand(b, 3, s)
+    return mrope_tables(positions, cfg.head_dim, cfg.mrope_sections,
+                        cfg.rope_theta)
+
+
 def _project_qkv(x, p, cfg, rot):
-    """q, k, v (B,S,H,Dh); ``rot``: ``layers.rope_tables`` of the tokens'
-    positions."""
+    """q, k, v (B,S,H,Dh): with ``cfg.qk_norm``, q and k RMS-normed over the
+    head dim by the layer's ``qn`` / ``kn`` first; then rotated by ``rot``
+    (:func:`rot_tables` of the tokens' positions)."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = dense(x, p["wq"]).view(b, s, hq, dh)
     k = dense(x, p["wk"]).view(b, s, hkv, dh)
     v = dense(x, p["wv"]).view(b, s, hkv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["qn"])
+        k = rms_norm(k, p["kn"])
     return apply_rot(q, *rot), apply_rot(k, *rot), v
 
 
 def attention_full(x, p, cfg, rot
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x (B,S,d), ``rot`` the positions' rope tables -> (output (B,S,d),
+    """x (B,S,d), ``rot`` the positions' rotary tables -> (output (B,S,d),
     {k, v (B,S,Hkv,Dh)}, the rope'd K/V).
 
     The probabilities stay fp32 through P.V (the reference's XLA path casts
@@ -61,7 +81,8 @@ def cache_window(cfg, seq_len: int) -> int:
 def attention_decode(x, p, cfg, cache, rot) -> torch.Tensor:
     """x (B,1,d); cache: the layer's {k, v (B,W,Hkv,Dh), abs_pos (B,W)
     absolute position of each slot (-1 = empty), pos (B,) absolute position
-    of the new token}, updated in place; ``rot`` the rope tables of ``pos``.
+    of the new token}, updated in place; ``rot`` the rotary tables of
+    ``pos``.
     Returns the output (B,1,d)."""
     b = x.shape[0]
     pos = cache["pos"]

@@ -5,8 +5,8 @@ arrays (stacked leading layer axis, dense weights (in, out)) and returns the
 port's parameter dict. The port keeps the same layout — its ``dense`` is
 ``x @ w`` with ``w`` (in, out) — so no weight is transposed: the carry
 checks the tree against the port's, converts each leaf (bf16 by its bits),
-checks its dtype against the port's leaf (the SSM's fp32 leaves in a bf16
-model) and places it on ``device``.
+checks its dtype against the port's leaf (the SSM's fp32 leaves and the MoE
+router, fp32 in a bf16 model) and places it on ``device``.
 """
 from __future__ import annotations
 

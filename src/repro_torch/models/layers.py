@@ -1,5 +1,6 @@
 """Shared transformer layers in PyTorch: the parameter leaf, RMSNorm, rotary
-embedding and the dense projection, with the reference's rounding points.
+embedding (RoPE and Qwen2-VL's multimodal M-RoPE) and the dense projection,
+with the reference's rounding points.
 
 Weights keep the reference's ``(in, out)`` layout, so :func:`dense` is
 ``x @ w`` and carried weights need no transpose.
@@ -10,7 +11,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-__all__ = ["Leaf", "he_init", "rms_norm", "rope_tables", "apply_rot", "dense"]
+__all__ = ["Leaf", "he_init", "rms_norm", "rope_tables", "mrope_tables",
+           "apply_rot", "dense"]
 
 
 class Leaf(NamedTuple):
@@ -24,11 +26,23 @@ class Leaf(NamedTuple):
 
 
 def he_init(shape, in_axis_size: int, dtype, generator) -> torch.Tensor:
-    """He-normal weights drawn on the generator's device (fp32, then cast)."""
+    """He-normal weights drawn on the generator's device (fp32, scaled, then
+    cast). A stacked leaf (three axes or more, the layer first) is drawn a
+    layer at a time, so the fp32 draw holds one layer, never the whole leaf
+    (a full-width MoE layer's experts are GBs in fp32)."""
     scale = (2.0 / max(1, in_axis_size)) ** 0.5
-    w = torch.randn(shape, generator=generator, device=generator.device,
-                    dtype=torch.float32)
-    return (w * scale).to(dtype)
+
+    def draw(sh):
+        w = torch.randn(sh, generator=generator, device=generator.device,
+                        dtype=torch.float32)
+        return w.mul_(scale).to(dtype)
+
+    if len(shape) < 3:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    for i in range(shape[0]):
+        out[i] = draw(shape[1:])
+    return out
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -69,6 +83,25 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
         positions = positions[None, :]
     cos, sin = _rope_angles(positions, head_dim, theta)
     return cos[:, :, None, :], sin[:, :, None, :]
+
+
+def mrope_tables(positions: torch.Tensor, head_dim: int,
+                 sections: Tuple[int, int, int], theta: float):
+    """The reference's ``mrope`` angles, as :func:`rope_tables` gives
+    ``rope``'s: positions (B, 3, S) are the (t, h, w) streams, and stream i
+    turns its own section of the half dim (the sections sum to head_dim/2)
+    at RoPE's frequencies there -> (cos, sin), each (B, S, 1, head_dim/2)
+    fp32."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim/2 = {half}")
+    j = torch.arange(half, device=positions.device)
+    stream = ((j >= sections[0]).long()
+              + (j >= sections[0] + sections[1]).long())
+    freq = torch.pow(theta, -j.float() / half)
+    ang = positions.float()[:, stream, :].transpose(1, 2) * freq
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,26 @@
 """The decoder stack in PyTorch: parameters, the full forward, prefill and
-the decode step — the reference's ``models/transformer.py`` for the
-``dense`` family (attention + SwiGLU or GELU MLP, tied or untied head), the
-``ssm`` family (the Mamba-2 mixer alone: no attention, no MLP) and the
-``hybrid`` family (Hymba: the attention and SSM mixers side by side on the
-same normed input, their sum over the two paths, then the MLP), with meta
-tokens (learned rows ahead of every prompt, stripped before the head).
+the decode step — the reference's ``models/transformer.py`` for every
+family of its pool:
+
+* ``dense``  — attention + SwiGLU or GELU MLP, tied or untied head;
+* ``moe``    — attention + the sort-dispatch MoE FFN (``models/moe.py``),
+  with QK-norm where the config has it (Qwen3);
+* ``ssm``    — the Mamba-2 mixer alone (no attention, no MLP);
+* ``hybrid`` — Hymba: the attention and SSM mixers side by side on the
+  same normed input, their sum over the two paths, then the MLP; meta
+  tokens (learned rows ahead of every prompt, stripped before the head);
+* ``vlm``    — the dense block with M-RoPE over (t, h, w) position streams,
+  fed the (stubbed) vision frontend's embeddings;
+* ``audio``  — the dense block fed the (stubbed) audio frontend's frame
+  embeddings.
+
+An ``embed_stub`` frontend takes ``batch["embeds"]`` (B, S, d) in place of
+tokens (a decode step: (B, d)), cast to the model's dtype.
 
 Parameters are a dict of tensors shaped as the reference's pytree: per-layer
 weights stacked on a leading layer axis (``params["blocks"]["attn"]["wq"]``
 is (L, d, Hq*Dh)), dense weights (in, out). The stack is a Python loop over
-layer views. The families this port does not serve yet — ``moe``, ``vlm``
-(M-RoPE), ``audio`` (``embed_stub``), ``qk_norm`` — raise
-``NotImplementedError``; training (remat, the loss) waits for a later
-slice.
+layer views. Training (remat, the loss) waits for a later slice.
 """
 from __future__ import annotations
 
@@ -22,8 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from . import attention as attn
+from . import moe
 from . import ssm
-from .layers import Leaf, dense, he_init, rms_norm, rope_tables
+from .layers import Leaf, dense, he_init, rms_norm
 
 __all__ = ["check_supported", "param_shapes", "init_params", "forward", "prefill",
            "decode_step", "init_cache"]
@@ -32,16 +41,26 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
+    """Raise ``NotImplementedError`` for a config whose flags contradict its
+    family (or a family or frontend the reference does not have)."""
     why = None
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        why = f"family {cfg.family!r} comes with a later slice (ROADMAP A10)"
-    elif cfg.is_moe or cfg.qk_norm or cfg.mrope or cfg.frontend != "text":
-        why = ("MoE, qk_norm, M-RoPE and stub frontends come with a later "
-               "slice (ROADMAP A10)")
-    elif cfg.family == "dense" and (not cfg.has_attention or cfg.has_ssm
-                                    or cfg.d_ff <= 0):
-        why = "a dense config needs attention and an MLP, and no SSM"
+    attn_ffn = cfg.has_attention and cfg.d_ff > 0 and not cfg.has_ssm
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio"):
+        why = f"unknown family {cfg.family!r}"
+    elif cfg.frontend not in ("text", "embed_stub"):
+        why = f"unknown frontend {cfg.frontend!r}"
+    elif cfg.family == "moe" and not (attn_ffn and 0 < cfg.top_k
+                                      <= cfg.n_experts):
+        why = ("a moe config needs attention and experts (0 < top_k <= "
+               "n_experts) with a d_ff, and no SSM")
+    elif cfg.family != "moe" and cfg.is_moe:
+        why = "experts belong to the moe family"
+    elif cfg.family in ("dense", "vlm", "audio") and not attn_ffn:
+        why = f"a {cfg.family} config needs attention and an MLP, and no SSM"
+    elif cfg.family in ("vlm", "audio") and cfg.frontend != "embed_stub":
+        why = f"a {cfg.family} config takes the embed_stub frontend"
+    elif cfg.family == "vlm" and not cfg.mrope:
+        why = "a vlm config rotates by M-RoPE"
     elif cfg.family == "ssm" and (cfg.has_attention or not cfg.has_ssm
                                   or cfg.d_ff > 0):
         why = ("an ssm config is the Mamba-2 mixer alone (attention + SSM "
@@ -71,13 +90,20 @@ def param_shapes(cfg) -> Dict[str, Any]:
         blocks["attn"] = {
             "wq": Leaf((nl, d, a), d), "wk": Leaf((nl, d, kv), d),
             "wv": Leaf((nl, d, kv), d), "wo": Leaf((nl, a, d), a)}
+        if cfg.qk_norm:
+            blocks["attn"].update(qn=Leaf((nl, cfg.head_dim)),
+                                  kn=Leaf((nl, cfg.head_dim)))
     if cfg.has_ssm:
         blocks["ssm"] = ssm.ssm_param_shapes(cfg)
     if f > 0:
-        mlp = {"wu": Leaf((nl, d, f), d), "wd": Leaf((nl, f, d), f)}
-        if cfg.mlp_gated:
-            mlp["wg"] = Leaf((nl, d, f), d)
-        blocks.update(ln2=Leaf((nl, d)), mlp=mlp)
+        blocks["ln2"] = Leaf((nl, d))
+        if cfg.is_moe:
+            blocks["moe"] = moe.moe_param_shapes(cfg)
+        else:
+            mlp = {"wu": Leaf((nl, d, f), d), "wd": Leaf((nl, f, d), f)}
+            if cfg.mlp_gated:
+                mlp["wg"] = Leaf((nl, d, f), d)
+            blocks["mlp"] = mlp
     tree: Dict[str, Any] = {"embed": Leaf((v, d), d),
                             "final_norm": Leaf((d,)), "blocks": blocks}
     if not cfg.tie_embeddings:
@@ -90,9 +116,10 @@ def param_shapes(cfg) -> Dict[str, Any]:
 def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random He-normal weights (constants where the leaf has a fill: norm
     scales 1, the SSM's dt_bias 0.5, a_log 0, skip_d 1), drawn by a
-    ``torch.Generator`` on ``device``: a full-width model is never built on
-    the host. Not the reference's numbers (``jax.random`` differs); carry
-    the reference's with ``convert.params_from_reference``."""
+    ``torch.Generator`` on ``device`` (a stacked leaf a layer at a time:
+    ``layers.he_init``): a full-width model is never built on the host.
+    Not the reference's numbers (``jax.random`` differs); carry the
+    reference's with ``convert.params_from_reference``."""
     dtype = dtype_of(cfg)
     g = torch.Generator(device=device).manual_seed(seed)
 
@@ -112,8 +139,13 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
     return make(param_shapes(cfg))
 
 
-def _layers(stacked) -> list:
-    """Per-layer dicts of views into a dict of stacked (L, ...) tensors."""
+def _layers(stacked):
+    """Per-layer dicts of views into a dict of stacked (L, ...) tensors. A
+    ``blocks`` that is not a dict is taken as the layers themselves: an
+    iterable of per-layer dicts (such as one that builds each layer as it
+    is reached)."""
+    if not isinstance(stacked, dict):
+        return stacked
     cols = {k: (_layers(t) if isinstance(t, dict) else t.unbind(0))
             for k, t in stacked.items()}
     n = len(next(iter(cols.values())))
@@ -131,22 +163,32 @@ def _mlp_apply(x, p, cfg):
     return dense(h, p["wd"])
 
 
-# Each block: (x, the layer's params, cfg, rope tables) -> (x, the layer's
+def _ffn(x, pl, cfg):
+    """The block's feed-forward on its normed input: the MoE FFN of a moe
+    config, else the MLP."""
+    if cfg.is_moe:
+        return moe.moe_ffn(x, pl["moe"], cfg)
+    return _mlp_apply(x, pl["mlp"], cfg)
+
+
+# Each block: (x, the layer's params, cfg, rotary tables) -> (x, the layer's
 # cache {"attn": {k, v}} / {"ssm": {conv, state}} / both) for the full
-# sequence; (x, params, cfg, the layer's cache, rope tables) -> x for a
+# sequence; (x, params, cfg, the layer's cache, rotary tables) -> x for a
 # decode step, which updates that cache in place.
 def _block_full(x, pl, cfg, rot):
+    """The dense, moe, vlm and audio families' block: attention, then the
+    MLP or the MoE FFN."""
     a_out, kv = attn.attention_full(rms_norm(x, pl["ln1"]), pl["attn"], cfg,
                                     rot)
     x = x + a_out
-    x = x + _mlp_apply(rms_norm(x, pl["ln2"]), pl["mlp"], cfg)
+    x = x + _ffn(rms_norm(x, pl["ln2"]), pl, cfg)
     return x, {"attn": kv}
 
 
 def _block_decode(x, pl, cfg, cache, rot):
     x = x + attn.attention_decode(rms_norm(x, pl["ln1"]), pl["attn"], cfg,
                                   cache["attn"], rot)
-    return x + _mlp_apply(rms_norm(x, pl["ln2"]), pl["mlp"], cfg)
+    return x + _ffn(rms_norm(x, pl["ln2"]), pl, cfg)
 
 
 def _ssm_block_full(x, pl, cfg, rot):
@@ -204,43 +246,52 @@ def _lm_head(x, params, cfg) -> torch.Tensor:
 # Forward passes
 # ---------------------------------------------------------------------------
 _BLOCKS = {"dense": (_block_full, _block_decode),
+           "moe": (_block_full, _block_decode),
+           "vlm": (_block_full, _block_decode),
+           "audio": (_block_full, _block_decode),
            "ssm": (_ssm_block_full, _ssm_block_decode),
            "hybrid": (_hybrid_block_full, _hybrid_block_decode)}
 
 
 def _embed_inputs(params, cfg, batch):
-    """The token embeddings (B,S,d) and their positions (B,S) int32; with
-    meta tokens, the learned ``meta`` rows ahead of every row's tokens and
-    the positions shifted past them (the meta tokens at 0 .. M-1)."""
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
-    b, s = tokens.shape
+    """The input rows (B,S,d) — the token embeddings, or under an
+    ``embed_stub`` frontend ``batch["embeds"]`` cast to the model's dtype —
+    and their positions: ``batch["positions"]`` ((B,S), or (B,3,S) M-RoPE
+    streams) or 0 .. S-1. With meta tokens, the learned ``meta`` rows ahead
+    of every row and the positions shifted past them (the meta tokens at
+    0 .. M-1 in every stream)."""
+    if cfg.frontend == "embed_stub":
+        x = batch["embeds"].to(dtype_of(cfg))
+    else:
+        x = params["embed"][batch["tokens"].long()]
+    b, s = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(b, s)
+                                 device=x.device)[None].expand(b, s)
     m = cfg.meta_tokens
     if m:
         meta = params["meta"].to(x.dtype)[None].expand(b, m, x.shape[-1])
         x = torch.cat([meta, x], dim=1)
-        mpos = torch.arange(m, dtype=torch.int32,
-                            device=tokens.device)[None].expand(b, m)
-        positions = torch.cat([mpos, positions + m], dim=1)
+        mpos = torch.arange(m, dtype=torch.int32, device=x.device)
+        mpos = mpos.expand(*positions.shape[:-1], m)
+        positions = torch.cat([mpos, positions + m], dim=-1)
     return x, positions
 
 
 def forward(params, cfg, batch, collect_cache: bool = False,
             logits_last_only: bool = False):
     """The full-sequence forward without remat (the reference's
-    ``forward_train(remat=False)``). batch: {tokens (B,S)[, positions]}.
+    ``forward_train(remat=False)``). batch: {tokens (B,S)} or {embeds
+    (B,S,d)} (``embed_stub``), [positions (B,S) or (B,3,S)].
     Returns (fp32 logits (B,S,V) — (B,1,V) with ``logits_last_only`` —,
     the per-layer cache list — {"attn": {k, v}}, {"ssm": {conv, state}}
     or both, over the meta tokens too — or None)."""
     check_supported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     block = _BLOCKS[cfg.family][0]
-    rot = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-           if cfg.has_attention else None)    # attention-free: no rope table
+    rot = (attn.rot_tables(cfg, positions)
+           if cfg.has_attention else None)    # attention-free: no table
     caches = [] if collect_cache else None
     for pl in _layers(params["blocks"]):
         x, kv = block(x, pl, cfg, rot)
@@ -301,18 +352,23 @@ def prefill(params, cfg, batch, seq_len_cache: Optional[int] = None):
 
 
 def decode_step(params, cfg, batch, cache):
-    """One decode step. batch: {tokens (B,)}. Returns (fp32 logits (B,V),
-    cache) — the same cache dict, updated IN PLACE (each layer's new K/V
-    slot, abs_pos and pos; each layer's conv window and SSM state)."""
+    """One decode step. batch: {tokens (B,)} or {embeds (B, d)}
+    (``embed_stub``). Returns (fp32 logits (B,V), cache) — the same cache
+    dict, updated IN PLACE (each layer's new K/V slot, abs_pos and pos;
+    each layer's conv window and SSM state). The new token sits at the
+    cache's ``pos``, in all three streams under M-RoPE."""
     check_supported(cfg)
-    x = params["embed"][batch["tokens"].long()][:, None, :]
+    if cfg.frontend == "embed_stub":
+        x = batch["embeds"][:, None, :].to(dtype_of(cfg))
+    else:
+        x = params["embed"][batch["tokens"].long()][:, None, :]
     block = _BLOCKS[cfg.family][1]
     rot = None
     if cfg.has_attention:
         # every layer's pos is the same (prefill sets them together, each
-        # step advances each by one): one rope table serves the whole stack
+        # step advances each by one): one table serves the whole stack
         pos = cache["attn"]["pos"][0]
-        rot = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        rot = attn.rot_tables(cfg, pos[:, None])
     for pl, lc in zip(_layers(params["blocks"]), _layers(cache)):
         x = block(x, pl, cfg, lc, rot)
     x = rms_norm(x, params["final_norm"])

@@ -2,7 +2,9 @@
 inputs, the facade's kernel paths (window queries and kNN) against its
 host path, the LM's decode through both attention kernels (dense), the
 SSD scan (mamba2_2p7b) or all three (hymba_1p5b) against its full
-forward, and the three LM kernels at hymba_1p5b's shapes.
+forward, the three LM kernels at hymba_1p5b's shapes, and the two attention
+kernels at the MoE and stub-frontend families' shapes, with those models
+(reduced) through the kernels against their plain path.
 
 Every test here is marked ``gpu`` and skips without a card (decided inside
 the ``cuda`` fixture). The file imports only the port, so it needs nothing
@@ -18,6 +20,7 @@ chunk-invariance tolerance, for y and the final state; a bf16 y is two
 roundings of such values, so one bf16 step (2^-7 relative) more.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -36,6 +39,7 @@ from repro_torch.kernels import knn as kk
 from repro_torch.kernels import morton as km
 from repro_torch.kernels import refine as kr
 from repro_torch.kernels import ssd as kssd
+from repro_torch.models import attention as mattn
 from repro_torch.models import transformer as tf
 
 RELATIONS = ("intersects", "contains", "covers", "within", "touches",
@@ -996,3 +1000,120 @@ def test_hybrid_decode_matches_forward_through_kernels(cuda, dtype):
         full, _ = tf.forward(params, cfg, {"tokens": toks[:, :41 + t]})
         torch.testing.assert_close(dec, full[:, -1], atol=max(tol[0], 5e-4),
                                    rtol=max(tol[1], 1e-2))
+
+
+# ------------------------ the MoE and stub-frontend families' shapes --
+# mixtral_8x22b: 48 query heads over 8 kv heads (a group of 6: 10 tokens a
+# flash block, 60 of its 64 rows), head dim 128, a 4,096-token window (a
+# 4,608-token prompt binds it; the decode ring of 4,096 slots wraps);
+# qwen3_moe_235b: 64 over 4 (a group of 16: 4 tokens a flash block, the
+# decode kernel's heads in four passes of 4); qwen2_vl_2b: 12 over 2 (a
+# group of 6); musicgen_medium: 24 over 24 at head dim 64 (a group of 1:
+# the wgmma kernel at 64 tokens a block)
+FAMILY_ATT = {"mixtral": dict(hkv=8, group=6, d=128, window=4096),
+              "qwen3": dict(hkv=4, group=16, d=128, window=0),
+              "qwen2_vl": dict(hkv=2, group=6, d=128, window=0),
+              "musicgen": dict(hkv=24, group=1, d=64, window=0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model,b,s", [
+    ("mixtral", 1, 512), ("mixtral", 1, 4608), ("qwen3", 1, 512),
+    ("qwen3", 2, 130), ("qwen2_vl", 2, 512), ("musicgen", 1, 512),
+    ("musicgen", 2, 77)])
+def test_flash_kernel_at_family_shapes(cuda, dtype, model, b, s):
+    m = FAMILY_ATT[model]
+    hkv, group, d = m["hkv"], m["group"], m["d"]
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn(b, s, hkv * group, d, device=cuda, generator=g).to(dtype)
+    k = torch.randn(b, s, hkv, d, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, s, hkv, d, device=cuda, generator=g).to(dtype)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # the model's views
+    n0 = katt.flash_attention.launches
+    a = katt.flash_attention(qt, kt, vt, m["window"])
+    assert katt.flash_attention.launches == n0 + 1
+    assert katt.flash_plan(b, hkv, group, s, d, dtype)[
+        "tokens_per_block"] == 64 // group
+    assert _att_err(a, katt.flash_attention_plain(
+        qt, kt, vt, m["window"])) < ATT_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model,b,w,fresh", [
+    ("mixtral", 8, 4096, 0), ("mixtral", 1, 4096, 0),
+    ("mixtral", 8, 4096, 512), ("qwen3", 8, 1024, 0),
+    ("qwen3", 8, 1024, 512), ("qwen2_vl", 8, 1024, 0),
+    ("musicgen", 8, 1024, 0), ("musicgen", 8, 1024, 512)])
+def test_decode_kernel_at_family_shapes(cuda, dtype, model, b, w, fresh):
+    """Rings that wrap (positions up to 3 W) and fresh ones at 512 (a
+    512-token prompt)."""
+    m = FAMILY_ATT[model]
+    q, k, v, ap, pos = _decode_inputs(cuda, dtype, b, m["hkv"], m["group"],
+                                      w, m["d"], b * 17 + w + fresh, fresh)
+    n0 = katt.decode_attention.launches
+    a = katt.decode_attention(q, k, v, ap, pos, m["window"])
+    assert katt.decode_attention.launches == n0 + 1
+    assert _att_err(a, katt.decode_attention_plain(
+        q, k, v, ap, pos, m["window"])) < ATT_TOL[dtype]
+
+
+# bf16 for the stub-frontend models only: in bf16 a near-tie in a MoE
+# router can send a token to another expert on one of two paths that
+# differ by a rounding (chip_smoke.py reports that share at full width)
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype", [
+    ("mixtral_8x22b", "float32"), ("qwen3_moe_235b", "float32"),
+    ("qwen2_vl_2b", "float32"), ("musicgen_medium", "float32"),
+    ("qwen2_vl_2b", "bfloat16"), ("musicgen_medium", "bfloat16")])
+def test_family_kernel_path_matches_plain_path(cuda, monkeypatch, arch,
+                                               dtype):
+    """Reduced models on the card (mixtral's window 32 binds past the
+    40-token prompt; qwen2_vl's prompt on a 4 x 4 patch grid of M-RoPE
+    positions first): prefill + 6 decode steps through both attention
+    kernels (one flash launch a layer, one decode launch a layer a step)
+    against the same model with the plain versions in their place, fp32
+    at the CPU tests' tolerances, bf16 logits of magnitude ~5 within
+    0.25."""
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype=dtype)
+    params = tf.init_params(cfg, 3, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    if cfg.frontend == "embed_stub":
+        emb = torch.randn(2, 46, cfg.d_model, device=cuda, generator=g)
+        prompt = {"embeds": emb[:, :40]}
+        steps = [{"embeds": emb[:, 40 + t]} for t in range(6)]
+        if cfg.mrope:
+            pos = torch.arange(40, device=cuda, dtype=torch.int32)
+            pos = pos.expand(2, 3, 40).clone()
+            pos[:, 0, :16] = 0
+            pos[:, 1, :16] = torch.arange(16, device=cuda) // 4
+            pos[:, 2, :16] = torch.arange(16, device=cuda) % 4
+            prompt["positions"] = pos
+    else:
+        toks = torch.randint(0, cfg.vocab, (2, 46), device=cuda, generator=g)
+        prompt = {"tokens": toks[:, :40]}
+        steps = [{"tokens": toks[:, 40 + t]} for t in range(6)]
+
+    def path():
+        n0 = (katt.flash_attention.launches, katt.decode_attention.launches)
+        last, cache = tf.prefill(params, cfg, prompt, seq_len_cache=64)
+        out = [last]
+        for step in steps:
+            last, cache = tf.decode_step(params, cfg, step, cache)
+            out.append(last)
+        return out, (katt.flash_attention.launches - n0[0],
+                     katt.decode_attention.launches - n0[1])
+
+    got, launched = path()
+    assert launched == (cfg.n_layers, 6 * cfg.n_layers)
+    monkeypatch.setattr(mattn, "katt", types.SimpleNamespace(
+        flash_attention=katt.flash_attention_plain,
+        decode_attention=katt.decode_attention_plain))
+    want, launched = path()
+    assert launched == (0, 0)
+    pre, dec = (((2e-4, 1e-3), (5e-4, 1e-2)) if dtype == "float32"
+                else ((0.25, 0.0), (0.25, 0.0)))
+    torch.testing.assert_close(got[0], want[0], atol=pre[0], rtol=pre[1])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, atol=dec[0], rtol=dec[1])

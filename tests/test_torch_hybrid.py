@@ -50,7 +50,6 @@ from repro.launch import serve as rserve  # noqa: E402
 from repro.models import transformer as rtf  # noqa: E402
 from repro.sharding import constrain  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_arch  # noqa: E402
-from repro_torch.configs.base import UNPORTED  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
@@ -219,9 +218,9 @@ def test_serve_cli_runs_hybrid_on_cpu():
 
 
 def test_hymba_is_served_at_full_width():
-    """In ARCH_IDS, out of UNPORTED; the port's parameter tree at full
-    width counts the reference's ``param_count`` (no tensor allocated)."""
-    assert ARCH in ARCH_IDS and ARCH not in UNPORTED
+    """In ARCH_IDS; the port's parameter tree at full width counts the
+    reference's ``param_count`` (no tensor allocated)."""
+    assert ARCH in ARCH_IDS
     cfg = get_arch(ARCH)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rget(ARCH))
 

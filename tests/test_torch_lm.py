@@ -26,8 +26,10 @@ where one bf16 step is 0.4-0.8%); the carry of the SSM tree with its fp32
 leaves; and its ``SlotServer`` and CLI.
 
 Then the port's ``SlotServer`` against the reference's (2 slots, 3 requests
-admitted as slots free up, equal greedy tokens), the CLI on the CPU, the
-architectures the port does not serve yet, and the configs themselves.
+admitted as slots free up, equal greedy tokens), the CLI on the CPU, and the
+configs themselves (every architecture of the reference's pool; the MoE,
+vision-language and audio families are held against the reference in
+``tests/test_torch_families.py``).
 """
 import dataclasses
 import subprocess
@@ -47,7 +49,6 @@ from repro.launch import serve as rserve  # noqa: E402
 from repro.models import transformer as rtf  # noqa: E402
 from repro.sharding import constrain  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_arch  # noqa: E402
-from repro_torch.configs.base import UNPORTED  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
@@ -367,15 +368,6 @@ def test_serve_spatial_mode_is_not_ported(monkeypatch):
         tserve.main(["spatial"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.main(["--n", "100"])   # spatial is the default mode
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_raise(arch):
-    """get_arch names the slice; the model refuses the reference's config."""
-    with pytest.raises(NotImplementedError, match="slice"):
-        get_arch(arch)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tf.init_params(rget(arch).reduced(), device="cpu")
 
 
 def test_unknown_arch_and_foreign_tree_raise():
