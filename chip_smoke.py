@@ -42,13 +42,14 @@ Phases (any failure raises, and the script exits non-zero):
    complement row holds nearly every live record); one fused 1024-window
    batch under ``torch.profiler`` (device busy share, top kernels, host
    ms); an
-   overflow-ladder batch at selectivity 1e-3; ``count_candidates`` (three
+   overflow-ladder batch at selectivity 1e-3 (each batch's first 16
+   windows also against the fp64 host path); ``count_candidates`` (three
    batches, one count launch each, and one under ``torch.profiler``); an
    insert + delete patched on the published snapshot (``device+delta``),
    then a forced ``device`` batch that republishes;
 6. the kNN path through the facade: 1024 points (the windows' centres) at
    k = 10 and 100, the default plan (top-k and compact kernels) against the
-   plain two-key sort and, on 32 points, the fp64 host kNN; then one top-k
+   plain two-key sort and, on 16 points, the fp64 host kNN; then one top-k
    line per (row width, k) the drive launched, with its route, on that
    shape's inputs from one more batch;
 5b. (after 6) the paper's baselines on phase 3's store as the facade holds
@@ -74,7 +75,7 @@ Phases (any failure raises, and the script exits non-zero):
    1024 kNN points at k = 10 through ``device+delta``. Every batch equal to
    the same batch on a synchronous republish at the same epoch (a second
    facade over the same host tree; its wall split into capture, build,
-   upload and payload) and, on 32 windows, to the fp64 host path; kNN ids
+   upload and payload) and, on 16 windows, to the fp64 host path; kNN ids
    and distances equal to the republished device result;
 6b. the async swap: ``async_republish`` set on the index (as the server
    sets it), 1,536 more inserts past ``refresh_threshold``, 1024-window
@@ -83,14 +84,15 @@ Phases (any failure raises, and the script exits non-zero):
    landing mid-build: batches in flight, their median and largest wall
    beside the synchronous republish's, the build's start to the swap; the
    first and last in-flight batches and the first after the swap equal to
-   the host path on 32 windows;
+   the host path on 16 windows;
 6c. serving: ``SpatialQueryServer`` with the reference launcher's settings
    (2 replicas, max_queue 2048, min_batch 8, max_batch 4096, two tenants;
    ``intersects``, ``contains``, ``dwithin:0.003`` over a pool of 65,536
    windows at 1e-4, seed 11; a write fraction of 0.02): a closed loop of
    1024 submissions with interleaved inserts and 64 ``submit_knn`` points,
-   every ticket equal to ``index.query`` at the flush's epoch and 64 (and
-   the kNN points) to the host path; then Poisson arrivals at 2,000 and
+   every ticket equal to ``index.query`` at the flush's epoch and the
+   first 16 (and the kNN points) to the host path; then Poisson arrivals
+   at 2,000 and
    16,000 offered queries/s for 8 s each (offered, submitted and served
    queries/s, shed, p50/p99/max latency from submit to result, the batch
    histogram, backend counts, publishes) and one profiled second (the
@@ -103,16 +105,16 @@ Phases (any failure raises, and the script exits non-zero):
    and 1024 kNN points at k = 10 and 100, each planned ``sharded`` (wall
    ms, dispatches, escalations, merge bytes, launches) and equal to the
    primary facade's ``device`` batch (kNN ids exactly, distances within
-   1e-4 relative) and to the host path on 32 windows for ``intersects``,
-   on 16 for the other relations and the ladder (the fp64 host walk takes
-   ~12 s per 64 windows of an augmented probe at this size);
+   1e-4 relative) and to the host path on 16 windows for every relation
+   and the ladder (the fp64 host walk takes ~12 s per 64 windows of an
+   augmented probe at this size);
    the compact kernel with a shard's walk against its plain version on
    that shard's tables (a position of the main batch, one of the ladder),
    the k-merge's top-k against the plain sort; then 64 inserts (one in
    each of the first 64 windows) and 16 deletes (a hit of each of the
    first 16) through the sharded facade and a 1024-window ``intersects``
    batch served sharded with the delta patched on top, equal to the host
-   path on 32 windows;
+   path on 16 windows;
 7. the kernel-level ``ops`` entry point: the Morton keys of every record
    against the host's, the candidate mask against the candidate counts, and
    the keys, the mask, the counts and the compaction (both in slot-as-leaf
@@ -191,24 +193,60 @@ Phases (any failure raises, and the script exits non-zero):
    kernels against their plain versions at their shapes with times,
    bounds and SDPA; decode against the forward and the kernel path
    against the plain path, fp32 at full depth and bf16;
-13. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
+13. training on the card (``train_phase``), bf16 unless stated:
+   a. ``granite_3_2b`` at full width and depth (2.53 B parameters, seed 0)
+      on ``SyntheticLM(vocab, 4096, 2, seed 0)`` through the launcher's
+      ``Prefetcher``, 12 steps of ``train_step`` (remat on, the launcher's
+      AdamW: lr 3e-4, 2 warm-up steps): each step's loss, grad_norm, lr
+      and ms (AdamW apart), tokens/s (of the median step, of the summed
+      steady steps, of the run's wall), the bytes of parameters, gradients
+      and AdamW state, the peak, one profiled step's busy share and top
+      kernels, the leaves and elements whose bits no step changed;
+      finite losses and norms, the last loss below the first, every leaf
+      that was not a constant at init moved, ``flash_attention``
+      launched twice a layer a step (the forward and the remat recompute)
+      and the plain version only in the backward's query chunks;
+   b. the same model cut to its first 2 layers: the loss and every
+      gradient leaf through the kernels against the plain path (the plain
+      versions swapped in), fp32 gated (the loss within 1e-5 relative,
+      each leaf within 1e-3 of its largest plain gradient), bf16 logged;
+      B7's Function alone on layer 0's captured bf16 q, k, v (forward,
+      backward, both, the plain version, SDPA forward + backward);
+   c. one AdamW step of the fp32 2-layer model by those gradients on the
+      card against the same on the CPU (mu, nu, parameters and grad_norm
+      within 1e-6 relative, lr equal);
+   d. ``save_async`` + ``wait_all`` of the bf16 2-layer model and its
+      AdamW state and ``restore`` onto the card with equal bits; the
+      launcher as a subprocess (``--reduced``, 12 steps, a checkpoint every
+      4): a crash at step 7 exits 42, ``--resume`` ends with LATEST at 12;
+   e. ``mamba2_2p7b`` at full width, its first 8 layers, 4 steps
+      (``ssd_scan`` twice a layer a step, finite losses); B9's forward
+      and backward on layer 0's captured inputs of a 2-layer bf16 run; the
+      2-layer gradient check through the kernel against the plain path,
+      bf16 logged, fp32 gated as in b; then the host time of one call
+      of each autograd Function (B7, B9, the head) with no gradient
+      wanted, beside its launch alone;
+14. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
    their hymba numbers under ``hymba``, the attention kernels' also each
-   phase 11 and 12 model's under its name), and last the ``{"ok": true,
-   ...}`` line.
+   phase 11 and 12 model's under its name, B7's and B9's their training
+   numbers under ``training``), and last the ``{"ok": true, ...}`` line.
 
 Launch counters are zeroed just before each of phases 5, 6, 5b, 5c, 6a, 6b,
-6c, 6d (its two paths), 7, 8's, 9's, 10's and 11's serving runs and 12's
-runs, and read just after (6a's, 6c's and 6d's before the comparisons that
-check them): every kernel of that path must have launched, and a kernel's
-``launches`` in the last line is its count from its path, summed over
-phases 5-6d for ``refine_compact``, ``refine_fused`` and ``knn_topk`` and
-over phases 8-12 for ``flash_attention``, ``decode_attention`` and
-``ssd_scan``. Each phase's start is logged with the seconds since the
-script started (``{"phase": ..., "t_s": ...}``).
+6c, 6d (its two paths), 7, 8's, 9's, 10's and 11's serving runs, 12's runs
+and 13's two training runs, and read just after (6a's, 6c's and 6d's
+before the comparisons that check them): every kernel of that path must
+have launched, and a kernel's ``launches`` in the last line is its count
+from its path, summed over phases 5-6d for ``refine_compact``,
+``refine_fused`` and ``knn_topk`` and over phases 8-12 for
+``flash_attention``, ``decode_attention`` and ``ssd_scan`` (the training
+runs' under ``training``). Each phase's start is logged with the seconds
+since the script started (``{"phase": ..., "t_s": ...}``).
 """
 import collections
 import dataclasses
 import json
+import math
+import os
 import re
 import shutil
 import statistics
@@ -226,7 +264,7 @@ N_WINDOWS = 1024
 SELECTIVITY = 1e-4         # the main batch: ~200 records per window
 LADDER_SELECTIVITY = 1e-3  # ~2000 per window: past the budget, up the ladder
 BUDGET = 256
-HOST_CHECK = 32            # windows held against the fp64 host path
+HOST_CHECK = 16            # windows held against the fp64 host path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor-core rate (dense)
@@ -302,12 +340,6 @@ SERVE_WRITE_FRAC = 0.02   # the launcher's: an 8-vertex ring, radius 2e-4
 SHARD_MESH = (4, 2)       # (data, model): 4 record shards, 2 query columns
 SHARD_INSERTS = 64        # the delta patched on top of the sharded batch
 SHARD_DELETES = 16
-# 6d's host checks: the fp64 host walk takes ~12 s per 64 windows for an
-# augmented probe at 2M records (s19-c), so the phase checks HOST_CHECK
-# windows for intersects (the delta's relation too), and 16 for the other
-# relations and the ladder
-SHARD_HOST_FULL = ("intersects",)
-SHARD_HOST_FEW = 16
 # phase 5b: the paper's baselines on phase 3's store
 BASE_WINDOWS = 64           # of the main windows, through each tree
 BASE_SORTED_WINDOWS = 1     # SortedArray refines its whole augmented run
@@ -371,6 +403,21 @@ STUB_ROWS, STUB_PROMPT, STUB_STEPS = 8, 512, 128
 STUB_GRID = 16               # qwen2_vl: a 16 x 16 patch grid of M-RoPE
 STUB_FORWARD_PROMPT = 384
 STUB_TEACHER_STEPS = 16
+TRAIN_ARCH = "granite_3_2b"
+# the reference's train_4k sequence (configs/base.py), at a batch one card
+# holds with the weights, gradients and AdamW state of 2.5 B parameters
+TRAIN_SEQ, TRAIN_BATCH = 4096, 2
+TRAIN_STEPS, TRAIN_LR = 12, 3e-4     # the launcher's AdamW for 12 steps
+TRAIN_PROFILE_STEP = 10              # the step under torch.profiler
+TRAIN_CHECK_LAYERS = 2               # 13b-13d: the first 2 layers
+TRAIN_LOSS_REL = 1e-5                # kernel path vs plain path, fp32:
+TRAIN_GRAD_REL = 1e-3                # of each leaf's largest plain gradient
+TRAIN_ADAMW_REL = 1e-6               # the card's AdamW step vs the CPU's
+TRAIN_SSM_ARCH = "mamba2_2p7b"
+TRAIN_SSM_LAYERS, TRAIN_SSM_STEPS = 8, 4
+TRAIN_LAUNCH_ARGS = ["--arch", "granite_3_2b", "--reduced", "--steps", "12",
+                     "--ckpt-every", "4"]
+TRAIN_CRASH_AT = 7
 _CU = "src/repro_torch/kernels/csrc/"
 CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
         "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
@@ -771,6 +818,7 @@ def lm_phase(katt, counters) -> tuple:
     from repro_torch.launch.serve import SlotServer
     from repro_torch.models import attention as mattn
     from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import leaves, tree_map
 
     cfg = get_arch(LM_ARCH)
     torch.cuda.synchronize()
@@ -1194,6 +1242,8 @@ class Upcast:
     def __init__(self, blocks, n: int):
         import torch
 
+        from repro_torch.utils.tree import tree_map
+
         self.blocks, self.n = blocks, n
         self.buf = tree_map(blocks, lambda t: torch.empty(
             t.shape[1:], dtype=torch.float32, device=t.device))
@@ -1281,6 +1331,7 @@ def lm_path_checks(tag, prm, c, probes, two, feed, kernels, plain_swaps, *,
     import torch
 
     from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import tree_map
 
     kw = {} if ctx is None else {"seq_len_cache": ctx}
     nl = c.n_layers
@@ -1477,6 +1528,7 @@ def ssm_phase(kssd, counters) -> tuple:
     from repro_torch.launch.serve import SlotServer
     from repro_torch.models import ssm as mssm
     from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import leaves
 
     cfg = get_arch(SSM_ARCH)
     torch.cuda.synchronize()
@@ -2062,12 +2114,11 @@ def sharded_phase(idx, wins, wins_hi, pts, counters, read_path):
     eight). The path: window batches for every relation, the 1e-3 ladder
     batch and kNN at k = 10 and 100, planned ``sharded``. Each equal to the
     primary facade's ``device`` batch and (windows) to the fp64 host path
-    on 32 windows (16 where :data:`SHARD_HOST_FULL` does not name the
-    relation, and of the ladder). Outside the path's counts, the compact
-    kernel on one (shard, model) position of the main batch and one of the
-    ladder batch against its plain version on that shard's tables, and the
-    k-merge's
-    top-k (grabbed from one more kNN batch) against the plain two-key sort.
+    on :data:`HOST_CHECK` windows (the ladder's too). Outside the path's
+    counts, the compact kernel on one (shard, model) position of the main
+    batch and one of the ladder batch against its plain version on that
+    shard's tables, and the k-merge's top-k (grabbed from one more kNN
+    batch) against the plain two-key sort.
     Then a second path: 64 inserts (a triangle in each of the first 64
     windows) and 16 deletes (a hit of each of the first 16) through the
     sharded facade and one ``intersects`` batch served sharded with the
@@ -2173,14 +2224,12 @@ def sharded_phase(idx, wins, wins_hi, pts, counters, read_path):
             err = max(err, float(np.abs(a - b).max()))
         knn_err[k] = err
     t1 = time.perf_counter()
-    host_windows = {}
     for rel, batch, got in checks:
-        n = HOST_CHECK if rel in SHARD_HOST_FULL else SHARD_HOST_FEW
-        host = sf.query(QueryBatch.window(batch[:n], rel, backend="host"))
-        same_ids(got.ids[:n], host.ids, f"{rel}: sharded vs host")
-        host_windows[rel] = n
-    same_ids(ladder.ids[:SHARD_HOST_FEW], sf.query(QueryBatch.window(
-        wins_hi[:SHARD_HOST_FEW], "intersects", backend="host")).ids,
+        host = sf.query(QueryBatch.window(batch[:HOST_CHECK], rel,
+                                          backend="host"))
+        same_ids(got.ids[:HOST_CHECK], host.ids, f"{rel}: sharded vs host")
+    same_ids(ladder.ids[:HOST_CHECK], sf.query(QueryBatch.window(
+        wins_hi[:HOST_CHECK], "intersects", backend="host")).ids,
         "ladder: sharded vs host")
     t2 = time.perf_counter()
 
@@ -2278,8 +2327,7 @@ def sharded_phase(idx, wins, wins_hi, pts, counters, read_path):
     log({"sharded_checks": {
         "relations": len(checks), "device_windows": len(wins),
         "ladder_windows": len(wins_hi),
-        "host_windows_by_relation": host_windows,
-        "ladder_host_windows": SHARD_HOST_FEW,
+        "host_windows": HOST_CHECK,
         "knn_points": len(pts), "knn_max_abs_err_vs_device": knn_err,
         "delta_inserts_hit": sum(int(a in r) for a, r in
                                  zip(added, host.ids)),
@@ -2597,6 +2645,7 @@ def hybrid_phase(katt, kssd, counters) -> tuple:
     from repro_torch.models import attention as mattn
     from repro_torch.models import ssm as mssm
     from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import leaves
 
     t_phase = time.perf_counter()
     cfg = get_arch(HYBRID_ARCH)
@@ -2866,6 +2915,7 @@ def moe_model(arch, katt, counters) -> tuple:
     from repro_torch.models import attention as mattn
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import leaves
 
     t_model = time.perf_counter()
     full = get_arch(arch)
@@ -3079,6 +3129,7 @@ def stub_model(arch, katt, counters) -> tuple:
     from repro_torch.configs import get_arch
     from repro_torch.models import attention as mattn
     from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import leaves
 
     t_model = time.perf_counter()
     cfg = get_arch(arch)
@@ -3221,16 +3272,699 @@ def stub_phase(katt, counters) -> tuple:
     return results, launches
 
 
-def leaves(tree):
-    """Every tensor of a nested dict."""
-    for t in tree.values():
-        yield from leaves(t) if isinstance(t, dict) else (t,)
+# ------------------------------------------------------ 13. training
+def profile_once(fn):
+    """``fn()`` once under ``torch.profiler`` -> (its result, host wall ms,
+    {kernel: device ms}, device kernels); the dict is empty when the
+    profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev, n = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.name] = dev.get(e.name, 0.0) + e.device_time_total / 1e3
+            n += 1
+    return out, wall, dev, n
 
 
-def tree_map(tree, fn):
-    """``fn`` on every tensor of a nested dict."""
-    return {k: tree_map(t, fn) if isinstance(t, dict) else fn(t)
-            for k, t in tree.items()}
+def tree_bytes(tree) -> int:
+    from repro_torch.utils.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def train_adamw(steps: int):
+    """The launcher's AdamW for a run of ``steps``."""
+    from repro_torch.train.optimizer import AdamWConfig
+
+    return AdamWConfig(lr=TRAIN_LR, warmup_steps=max(2, steps // 20),
+                       total_steps=steps)
+
+
+def train_stream(cfg):
+    """13a's stream: ``SyntheticLM(vocab, TRAIN_SEQ, TRAIN_BATCH, seed 0)``."""
+    from repro_torch.data.pipeline import SyntheticLM
+
+    return SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+
+
+def on_card(batch) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def train_run(tag, cfg, steps, counters, kernels, profile_at, must_fall):
+    """Train ``cfg`` (seed 0, bf16) for ``steps`` steps of the launcher's
+    AdamW (lr TRAIN_LR, warm-up max(2, steps // 20), remat on) on
+    :func:`train_stream` through the ``Prefetcher``, as the launcher does;
+    the step at ``profile_at`` under ``torch.profiler``. Logs each step's
+    loss, grad_norm, lr and ms (its AdamW update's apart), the bytes of
+    the parameters, gradients and AdamW state, the peak, tokens/s and the
+    profiled step's busy share and top kernels, and the leaves and
+    elements whose bits no step changed. Gates: finite losses and norms,
+    with ``must_fall`` a last loss below the first, every leaf that was
+    not one constant at init changed in some element, and each of
+    ``kernels`` ({name: launches a layer a step}) launched exactly that
+    often, nothing else; the plain flash version only in the backward's
+    recompute (its query chunks, when attention runs). Returns the run's
+    summary line."""
+    import torch
+
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.kernels import attention as katt
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.tree import leaves, paths
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    opt = topt.adamw_init(params)
+    ocfg = train_adamw(steps)
+    torch.cuda.synchronize()
+    init = [t.to("cpu", copy=True) for t in leaves(params)]
+    sizes = {"param_bytes": tree_bytes(params),
+             "grad_bytes": tree_bytes(params),    # gradients in their dtype
+             "adamw_state_bytes": tree_bytes(opt["mu"]) + tree_bytes(
+                 opt["nu"]) + 4,
+             "params": sum(t.numel() for t in leaves(params))}
+    log({"train_model": {"tag": tag, "arch": cfg.name, "layers":
+                         cfg.n_layers, "d_model": cfg.d_model,
+                         "dtype": cfg.dtype, "batch": TRAIN_BATCH,
+                         "seq": TRAIN_SEQ, "steps": steps, "remat": True,
+                         "lr": TRAIN_LR, "warmup_steps": ocfg.warmup_steps,
+                         **sizes, "init_s": time.perf_counter() - t0}})
+    events = []
+    update = tstep.adamw_update
+
+    def timed_update(*a, **kw):
+        e = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = update(*a, **kw)
+        e[1].record()
+        events.append(e)
+        return out
+
+    plain_calls = [0]
+    plain = katt.flash_attention_plain
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return plain(*a, **kw)
+
+    old = swap_in([(tstep, "adamw_update", timed_update),
+                   (katt, "flash_attention_plain", counted_plain)])
+    prefetch = Prefetcher(train_stream(cfg), transform=on_card)
+    rows, prof = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t_run = time.perf_counter()
+    try:
+        for step, batch in prefetch:
+            if step >= steps:
+                break
+
+            def one():
+                return tstep.train_step(params, opt, batch, cfg, ocfg,
+                                        remat=True)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            if step == profile_at:
+                (params, opt, m), wall, dev, n_k = profile_once(one)
+                prof = {"step": step, "wall_ms": wall,
+                        "device_ms": sum(dev.values()),
+                        "device_kernels": n_k,
+                        "device_busy_share": sum(dev.values()) / wall
+                        if dev else None,
+                        "top_kernels": dict(sorted(
+                            dev.items(), key=lambda kv: -kv[1])[:10])}
+            else:
+                params, opt, m = one()
+            b.record()
+            b.synchronize()
+            ua, ub = events[-1]
+            rows.append({"step": step, "loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "lr": float(m["lr"]), "step_ms": a.elapsed_time(b),
+                         "adamw_ms": ua.elapsed_time(ub)})
+            log({"train_step": {"tag": tag, **rows[-1]}})
+    finally:
+        prefetch.close()
+        swap_in(old)
+    wall = time.perf_counter() - t_run
+    got = {k: fn.launches for k, fn in counters.items()}
+    want = {k: n * cfg.n_layers * steps for k, n in kernels.items()}
+    chunks = -(-TRAIN_SEQ // katt.BACKWARD_ROWS)
+    want_plain = (steps * cfg.n_layers * chunks
+                  if "flash_attention" in kernels else 0)
+    log({"path": f"train {tag}", "launches": got,
+         "plain_flash_calls": plain_calls[0]})
+    if {k: got[k] for k in want} != want or any(
+            n for k, n in got.items() if k not in want):
+        raise RuntimeError(f"train {tag}: launches {got}, expected {want} "
+                           "and nothing else")
+    if plain_calls[0] != want_plain:
+        raise RuntimeError(f"train {tag}: the plain flash version ran "
+                           f"{plain_calls[0]} times, expected {want_plain} "
+                           "(the backward's query chunks)")
+    bad = [r for r in rows if not (math.isfinite(r["loss"])
+                                   and math.isfinite(r["grad_norm"]))]
+    if bad or len(rows) != steps:
+        raise RuntimeError(f"train {tag}: steps {len(rows)}, not finite: "
+                           f"{bad}")
+    peak = torch.cuda.max_memory_allocated()
+    moved = params_moved(tag, paths(params), init)
+    del init
+    timed = [r for r in rows if r["step"] != profile_at]
+    steady = [r["step_ms"] for r in timed if r["step"] > 0]
+    step_ms = statistics.median(r["step_ms"] for r in timed)
+    adamw_ms = statistics.median(r["adamw_ms"] for r in timed)
+    line = {"tag": tag, "arch": cfg.name, "layers": cfg.n_layers,
+            "steps": steps, "losses": [r["loss"] for r in rows],
+            "first_loss": rows[0]["loss"], "last_loss": rows[-1]["loss"],
+            "step_ms_median": step_ms, "adamw_ms_median": adamw_ms,
+            "forward_backward_ms_median": statistics.median(
+                r["step_ms"] - r["adamw_ms"] for r in timed),
+            # AdamW reads each parameter, gradient and moment once and
+            # writes each parameter and moment once
+            "adamw_bound_ms": bound(2 * sizes["param_bytes"]
+                                    + sizes["grad_bytes"]
+                                    + 2 * sizes["adamw_state_bytes"],
+                                    0)["bound_ms"],
+            "first_step_ms": rows[0]["step_ms"],
+            # tokens/s of the median step; of the steps after the first
+            # but the profiled one, their tokens over their summed ms; of
+            # every step over the run's wall (the first step's warm-up,
+            # the profiler and the per-step reads included)
+            "tokens_per_s_median_step": TRAIN_BATCH * TRAIN_SEQ
+            / (step_ms / 1e3),
+            "tokens_per_s_steady": TRAIN_BATCH * TRAIN_SEQ * len(steady)
+            / (sum(steady) / 1e3),
+            "tokens_per_s_run_wall": TRAIN_BATCH * TRAIN_SEQ * steps / wall,
+            "wall_s": wall, **sizes, "peak_memory_bytes": peak,
+            "memory_before_model_bytes": base_mem, "launches": got,
+            "plain_flash_calls": plain_calls[0], "profile": prof,
+            "moved": moved}
+    log({"train_run": line})
+    if must_fall and not rows[-1]["loss"] < rows[0]["loss"]:
+        raise RuntimeError(f"train {tag}: the loss did not fall "
+                           f"({rows[0]['loss']} -> {rows[-1]['loss']})")
+    del params, opt
+    return line
+
+
+def params_moved(tag, named, init) -> dict:
+    """Which parameters a run changed: ``named`` ((path, tensor) on the
+    card, after the run) against ``init`` (host copies of the same leaves
+    before it), compared by their bits. Logs and returns the leaves and
+    elements left unchanged; raises where a leaf that was not one constant
+    at init (a norm's gain, a filled SSM leaf) has no element changed."""
+    import torch
+
+    words = {2: torch.int16, 4: torch.int32}
+    n = same = 0
+    unchanged, constant = {}, []
+    for (name, t), t0 in zip(named, init):
+        t0 = t0.to(t.device)
+        k = int((t.view(words[t.element_size()])
+                 == t0.view(words[t0.element_size()])).sum())
+        n, same = n + t.numel(), same + k
+        if bool((t0 == t0.flatten()[0]).all()):
+            constant.append(name)
+        if k:
+            unchanged[name] = k / t.numel()
+    stuck = [k for k, share in unchanged.items()
+             if share == 1.0 and k not in constant]
+    line = {"tag": tag, "leaves": len(init), "elements": n,
+            "elements_unchanged": same, "elements_unchanged_share": same / n,
+            "constant_leaves": constant,
+            "leaves_unchanged": [k for k, share in unchanged.items()
+                                 if share == 1.0],
+            "unchanged_share_by_leaf": unchanged}
+    log({"train_moved": line})
+    if stuck:
+        raise RuntimeError(f"train {tag}: no element of {stuck} moved")
+    return {k: line[k] for k in ("elements_unchanged_share",
+                                 "leaves_unchanged")}
+
+
+def grad_check(tag, cfg, batch, swaps, kernels, gate: bool):
+    """The loss and every gradient leaf of ``cfg`` (seed 0) on ``batch``
+    through the kernels (remat on) against the same with ``swaps`` (the
+    plain versions in their places); ``kernels``: {name: (wrapper,
+    launches a layer)} on the kernel path, none on the plain. With
+    ``gate``: the loss within TRAIN_LOSS_REL relative and each leaf within
+    TRAIN_GRAD_REL of its largest plain gradient, else only logged.
+    Returns (the params, the kernel path's gradients)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.utils.tree import paths
+
+    torch.cuda.empty_cache()
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    names = [k for k, _ in paths(params)]
+    out = {}
+    for path in ("kernel", "plain"):
+        old = swap_in(swaps) if path == "plain" else None
+        n0 = {k: fn.launches for k, (fn, _) in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            loss, grads = value_and_grad(params, cfg, batch, remat=True)
+            torch.cuda.synchronize()
+        finally:
+            if old:
+                swap_in(old)
+        got = {k: fn.launches - n0[k] for k, (fn, _) in kernels.items()}
+        want = {k: 0 if path == "plain" else 2 * n * cfg.n_layers
+                for k, (_, n) in kernels.items()}
+        if got != want:
+            raise RuntimeError(f"grad check {tag} {path}: launches {got}, "
+                               f"expected {want}")
+        out[path] = (float(loss), grads, time.perf_counter() - t0)
+    (lk, gk, sk), (lp, gp, sp) = out["kernel"], out["plain"]
+    errs = {}
+    for name, a, b in zip(names, gk, gp):
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        errs[name] = err / scale if scale else err
+    worst_leaf = max(errs, key=errs.get)
+    worst = errs[worst_leaf]
+    finite = all(bool(torch.isfinite(g).all()) for g in gk)
+    line = {"tag": tag, "arch": cfg.name, "layers": cfg.n_layers,
+            "dtype": cfg.dtype, "batch": list(batch["tokens"].shape),
+            "loss_kernel": lk, "loss_plain": lp,
+            "loss_rel_err": abs(lk - lp) / abs(lp),
+            "grad_worst_rel_err": worst,
+            "grad_worst_leaf": worst_leaf,
+            "kernel_path_s": sk, "plain_path_s": sp, "gated": gate,
+            "loss_rel_tol": TRAIN_LOSS_REL, "grad_rel_tol": TRAIN_GRAD_REL}
+    log({"train_grad_check": line})
+    if not finite or not math.isfinite(lk):
+        raise RuntimeError(f"grad check {tag}: not finite")
+    if gate and not (line["loss_rel_err"] <= TRAIN_LOSS_REL
+                     and worst <= TRAIN_GRAD_REL):
+        raise RuntimeError(f"grad check {tag}: loss {lk} against {lp}, "
+                           f"worst leaf {worst_leaf} {worst}")
+    return params, gk
+
+
+def adamw_card_vs_cpu(params, grads):
+    """13c: one AdamW step of ``params`` (the 2-layer fp32 model) by the
+    kernel path's ``grads`` on the card and the same on the CPU: mu, nu
+    and the parameters within TRAIN_ADAMW_REL of each leaf's largest
+    magnitude, grad_norm within it relative, lr equal."""
+    import torch
+
+    from repro_torch.train import optimizer as topt
+    from repro_torch.utils.tree import paths, tree_map, unflatten
+
+    ocfg = train_adamw(TRAIN_STEPS)
+    cpu_p = tree_map(params, lambda t: t.cpu())
+    cpu_g = unflatten(cpu_p, [g.cpu() for g in grads])
+    card_g = unflatten(params, grads)
+    t0 = time.perf_counter()
+    p1, s1, m1 = topt.adamw_update(card_g, topt.adamw_init(params), params,
+                                   ocfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p2, s2, m2 = topt.adamw_update(cpu_g, topt.adamw_init(cpu_p), cpu_p,
+                                   ocfg)
+    cpu_s = time.perf_counter() - t0
+    worst = {}
+    for what, a_, b_ in (("params", p1, p2), ("mu", s1["mu"], s2["mu"]),
+                         ("nu", s1["nu"], s2["nu"])):
+        w = 0.0
+        for (_, a), (_, b) in zip(paths(a_), paths(b_)):
+            scale = float(b.abs().max())
+            err = float((a.cpu() - b).abs().max())
+            w = max(w, err / scale if scale else err)
+        worst[what] = w
+    gn1, gn2 = float(m1["grad_norm"]), float(m2["grad_norm"])
+    line = {"worst_rel_err": worst, "grad_norm_card": gn1,
+            "grad_norm_cpu": gn2, "grad_norm_rel_err": abs(gn1 - gn2) / gn2,
+            "grad_norm_bit_equal": gn1 == gn2, "lr_card": float(m1["lr"]),
+            "lr_cpu": float(m2["lr"]), "step": int(s1["step"]),
+            "card_s": card_s, "cpu_s": cpu_s, "tol": TRAIN_ADAMW_REL}
+    log({"train_adamw_card_vs_cpu": line})
+    if not (max(worst.values()) <= TRAIN_ADAMW_REL
+            and line["grad_norm_rel_err"] <= TRAIN_ADAMW_REL
+            and line["lr_card"] == line["lr_cpu"]
+            and int(s1["step"]) == int(s2["step"]) == 1):
+        raise RuntimeError(f"AdamW on the card against the CPU: {line}")
+    return p1, s1
+
+
+def checkpoint_check(params, opt, scratch: Path):
+    """13d: ``save_async`` + ``wait_all`` of the 2-layer bf16 model and its
+    AdamW state, then ``restore`` onto the card with equal bits; then the
+    launcher as a subprocess: a crash at TRAIN_CRASH_AT (exit 42) and a
+    ``--resume`` that ends with LATEST at its last step."""
+    import torch
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.utils.tree import paths, tree_map
+
+    shutil.rmtree(scratch, ignore_errors=True)
+    tree = {"params": params, "opt": opt}
+    t0 = time.perf_counter()
+    ckpt.save_async(str(scratch / "state"), 1, tree)
+    snap_s = time.perf_counter() - t0
+    ckpt.wait_all()
+    save_s = time.perf_counter() - t0
+    like = tree_map(tree, torch.empty_like)
+    like["opt"]["step"] = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    t0 = time.perf_counter()
+    step, back = ckpt.restore(str(scratch / "state"), like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(
+        a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+        b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+        for (_, a), (_, b) in zip(paths(tree), paths(back)))
+    files = sum(f.stat().st_size for f in (scratch / "state").rglob("*")
+                if f.is_file())
+    line = {"step": step, "bytes": tree_bytes(tree), "file_bytes": files,
+            "snapshot_s": snap_s, "save_s": save_s, "restore_s": restore_s,
+            "bits_equal": same}
+    log({"train_checkpoint": line})
+    if not same or step != 1:
+        raise RuntimeError(f"checkpoint round trip on the card: {line}")
+    del back
+
+    run_dir = scratch / "launcher"
+    args = [sys.executable, "-m", "repro_torch.launch.train",
+            *TRAIN_LAUNCH_ARGS, "--ckpt-dir", str(run_dir)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r1 = subprocess.run([*args, "--simulate-failure-at", str(TRAIN_CRASH_AT)],
+                        capture_output=True, text=True, env=env, timeout=300)
+    crashed = ckpt.latest_step(str(run_dir))
+    r2 = subprocess.run([*args, "--resume"], capture_output=True, text=True,
+                        env=env, timeout=300)
+    final = ckpt.latest_step(str(run_dir))
+    launcher = {"crash_rc": r1.returncode, "resume_rc": r2.returncode,
+                "latest_after_crash": crashed, "latest_at_end": final,
+                "crash_tail": r1.stdout.strip().splitlines()[-2:],
+                "resume_tail": r2.stdout.strip().splitlines()[-3:],
+                "wall_s": time.perf_counter() - t0}
+    log({"train_launcher": launcher})
+    steps = int(TRAIN_LAUNCH_ARGS[TRAIN_LAUNCH_ARGS.index("--steps") + 1])
+    if not (r1.returncode == 42 and f"simulating crash at step "
+            f"{TRAIN_CRASH_AT}" in r1.stdout and crashed is not None
+            and r2.returncode == 0
+            and f"resumed from step {crashed}" in r2.stdout
+            and final == steps):
+        raise RuntimeError(f"the launcher's crash and resume: {launcher}; "
+                           f"stderr {r1.stderr[-2000:]} {r2.stderr[-2000:]}")
+    shutil.rmtree(scratch, ignore_errors=True)
+    return {**line, "launcher": launcher}
+
+
+def capture_first(module, attr, fn):
+    """Swap ``module.<attr>`` for a namespace whose ``fn`` records its first
+    call's arguments and runs the real one; returns (the record, the swaps
+    that undo it)."""
+    real = getattr(module, attr)
+    seen = []
+
+    def grab(*a, **kw):
+        if not seen:
+            seen.append((a, kw))
+        return getattr(real, fn)(*a, **kw)
+    ns = types.SimpleNamespace(**{k: getattr(real, k) for k in dir(real)
+                                  if not k.startswith("__")})
+    setattr(ns, fn, grab)
+    return seen, swap_in([(module, attr, ns)])
+
+
+def flash_training_line(q, k, v, window: int) -> dict:
+    """B7 at the training shape (layer 0's captured bf16 q, k, v): the
+    kernel's forward, the Function's backward (the plain derivative in
+    query chunks) and both through autograd, beside the plain version and
+    SDPA's forward + backward on the same inputs; the forward within
+    :func:`att_bound` of the plain version, the gradients within it of the
+    plain version's unchunked autograd on fp32 copies of the inputs, cast
+    to bf16 (the Function sums in fp32 and rounds once; autograd through
+    the bf16 inputs rounds each head's dk and dv to bf16 before the group's
+    sum, a few bf16 steps off)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as katt
+
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    dout = torch.randn(q.shape, device=DEVICE, generator=g).to(q.dtype)
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.no_grad():
+        got, want = katt.flash_attention(q, k, v, window), \
+            katt.flash_attention_plain(q, k, v, window)
+    f_err, f_share, f_ok = att_bound(got, want)
+    del got, want
+    gk = katt.flash_attention_grad(q, k, v, dout, window)
+    ins32 = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    gp = [t.to(q.dtype) for t in torch.autograd.grad(
+        katt.flash_attention_plain(*ins32, window), ins32, dout.float())]
+    del ins32
+    g_err = [att_bound(a, b) for a, b in zip(gk, gp)]
+    del gk, gp
+    if not (f_ok and all(ok for _, _, ok in g_err)):
+        raise RuntimeError(f"flash_attention[train]: forward {f_err}, "
+                           f"gradients {g_err}")
+
+    def fn_fwd_bwd():
+        return torch.autograd.grad(katt.flash_attention(*ins, window), ins,
+                                   dout)
+
+    def lib():
+        return torch.autograd.grad(F.scaled_dot_product_attention(
+            *ins, is_causal=True, enable_gqa=True), ins, dout)
+
+    b, hq, s, d = q.shape
+    pairs = band_pairs(s, window)
+    fwd_ops = 4 * b * hq * d * pairs
+    io = 2 * (2 * q.numel() + 2 * k.numel())
+    line = {"name": "flash_attention[train]", "shape": {
+        "q": list(q.shape), "k": list(k.shape)}, "window": window,
+        "max_abs_err": f_err, "bound_share": f_share,
+        "grad_max_abs_err": [e for e, _, _ in g_err],
+        "kernel_ms": queued_ms(lambda: katt.flash_attention(q, k, v, window),
+                               10),
+        "backward_ms": cuda_ms(lambda: katt.flash_attention_grad(
+            q, k, v, dout, window), 3, 1),
+        "forward_backward_ms": cuda_ms(fn_fwd_bwd, 3, 1),
+        "plain_ms": cuda_ms(lambda: katt.flash_attention_plain(
+            q, k, v, window), 3, 1),
+        "library_ms": cuda_ms(lib, 5),
+        "library_call": "torch.nn.functional.scaled_dot_product_attention "
+                        "(is_causal, enable_gqa) forward + backward",
+        **bound(io, fwd_ops, BF16_OPS_PER_S),
+        # the backward: q, k, v, dout in, dq, dk, dv out; 5 products of the
+        # forward's 2 (S = QK^T and dP = dO V^T again, dV, dQ, dK)
+        "backward_bound_ms": bound(2 * (3 * q.numel() + 4 * k.numel()),
+                                   fwd_ops * 5 / 2,
+                                   BF16_OPS_PER_S)["bound_ms"]}
+    log(line)
+    return line
+
+
+def ssd_training_line(args, chunk: int) -> dict:
+    """B9 at the training shape (layer 0's captured bf16 inputs): the
+    kernel's forward against the plain version (:func:`ssd_check`'s rule)
+    and the Function's backward (the plain derivative) timed."""
+    import torch
+
+    from repro_torch.kernels import ssd as kssd
+
+    x, dt, a, b, c = args
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    dy = torch.randn(x.shape, device=DEVICE, generator=g).to(x.dtype)
+    line = ssd_check(kssd, "ssd_scan[train]", args, chunk)
+    line.update({
+        "kernel_ms": queued_ms(lambda: kssd.ssd_scan(*args, chunk), 10),
+        "plain_ms": cuda_ms(lambda: kssd.ssd_scan_plain(*args, chunk), 3, 1),
+        "library_ms": None, **ssd_bound(x, dt, b, kssd.TILE)})
+    ins = [t.detach().requires_grad_() for t in args]
+
+    def fn_fwd_bwd():
+        return torch.autograd.grad(kssd.ssd_scan(*ins, chunk), ins, dy)
+
+    grads = fn_fwd_bwd()
+    if not all(bool(torch.isfinite(t).all()) for t in grads):
+        raise RuntimeError("ssd_scan[train]: gradients not finite")
+    _, ops_cb, ops_rest = ssd_work(x, dt, b, kssd.TILE)
+    xb, bb = x.numel() * x.element_size(), b.numel() * b.element_size()
+    line.update({
+        "backward_ms": cuda_ms(lambda: kssd.ssd_scan_grad(*args, dy, chunk),
+                               3, 1),
+        "forward_backward_ms": cuda_ms(fn_fwd_bwd, 3, 1),
+        # the backward: x, dy, dt, a, b, c in, dx, ddt, da, db, dc out; each
+        # product's derivative takes two products
+        "backward_bound_ms": bound(
+            3 * xb + 2 * (dt.numel() + a.numel()) * 4 + 4 * bb,
+            2 * (ops_cb + ops_rest), BF16_OPS_PER_S)["bound_ms"]})
+    log({"ssd_scan[train]": line})
+    return line
+
+
+def host_us(fn, reps: int = 100) -> float:
+    """Host microseconds to issue one call of ``fn``: the stream first
+    spins (``torch.cuda._sleep``) so that no call waits for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def function_overhead_line() -> dict:
+    """The host cost of launching through an autograd Function where no
+    input requires a gradient (as serving calls them): B7's
+    ``flash_attention``, B9's ``ssd_scan`` and the head's ``_Head`` beside
+    the same launch made directly, at small bf16 shapes where the host
+    sets the pace; :func:`host_us`, alternated, the median of 5 rounds."""
+    import torch
+
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ssd as kssd
+    from repro_torch.models import transformer as tf
+
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+
+    def rnd(*shape):
+        return torch.randn(shape, device=DEVICE, generator=g).to(
+            torch.bfloat16)
+
+    q, k, v = rnd(1, 32, 64, 64), rnd(1, 8, 64, 64), rnd(1, 8, 64, 64)
+    x, b, c = rnd(1, 64, 80, 64), rnd(1, 64, 128), rnd(1, 64, 128)
+    dt = torch.rand((1, 64, 80), device=DEVICE, generator=g) * 0.1
+    a = -0.5 - torch.rand((80,), device=DEVICE, generator=g)
+    x2, w = rnd(64, 2048), rnd(2048, 4096)
+    calls = {
+        "flash_attention": (lambda: katt.flash_attention(q, k, v),
+                            lambda: katt._flash_launch(q, k, v, 0)),
+        "ssd_scan": (lambda: kssd.ssd_scan(x, dt, a, b, c),
+                     lambda: kssd._ssd_launch(x, dt, a, b, c, 128)),
+        "head": (lambda: tf._Head.apply(x2, w),
+                 lambda: torch.mm(x2, w, out_dtype=torch.float32))}
+    times = {k: ([], []) for k in calls}
+    for _ in range(5):
+        for name, (through, direct) in calls.items():
+            times[name][0].append(host_us(through))
+            times[name][1].append(host_us(direct))
+    line = {}
+    for name, (through, direct) in times.items():
+        fn_us, launch_us = statistics.median(through), statistics.median(
+            direct)
+        line[name] = {"function_us": fn_us, "launch_us": launch_us,
+                      "extra_us": fn_us - launch_us}
+    log({"function_overhead": line})
+    return line
+
+
+def train_phase(katt, kssd, counters) -> tuple:
+    """13. Training on the card (a-e of the module docstring). Returns
+    ({kernel: its training line}, {kernel: launches of the training
+    runs})."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import ssm as mssm
+    from repro_torch.utils.tree import unflatten
+
+    t_phase = time.perf_counter()
+    plain_att = [(mattn, "katt", types.SimpleNamespace(
+        flash_attention=katt.flash_attention_plain,
+        decode_attention=katt.decode_attention_plain))]
+    plain_ssd = [(mssm, "kssd", types.SimpleNamespace(
+        ssd_scan=kssd.ssd_scan_plain))]
+    flash, ssd = ({"flash_attention": (katt.flash_attention, 1)},
+                  {"ssd_scan": (kssd.ssd_scan, 1)})
+
+    # 13a. granite_3_2b at full width and depth, bf16
+    cfg = get_arch(TRAIN_ARCH)
+    run = train_run("granite", cfg, TRAIN_STEPS, counters,
+                    {"flash_attention": 2}, TRAIN_PROFILE_STEP, True)
+    launches = {"flash_attention": run["launches"]["flash_attention"]}
+
+    # 13b. kernel path against plain path, 2 layers at full width
+    batch = on_card(train_stream(cfg).batch_at(0))
+    c32 = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS,
+                              dtype="float32")
+    p32, g32 = grad_check("granite fp32", c32, batch, plain_att, flash,
+                          gate=True)
+    # 13c. the same gradients through AdamW on the card and on the CPU
+    adamw_card_vs_cpu(p32, g32)
+    del p32, g32
+    c16 = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    seen, old = capture_first(mattn, "katt", "flash_attention")
+    try:
+        p16, g16 = grad_check("granite bf16", c16, batch, plain_att,
+                              flash, gate=False)
+    finally:
+        swap_in(old)
+    (q, k, v, *rest), kw = seen[0]
+    results = {"flash_attention": flash_training_line(
+        q.detach(), k.detach(), v.detach(), rest[0] if rest else
+        kw.get("window", 0))}
+    del q, k, v, seen
+
+    # 13d. checkpoints of the 2-layer bf16 model and its AdamW state
+    from repro_torch.train import optimizer as topt
+    p16, s16, _ = topt.adamw_update(unflatten(p16, g16),
+                                    topt.adamw_init(p16), p16,
+                                    train_adamw(TRAIN_STEPS))
+    del g16
+    checkpoint_check(p16, s16, ROOT / "build" / "chip_smoke_ckpt")
+    del p16, s16
+
+    # 13e. mamba2_2p7b at full width, its first TRAIN_SSM_LAYERS layers
+    scfg = dataclasses.replace(get_arch(TRAIN_SSM_ARCH),
+                               n_layers=TRAIN_SSM_LAYERS)
+    srun = train_run("mamba2", scfg, TRAIN_SSM_STEPS, counters,
+                     {"ssd_scan": 2}, None, False)
+    launches["ssd_scan"] = srun["launches"]["ssd_scan"]
+    sbatch = on_card(train_stream(scfg).batch_at(0))
+    s2 = dataclasses.replace(scfg, n_layers=TRAIN_CHECK_LAYERS)
+    seen, old = capture_first(mssm, "kssd", "ssd_scan")
+    try:
+        grad_check("mamba2 bf16", s2, sbatch, plain_ssd, ssd, gate=False)
+    finally:
+        swap_in(old)
+    (x, dt, a, b, c, chunk), _ = seen[0]
+    results["ssd_scan"] = ssd_training_line(
+        tuple(t.detach() for t in (x, dt, a, b, c)), chunk)
+    del seen, x, dt, a, b, c
+    grad_check("mamba2 fp32", dataclasses.replace(s2, dtype="float32"),
+               sbatch, plain_ssd, ssd, gate=True)
+    function_overhead_line()
+    log({"train_phase_s": time.perf_counter() - t_phase})
+    return results, launches
 
 
 def main() -> int:
@@ -3803,8 +4537,9 @@ def main() -> int:
     if ladder.stages[0].escalations < 1:
         raise RuntimeError(f"selectivity {LADDER_SELECTIVITY} batch never "
                            f"overflowed the budget of {BUDGET}")
-    same(ladder.ids, run(idx, "host", wins_hi, "intersects",
-                         backend="host").ids, "ladder vs host")
+    same(ladder.ids[:HOST_CHECK], run(idx, "host", wins_hi[:HOST_CHECK],
+                                      "intersects", backend="host").ids,
+         "ladder vs host")
 
     walls, n0 = [], kr.refine_count.launches
     for _ in range(3):
@@ -4092,8 +4827,13 @@ def main() -> int:
         for kn, n in per_model.items():
             launches[kn] += n
 
-    # ------------------------------------------------------------ 13. report
+    # ---------------------------------------------------------- 13. training
+    torch.cuda.empty_cache()
     mark("13")
+    train_results, train_launches = train_phase(katt, kssd, counters)
+
+    # ------------------------------------------------------------ 14. report
+    mark("14")
     entries = []
     for k in counters:
         r_ = results[k]
@@ -4113,6 +4853,14 @@ def main() -> int:
                 **{key: h_[key] for key in (
                     "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms")}}
+        if k in train_results:      # the training path's launches
+            t_ = train_results[k]
+            entry["training"] = {
+                "launches": train_launches[k], "shape": t_["shape"],
+                **{key: t_.get(key) for key in (
+                    "max_abs_err", "kernel_ms", "backward_ms",
+                    "forward_backward_ms", "plain_ms", "bound_ms",
+                    "bound_by", "backward_bound_ms", "library_ms")}}
         for label, lines in family_results.items():
             if k in lines:          # the same kernel at a family's shapes
                 f_ = lines[k]

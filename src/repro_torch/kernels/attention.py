@@ -11,6 +11,12 @@ its (B, S, H, D) activations and (B, W, Hkv, D) cache, never a copy. A CUDA
 tensor takes a kernel, a CPU tensor the plain version; each wrapper counts
 its kernel launches in ``<wrapper>.launches``. :func:`flash_plan` and
 :func:`decode_plan` give each launch's shape (entry point, kernel, grid).
+
+``flash_attention`` has a gradient: where an input requires one, the kernel
+runs inside a ``torch.autograd.Function`` whose backward is the derivative
+of the plain version (:func:`flash_attention_grad`), recomputed
+:data:`BACKWARD_ROWS` query rows at a time. No kernel of the reference has
+a backward either: its gradient is XLA's derivative of its jnp path.
 """
 from __future__ import annotations
 
@@ -20,9 +26,9 @@ import torch
 
 from .refine import _count, _launch, _route
 
-__all__ = ["NEG_INF", "HEAD_DIMS", "flash_attention", "flash_attention_plain",
-           "decode_attention", "decode_attention_plain", "flash_plan",
-           "decode_plan"]
+__all__ = ["NEG_INF", "HEAD_DIMS", "BACKWARD_ROWS", "flash_attention",
+           "flash_attention_plain", "flash_attention_grad", "decode_attention",
+           "decode_attention_plain", "flash_plan", "decode_plan"]
 
 NEG_INF = -1e30          # the reference's mask fill (not -inf)
 HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the kernels are built for
@@ -30,6 +36,9 @@ MAX_GROUP = 64           # query heads per kv head the flash kernel takes
 FLASH_ROWS = 64          # query rows of a flash block: heads x tokens
 DECODE_MAX_SPLIT = 8     # decode blocks that share a row's slots, at most
 H100_SMS = 132           # decode splits a row's slots until a block an SM
+# query rows of one backward recompute: the fp32 scores of a chunk are
+# (B, Hq, rows, keys), as the reference's query-chunked attention_train
+BACKWARD_ROWS = 1024
 _DTYPES = (torch.float32, torch.bfloat16)
 # the flash entry point of each dtype: the tensor cores for bf16, the CUDA
 # cores for fp32 (TF32 would miss the fp32 tolerance)
@@ -37,15 +46,17 @@ _FLASH_ENTRY = {torch.bfloat16: "glin_flash_attention_bf16",
                 torch.float32: "glin_flash_attention_fp32"}
 
 
-def flash_attention_plain(q, k, v, window: int = 0):
+def flash_attention_plain(q, k, v, window: int = 0, q_offset: int = 0):
     """``repro.kernels.ref.attention_ref`` in torch: fp32 scores, the -1e30
-    fill, fp32 softmax and P.V, the output cast to q's dtype."""
+    fill, fp32 softmax and P.V, the output cast to q's dtype. Query row i
+    sits at key position ``q_offset + i`` in the causal and window masks
+    (0: q and k are the same positions)."""
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     k = k.repeat_interleave(group, dim=1).float()
     v = v.repeat_interleave(group, dim=1).float()
     sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * (1.0 / math.sqrt(d))
-    qi = torch.arange(s, device=q.device)[:, None]
+    qi = q_offset + torch.arange(s, device=q.device)[:, None]
     kj = torch.arange(k.shape[2], device=q.device)[None, :]
     mask = qi >= kj
     if window > 0:
@@ -149,6 +160,48 @@ def _decode_done(device, n: int):
     return done
 
 
+def flash_attention_grad(q, k, v, dout, window: int = 0, rows=None):
+    """(dq, dk, dv) of :func:`flash_attention_plain`'s output against
+    ``dout``, in q's, k's and v's shapes and dtypes: autograd of the plain
+    version, recomputed ``rows`` (default :data:`BACKWARD_ROWS`) query rows
+    at a time over the keys the chunk's causal (and window) mask lets
+    through, on fp32 copies of the inputs (dk and dv summed over the chunks
+    in fp32, then cast). A masked key's probability is exactly 0 in the
+    plain version, so leaving it out changes nothing."""
+    s, rows = q.shape[2], rows or BACKWARD_ROWS
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for q0 in range(0, s, rows):
+        q1 = min(q0 + rows, s)
+        lo = max(0, q0 - window + 1) if window > 0 else 0
+        with torch.enable_grad():
+            qc, kc, vc = (t.detach().float().requires_grad_() for t in (
+                q[:, :, q0:q1], k[:, :, lo:q1], v[:, :, lo:q1]))
+            out = flash_attention_plain(qc, kc, vc, window, q_offset=q0 - lo)
+            gq, gk, gv = torch.autograd.grad(out, (qc, kc, vc),
+                                             dout[:, :, q0:q1].float())
+        dq[:, :, q0:q1] = gq
+        dk[:, :, lo:q1] += gk
+        dv[:, :, lo:q1] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """The kernel forward, the plain version's derivative backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        ctx.window = window
+        ctx.save_for_backward(q, k, v)
+        return _flash_launch(q, k, v, window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_grad(q, k, v, dout, ctx.window), None)
+
+
 def flash_attention(q, k, v, window: int = 0):
     """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype:
     causal (``window`` = 0) or sliding-window GQA attention.
@@ -162,10 +215,17 @@ def flash_attention(q, k, v, window: int = 0):
     per (64-row query tile of the group's heads, kv head, batch row); K/V
     tiles staged in shared memory; fully masked tiles skipped. The output
     takes q's layout (``empty_like``), so a transposed view in gives one
-    out.
+    out. The launch runs inside :class:`_Flash`, whose backward is
+    :func:`flash_attention_grad` (no graph is recorded where no input
+    requires a gradient).
     """
     if not _route(q, k, v):
         return flash_attention_plain(q, k, v, window)
+    return _Flash.apply(q, k, v, int(window))
+
+
+def _flash_launch(q, k, v, window: int):
+    """Check the operands and launch the flash kernel (one count)."""
     b, hq, s, d = q.shape
     _check_heads(q, k, d)
     kv_shape = (b, k.shape[1], s, d)

@@ -7,7 +7,10 @@ y (B, S, H, P) in x's dtype and, with ``return_state``, the final state
 (B, H, N, P) fp32. The kernel reads x, dt, b and c through their strides
 (last dimension contiguous): the model hands in views of its convolution's
 output, never a copy. A CUDA tensor takes the kernel, a CPU tensor the plain
-version; ``ssd_scan.launches`` counts the kernel's launches.
+version; ``ssd_scan.launches`` counts the kernel's launches. Where an input
+requires a gradient, the kernel runs inside a ``torch.autograd.Function``
+whose backward is the derivative of the plain version, recomputed at the
+caller's chunk (no kernel of the reference has a backward either).
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch.nn.functional as F
 from .attention import _check_strided as _check
 from .refine import _count, _launch, _route
 
-__all__ = ["MAX_STATE", "TILE", "ssd_scan", "ssd_scan_plain", "ssd_scratch"]
+__all__ = ["MAX_STATE", "TILE", "ssd_scan", "ssd_scan_plain", "ssd_scan_grad",
+           "ssd_scratch"]
 
 MAX_STATE = 256          # the largest N the kernel takes (shared memory)
 TILE = 64                # the kernel's chunk (steps)
@@ -72,6 +76,31 @@ def ssd_scan_plain(x, dt, a, b, c, chunk: int = 128,
     return (y, state) if return_state else y
 
 
+def ssd_scan_grad(x, dt, a, b, c, dy, chunk: int = 128) -> tuple:
+    """(dx, ddt, da, db, dc) of :func:`ssd_scan_plain`'s y at ``chunk``
+    against ``dy``: autograd of the plain version, recomputed."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, dt, a, b, c)]
+        return torch.autograd.grad(ssd_scan_plain(*ins, chunk), ins, dy)
+
+
+class _SSD(torch.autograd.Function):
+    """The kernel forward, the plain version's derivative backward. The
+    final state carries no gradient (training discards the cache)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a, b, c)
+        y, state = _ssd_launch(x, dt, a, b, c, chunk)
+        ctx.mark_non_differentiable(state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, _dstate):
+        return (*ssd_scan_grad(*ctx.saved_tensors, dy, ctx.chunk), None)
+
+
 def ssd_scan(x, dt, a, b, c, chunk: int = 128, return_state: bool = False):
     """x (B, S, H, P), dt (B, S, H) fp32, a (H,) fp32, b/c (B, S, N) ->
     y (B, S, H, P) in x's dtype, or (y, final state (B, H, N, P) fp32).
@@ -85,10 +114,17 @@ def ssd_scan(x, dt, a, b, c, chunk: int = 128, return_state: bool = False):
     shape: bytes (the products take less on the tensor cores). The kernel's
     chunk is 64 steps (:data:`TILE`) whatever ``chunk``, which sets only the
     plain version's (the chunked algorithm computes the same function for
-    any chunk). Any S.
+    any chunk). Any S. The launch runs inside :class:`_SSD` (no graph is
+    recorded where no input requires a gradient).
     """
     if not _route(x, dt, a, b, c):
         return ssd_scan_plain(x, dt, a, b, c, chunk, return_state)
+    y, state = _SSD.apply(x, dt, a, b, c, chunk)
+    return (y, state) if return_state else y
+
+
+def _ssd_launch(x, dt, a, b, c, chunk: int):
+    """Check the operands and launch the scan (one count) -> (y, state)."""
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     if x.dtype not in _DTYPES:
@@ -115,7 +151,7 @@ def ssd_scan(x, dt, a, b, c, chunk: int = 128, return_state: bool = False):
                 *x.stride()[:3], *dt.stride()[:2], *b.stride()[:2],
                 *c.stride()[:2])
         _count(ssd_scan)
-    return (y, state) if return_state else y
+    return y, state
 
 
 def ssd_scratch(bsz: int, s: int, h: int, p: int, n: int) -> dict:

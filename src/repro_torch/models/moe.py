@@ -25,10 +25,17 @@ would give the same numbers.
 
 :data:`stats` accumulates, on the device and with no host sync on the
 step's path, the replicas dropped and the largest expert load of each call
-(see :class:`MoEStats`); read it after a run.
+(see :class:`MoEStats`); read it after a run. A training step's remat
+recompute runs each layer again under :meth:`MoEStats.paused`, so a step
+counts each layer's forward once.
+
+Gradients flow as in the reference: through the router's gates (softmax,
+the top-k values, the renormalisation) and the gathered rows; the sort
+order and the capacity drops are integer choices and carry none.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, NamedTuple
 
@@ -53,15 +60,27 @@ class MoEStats:
     the device until :meth:`read`."""
 
     def __init__(self):
+        self._paused = False
         self.reset()
 
     def reset(self) -> None:
         self.calls = self.replicas = 0
         self._dropped = self._max_load = None
 
+    @contextlib.contextmanager
+    def paused(self):
+        """Count nothing inside (a remat recompute of a counted forward)."""
+        was, self._paused = self._paused, True
+        try:
+            yield
+        finally:
+            self._paused = was
+
     def add(self, counts: torch.Tensor, cap: int, replicas: int) -> None:
         """One dispatch chunk: its ``replicas`` (T*k) and per-expert loads
-        ``counts`` at ``cap``."""
+        ``counts`` at ``cap`` (nothing while :meth:`paused`)."""
+        if self._paused:
+            return
         dropped = (counts - cap).clamp(min=0).sum()
         load = counts.max()
         if self._dropped is None:

@@ -20,22 +20,31 @@ tokens (a decode step: (B, d)), cast to the model's dtype.
 Parameters are a dict of tensors shaped as the reference's pytree: per-layer
 weights stacked on a leading layer axis (``params["blocks"]["attn"]["wq"]``
 is (L, d, Hq*Dh)), dense weights (in, out). The stack is a Python loop over
-layer views. Training (remat, the loss) waits for a later slice.
+layer views.
+
+Training: :func:`forward_train` is :func:`forward` with each block under
+``torch.utils.checkpoint`` (remat: nothing inside a block is kept for the
+backward, as the reference's ``nothing_saveable``), and :func:`loss_fn` the
+masked next-token cross entropy of its fp32 logits. The kernels' wrappers
+carry their own gradients (the plain versions' derivatives), so a loss
+through them differentiates on the card as on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import moe
 from . import ssm
 from .layers import Leaf, dense, he_init, rms_norm
 
-__all__ = ["check_supported", "param_shapes", "init_params", "forward", "prefill",
-           "decode_step", "init_cache"]
+__all__ = ["check_supported", "param_shapes", "init_params", "forward",
+           "forward_train", "loss_fn", "prefill", "decode_step", "init_cache"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -227,16 +236,33 @@ def _hybrid_block_decode(x, pl, cfg, cache, rot):
 # ---------------------------------------------------------------------------
 # Head
 # ---------------------------------------------------------------------------
+class _Head(torch.autograd.Function):
+    """x2 (T, d) @ w (d, V) -> fp32 logits by one cuBLAS product that emits
+    fp32; the backward's two products in the activation dtype (fp32
+    accumulation), the fp32 logits' gradient rounded to it first."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ w.t(), x2.t() @ g
+
+
 def _lm_head(x, params, cfg) -> torch.Tensor:
     """fp32 logits of the activation-dtype product (the reference's
     ``preferred_element_type=float32``): on the card, one cuBLAS product
-    that accumulates and emits fp32 (``torch.mm(..., out_dtype=float32)``);
-    on the CPU, the product of the operands upcast to fp32 (bf16 products
-    are exact in fp32, so both sum the same terms)."""
+    that accumulates and emits fp32 (:class:`_Head`); on the CPU, the
+    product of the operands upcast to fp32 (bf16 products are exact in
+    fp32, so both sum the same terms)."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.is_cuda and x2.dtype != torch.float32:
-        logits = torch.mm(x2, w, out_dtype=torch.float32)
+        logits = _Head.apply(x2, w)
     else:
         logits = x2.float() @ w.float()
     return logits.view(*x.shape[:-1], w.shape[-1])
@@ -279,11 +305,19 @@ def _embed_inputs(params, cfg, batch):
     return x, positions
 
 
+def _recompute_contexts():
+    """checkpoint's (forward, recompute) contexts: the recompute counts no
+    MoE dispatch the forward already counted."""
+    return contextlib.nullcontext(), moe.stats.paused()
+
+
 def forward(params, cfg, batch, collect_cache: bool = False,
-            logits_last_only: bool = False):
-    """The full-sequence forward without remat (the reference's
-    ``forward_train(remat=False)``). batch: {tokens (B,S)} or {embeds
-    (B,S,d)} (``embed_stub``), [positions (B,S) or (B,3,S)].
+            logits_last_only: bool = False, remat: bool = False):
+    """The full-sequence forward (the reference's ``forward_train``).
+    batch: {tokens (B,S)} or {embeds (B,S,d)} (``embed_stub``), [positions
+    (B,S) or (B,3,S)]. With ``remat`` each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, kernels included.
     Returns (fp32 logits (B,S,V) — (B,1,V) with ``logits_last_only`` —,
     the per-layer cache list — {"attn": {k, v}}, {"ssm": {conv, state}}
     or both, over the meta tokens too — or None)."""
@@ -294,7 +328,11 @@ def forward(params, cfg, batch, collect_cache: bool = False,
            if cfg.has_attention else None)    # attention-free: no table
     caches = [] if collect_cache else None
     for pl in _layers(params["blocks"]):
-        x, kv = block(x, pl, cfg, rot)
+        if remat:
+            x, kv = checkpoint(block, x, pl, cfg, rot, use_reentrant=False,
+                               context_fn=_recompute_contexts)
+        else:
+            x, kv = block(x, pl, cfg, rot)
         if collect_cache:
             caches.append(kv)
     x = rms_norm(x, params["final_norm"])
@@ -303,6 +341,25 @@ def forward(params, cfg, batch, collect_cache: bool = False,
     if logits_last_only:
         x = x[:, -1:]
     return _lm_head(x, params, cfg), caches
+
+
+def forward_train(params, cfg, batch, remat: bool = True):
+    """The training forward: (fp32 logits (B,S,V), None), each block under
+    remat unless ``remat`` is False (then :func:`forward`)."""
+    return forward(params, cfg, batch, remat=remat)
+
+
+def loss_fn(params, cfg, batch, remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross entropy over the labels >= 0 of
+    ``batch["labels"]`` (B,S): fp32 logsumexp of the logits less the
+    label's logit, summed over the mask and divided by max(its count, 1)."""
+    logits, _ = forward_train(params, cfg, batch, remat=remat)
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (lse - tgt) * mask
+    return nll.sum() / mask.sum().clamp(min=1.0)
 
 
 def _ring(kv, cfg, seq_len_cache):

@@ -4,7 +4,10 @@ host path, the LM's decode through both attention kernels (dense), the
 SSD scan (mamba2_2p7b) or all three (hymba_1p5b) against its full
 forward, the three LM kernels at hymba_1p5b's shapes, and the two attention
 kernels at the MoE and stub-frontend families' shapes, with those models
-(reduced) through the kernels against their plain path.
+(reduced) through the kernels against their plain path, and training: the
+flash and SSD kernels' autograd Functions against autograd of their plain
+versions, and a full-width granite_3_2b step (2 layers) through the kernels
+against the plain path.
 
 Every test here is marked ``gpu`` and skips without a card (decided inside
 the ``cuda`` fixture). The file imports only the port, so it needs nothing
@@ -1117,3 +1120,112 @@ def test_family_kernel_path_matches_plain_path(cuda, monkeypatch, arch,
     torch.testing.assert_close(got[0], want[0], atol=pre[0], rtol=pre[1])
     for a, b in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, b, atol=dec[0], rtol=dec[1])
+
+
+# ------------------------------------------------------------- training
+# The kernels' autograd Functions: the forward is the kernel, the backward
+# the plain version's derivative (recomputed, the attention in query
+# chunks), against autograd of the plain version. fp32 within ATT_TOL of
+# max(1, the output's or gradient's largest magnitude); bf16 within ATT_TOL
+# or one bf16 step of the plain value (chip_smoke's att_bound), the
+# attention's gradients against the plain version's autograd on fp32
+# copies of the inputs, cast (its Function sums dk and dv over the group
+# in fp32 and rounds once; autograd through bf16 inputs rounds each head's
+# first).
+def _bf16_ok(got, want):
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs().clamp(min=2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return bool(((d < ATT_TOL[torch.bfloat16]) | (d <= step)).all())
+
+
+def _grad_close(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.cuda.synchronize()
+    if want.dtype == torch.bfloat16:
+        assert _bf16_ok(got, want)
+    else:
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) < ATT_TOL[want.dtype] * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [0, 48])
+def test_flash_function_forward_and_backward(cuda, dtype, d, window):
+    b, s, hkv, group = 2, 200, 2, 4
+    g = torch.Generator(device=cuda).manual_seed(d + window)
+    mk = (lambda h: torch.randn(b, s, h, d, device=cuda, generator=g)
+          .to(dtype).transpose(1, 2).requires_grad_())
+    q, k, v = mk(hkv * group), mk(hkv), mk(hkv)      # strided views
+    dout = torch.randn(b, hkv * group, s, d, device=cuda,
+                       generator=g).to(dtype)
+    n0 = katt.flash_attention.launches
+    out = katt.flash_attention(q, k, v, window)
+    assert katt.flash_attention.launches == n0 + 1 and out.grad_fn
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert katt.flash_attention.launches == n0 + 1    # backward: plain
+    want_out = katt.flash_attention_plain(q, k, v, window)
+    ins32 = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = [t.to(dtype) for t in torch.autograd.grad(
+        katt.flash_attention_plain(*ins32, window), ins32, dout.float())]
+    _grad_close(out.detach(), want_out.detach())
+    for a, w in zip(got, want):
+        _grad_close(a, w)
+    chunked = katt.flash_attention_grad(q, k, v, dout, window, rows=64)
+    for a, w in zip(chunked, want):
+        _grad_close(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [128, 200])
+def test_ssd_function_forward_and_backward(cuda, dtype, s):
+    x, dt, a, b, c = _ssd_inputs(cuda, dtype, 2, s, 4, 32, 16, s,
+                                 strided=s == 200)
+    ins = [t.detach().requires_grad_() for t in (x, dt, a, b, c)]
+    g = torch.Generator(device=cuda).manual_seed(s)
+    dy = torch.randn(x.shape, device=cuda, generator=g).to(dtype)
+    n0 = kssd.ssd_scan.launches
+    y, state = kssd.ssd_scan(*ins, 64, return_state=True)
+    assert kssd.ssd_scan.launches == n0 + 1 and y.grad_fn is not None
+    assert not state.requires_grad
+    got = torch.autograd.grad(y, ins, dy)
+    want_y = kssd.ssd_scan_plain(*ins, 64)
+    want = torch.autograd.grad(want_y, ins, dy)
+    _ssd_close(y.detach(), want_y.detach())
+    for u, w in zip(got, want):       # the same derivative, recomputed
+        _grad_close(u, w)
+
+
+@pytest.mark.gpu
+def test_full_width_granite_step_kernel_path_matches_plain_path(cuda,
+                                                                monkeypatch):
+    """granite_3_2b at full width, its first 2 layers in fp32, one train
+    step on 512 tokens: the loss and every gradient leaf through the flash
+    kernel (twice a layer: the forward and its remat recompute) against
+    the plain path, and the AdamW step that follows."""
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.step import train_step, value_and_grad
+
+    cfg = dataclasses.replace(get_arch("granite_3_2b"), n_layers=2,
+                              dtype="float32")
+    params = tf.init_params(cfg, 0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (1, 513), device=cuda, generator=g,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    n0 = katt.flash_attention.launches
+    loss, grads = value_and_grad(params, cfg, batch)
+    assert katt.flash_attention.launches == n0 + 2 * cfg.n_layers
+    monkeypatch.setattr(mattn, "katt", types.SimpleNamespace(
+        flash_attention=katt.flash_attention_plain,
+        decode_attention=katt.decode_attention_plain))
+    want_loss, want = value_and_grad(params, cfg, batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for a, w in zip(grads, want):
+        assert float((a - w).abs().max()) <= 1e-3 * float(w.abs().max())
+    monkeypatch.undo()
+    _, state, m = train_step(params, topt.adamw_init(params), batch, cfg)
+    assert int(state["step"]) == 1 and bool(torch.isfinite(m["loss"]))
