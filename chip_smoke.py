@@ -226,20 +226,55 @@ Phases (any failure raises, and the script exits non-zero):
       bf16 logged, fp32 gated as in b; then the host time of one call
       of each autograd Function (B7, B9, the head) with no gradient
       wanted, beside its launch alone;
-14. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
+14. the sharded trainer (``sharded_train_phase``) on meshes whose
+   positions all sit on the card (``make_test_mesh(devices=["cuda:0"] *
+   n)``):
+   a. ``granite_3_2b`` at full width and depth, bf16, seed 0, on a (4, 2)
+      ``("data", "model")`` mesh: ``build_train_step`` (FSDP + TP,
+      microbatches 1, remat on, the launcher's AdamW) for 5 steps on
+      ``SyntheticLM(vocab, 4096, 4, seed 0)`` (one sequence a data row):
+      a warm-up step, three timed steps (step ms and tokens/s are their
+      median), the last under ``torch.profiler``; each step's loss,
+      grad_norm, lr, ms and AdamW ms, the peak, the busy share, the bytes
+      each position holds; the first loss within 1e-2 of the single-device
+      ``loss_fn`` on the same parameters and batch, finite losses, every
+      non-constant leaf moved, ``flash_attention`` launched 8 positions x
+      40 layers x 2 (forward, remat recompute) a step and nothing else;
+   b. fp32, the first 2 layers: granite_3_2b at 4 x 4,096 (its vocab
+      whole) and phi4_mini_3p8b at 4 x 1,024 (its vocab split over
+      ``model``): the sharded loss and every gathered gradient leaf, then
+      the step's loss, grad_norm, lr and parameters, against the
+      single-device ``value_and_grad`` and ``train_step`` (loss, grad_norm
+      and lr within 1e-5 relative, each gradient leaf within 3e-5 of its
+      largest magnitude, parameters within 2 lr everywhere and 1e-6 on all
+      but 0.1% of elements), with each leaf's spread beside it when the
+      single-device path takes its batch in two halves;
+   e. (after b) ``ckpt.save`` of b's granite state from the mesh,
+      ``restore`` onto the card and back onto the mesh: the step and
+      every bit;
+   c. ``gpipe`` over a (4,) ``("pod",)`` mesh: granite_3_2b's 40 bf16
+      layers as 4 stages of 10, 8 microbatches of 1 x 512 tokens, equal
+      bits to the layers run in sequence; ``bubble_fraction(4, 8)``;
+   d. ``compressed_psum_mean`` of 8 seeded fp32 blocks of 2,048 x 8,192
+      (a granite layer's ``wu``) over an ``("data",)`` mesh of 8: equal
+      bits to the CPU's, within 2 max|g| / 127 of the exact mean; 20
+      steps of ``apply_error_feedback`` on a constant gradient, drift
+      under 2e-3;
+15. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
    their hymba numbers under ``hymba``, the attention kernels' also each
    phase 11 and 12 model's under its name, B7's and B9's their training
-   numbers under ``training``), and last the ``{"ok": true, ...}`` line.
+   numbers under ``training``, B7's phase 14a's under
+   ``sharded_training``), and last the ``{"ok": true, ...}`` line.
 
 Launch counters are zeroed just before each of phases 5, 6, 5b, 5c, 6a, 6b,
-6c, 6d (its two paths), 7, 8's, 9's, 10's and 11's serving runs, 12's runs
-and 13's two training runs, and read just after (6a's, 6c's and 6d's
-before the comparisons that check them): every kernel of that path must
-have launched, and a kernel's ``launches`` in the last line is its count
-from its path, summed over phases 5-6d for ``refine_compact``,
-``refine_fused`` and ``knn_topk`` and over phases 8-12 for
-``flash_attention``, ``decode_attention`` and ``ssd_scan`` (the training
-runs' under ``training``). Each phase's start is logged with the seconds
+6c, 6d (its two paths), 7, 8's, 9's, 10's and 11's serving runs, 12's runs,
+13's two training runs and 14a's sharded run, and read just after (6a's,
+6c's and 6d's before the comparisons that check them): every kernel of
+that path must have launched, and a kernel's ``launches`` in the last line
+is its count from its path, summed over phases 5-6d for
+``refine_compact``, ``refine_fused`` and ``knn_topk`` and over phases 8-12
+for ``flash_attention``, ``decode_attention`` and ``ssd_scan`` (the
+training runs' under ``training``, 14a's under ``sharded_training``). Each phase's start is logged with the seconds
 since the script started (``{"phase": ..., "t_s": ...}``).
 """
 import collections
@@ -418,6 +453,26 @@ TRAIN_SSM_LAYERS, TRAIN_SSM_STEPS = 8, 4
 TRAIN_LAUNCH_ARGS = ["--arch", "granite_3_2b", "--reduced", "--steps", "12",
                      "--ckpt-every", "4"]
 TRAIN_CRASH_AT = 7
+# phase 14: the sharded train step on a (4, 2) ("data", "model") mesh whose
+# eight positions all sit on the card
+SHARD_TRAIN_MESH = (4, 2)
+SHARD_TRAIN_BATCH = 4                # one train_4k sequence a data row
+SHARD_TRAIN_STEPS = 5                # step 0 warms up, 1-3 are timed,
+SHARD_TRAIN_TIMED = (1, 2, 3)        # the last runs under torch.profiler
+SHARD_TRAIN_PROFILE_STEP = SHARD_TRAIN_STEPS - 1
+SHARD_LOSS_ABS = 1e-2                # 14a: bf16 sharded vs one device
+# 14b: fp32, 2 layers, against the single-device step: (arch, sequence)
+SHARD_EXACT = (("granite_3_2b", 4096), ("phi4_mini_3p8b", 1024))
+SHARD_REL = 1e-5                     # loss, grad_norm, lr
+# each gradient leaf, of its largest magnitude: fp32 sums over 16,384
+# tokens put the sharded leaves up to 1.40e-5 from one device's, and one
+# device up to 1.42e-5 from itself with its batch in two halves (H100,
+# PERF.md's PR 24 entry); the bound is twice that, for every leaf
+SHARD_GRAD_REL = 3e-5
+SHARD_PARAM_TIGHT = 1e-6             # parameters within 2 lr everywhere,
+SHARD_PARAM_LOOSE_SHARE = 1e-3       # within 1e-6 but on 0.1%
+PIPE_STAGES, PIPE_MICRO, PIPE_TOKENS = 4, 8, 512     # 14c
+COMPRESS_BLOCK, COMPRESS_STEPS = (2048, 8192), 20    # 14d
 _CU = "src/repro_torch/kernels/csrc/"
 CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
         "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
@@ -1204,6 +1259,25 @@ def swap_in(swaps):
     for m, a, v in swaps:
         setattr(m, a, v)
     return old
+
+
+def timed_calls(module, attr):
+    """Swap ``module.<attr>`` for a wrapper that records a pair of CUDA
+    events around each call; returns (the list of (start, end) pairs, the
+    swaps that undo it)."""
+    import torch
+
+    real, events = getattr(module, attr), []
+
+    def timed(*a, **kw):
+        e = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = real(*a, **kw)
+        e[1].record()
+        events.append(e)
+        return out
+    return events, swap_in([(module, attr, timed)])
 
 
 def check_launches(what, kernels, before, c, steps, plain=False):
@@ -3274,23 +3348,25 @@ def stub_phase(katt, counters) -> tuple:
 
 # ------------------------------------------------------ 13. training
 def profile_once(fn):
-    """``fn()`` once under ``torch.profiler`` -> (its result, host wall ms,
-    {kernel: device ms}, device kernels); the dict is empty when the
-    profiler saw no device activity."""
+    """``fn()`` once under ``torch.profiler`` with the CUDA activity alone,
+    the device kernels read from the profiler's raw events (no event tree:
+    a sharded step launches ~10^5 kernels, and the tree over them took
+    ~110 s) -> (its result, host wall ms, {kernel: device ms}, device
+    kernels); the dict is empty when the profiler saw no device
+    activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     dev, n = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev[e.name] = dev.get(e.name, 0.0) + e.device_time_total / 1e3
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            dev[e.name()] = dev.get(e.name(), 0.0) + e.duration_ns() / 1e6
             n += 1
     return out, wall, dev, n
 
@@ -3366,18 +3442,7 @@ def train_run(tag, cfg, steps, counters, kernels, profile_at, must_fall):
                          "seq": TRAIN_SEQ, "steps": steps, "remat": True,
                          "lr": TRAIN_LR, "warmup_steps": ocfg.warmup_steps,
                          **sizes, "init_s": time.perf_counter() - t0}})
-    events = []
-    update = tstep.adamw_update
-
-    def timed_update(*a, **kw):
-        e = (torch.cuda.Event(enable_timing=True),
-             torch.cuda.Event(enable_timing=True))
-        e[0].record()
-        out = update(*a, **kw)
-        e[1].record()
-        events.append(e)
-        return out
-
+    events, old = timed_calls(tstep, "adamw_update")
     plain_calls = [0]
     plain = katt.flash_attention_plain
 
@@ -3385,8 +3450,7 @@ def train_run(tag, cfg, steps, counters, kernels, profile_at, must_fall):
         plain_calls[0] += 1
         return plain(*a, **kw)
 
-    old = swap_in([(tstep, "adamw_update", timed_update),
-                   (katt, "flash_attention_plain", counted_plain)])
+    old += swap_in([(katt, "flash_attention_plain", counted_plain)])
     prefetch = Prefetcher(train_stream(cfg), transform=on_card)
     rows, prof = [], None
     torch.cuda.reset_peak_memory_stats()
@@ -3716,7 +3780,8 @@ def capture_first(module, attr, fn):
     return seen, swap_in([(module, attr, ns)])
 
 
-def flash_training_line(q, k, v, window: int) -> dict:
+def flash_training_line(q, k, v, window: int,
+                        name: str = "flash_attention[train]") -> dict:
     """B7 at the training shape (layer 0's captured bf16 q, k, v): the
     kernel's forward, the Function's backward (the plain derivative in
     query chunks) and both through autograd, beside the plain version and
@@ -3762,7 +3827,7 @@ def flash_training_line(q, k, v, window: int) -> dict:
     pairs = band_pairs(s, window)
     fwd_ops = 4 * b * hq * d * pairs
     io = 2 * (2 * q.numel() + 2 * k.numel())
-    line = {"name": "flash_attention[train]", "shape": {
+    line = {"name": name, "shape": {
         "q": list(q.shape), "k": list(k.shape)}, "window": window,
         "max_abs_err": f_err, "bound_share": f_share,
         "grad_max_abs_err": [e for e, _, _ in g_err],
@@ -3965,6 +4030,468 @@ def train_phase(katt, kssd, counters) -> tuple:
     function_overhead_line()
     log({"train_phase_s": time.perf_counter() - t_phase})
     return results, launches
+
+
+# ------------------------------------------------- 14. the sharded trainer
+def shard_mesh(shape=SHARD_TRAIN_MESH, axes=("data", "model")):
+    from repro_torch.launch.mesh import make_test_mesh
+
+    return make_test_mesh(shape, axes, devices=[DEVICE] * math.prod(shape))
+
+
+def bits(t):
+    """A tensor's bits, for exact comparisons (NaNs and -0 included)."""
+    import torch
+
+    words = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.contiguous().view(words[t.element_size()])
+
+
+def position_bytes(tree) -> list:
+    """The bytes each mesh position holds of a tree of placed values."""
+    from repro_torch.utils.tree import leaves
+
+    ls = leaves(tree)
+    return [sum(s.blocks[p].numel() * s.blocks[p].element_size()
+                for s in ls) for p in range(len(ls[0].blocks))]
+
+
+def distinct_bytes(tree) -> int:
+    from repro_torch.sharding.placement import unique_blocks
+    from repro_torch.utils.tree import leaves
+
+    return sum(b.numel() * b.element_size() for s in leaves(tree)
+               for _, b in unique_blocks(s))
+
+
+def sharded_granite_run(counters) -> dict:
+    """14a: granite_3_2b at full width and depth, bf16, seed 0, on a (4, 2)
+    mesh of the card: SHARD_TRAIN_STEPS steps of the sharded step on
+    ``SyntheticLM(vocab, 4096, 4, seed 0)`` (microbatches 1, remat on, the
+    launcher's AdamW), the step at SHARD_TRAIN_PROFILE_STEP profiled. The
+    first loss against the single-device ``loss_fn`` on the same parameters
+    and batch (run first, then freed), finite losses, every non-constant
+    leaf moved, ``flash_attention`` launched 8 positions x 40 layers x 2
+    (forward, remat recompute) a step and nothing else."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import MeshRules, place_tree
+    from repro_torch.sharding.placement import unique_blocks
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.tree import paths
+
+    cfg = get_arch(TRAIN_ARCH)
+    mesh = shard_mesh()
+    rules = MeshRules(mesh)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, SHARD_TRAIN_BATCH, "train")
+    ocfg = train_adamw(SHARD_TRAIN_STEPS)
+    step, in_sh, _, _ = tstep.build_train_step(cfg, shape, rules, ocfg,
+                                               microbatches=1, remat=True)
+    stream = SyntheticLM(cfg.vocab, TRAIN_SEQ, SHARD_TRAIN_BATCH, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    with torch.no_grad():
+        single = float(tf.loss_fn(params, cfg, on_card(stream.batch_at(0)),
+                                  remat=False))
+    single_peak = torch.cuda.max_memory_allocated()
+    pd = place_tree(params, in_sh[0])
+    del params
+    torch.cuda.empty_cache()
+    opt = tstep.sharded_adamw_init(pd)
+    init_s = time.perf_counter() - t0
+    named = [(f"{k}#{p}", b) for k, s in paths(pd)
+             for p, b in unique_blocks(s)]
+    init = [b.to("cpu", copy=True) for _, b in named]
+    held = {"param_bytes_by_position": position_bytes(pd),
+            "adamw_state_bytes_by_position": position_bytes(
+                {"mu": opt["mu"], "nu": opt["nu"]}),
+            "param_bytes_distinct": distinct_bytes(pd),
+            "adamw_state_bytes_distinct": distinct_bytes(
+                {"mu": opt["mu"], "nu": opt["nu"]})}
+    log({"shard_train_model": {
+        "arch": cfg.name, "mesh": list(SHARD_TRAIN_MESH),
+        "positions_on": str(mesh.flat[0]), "layers": cfg.n_layers,
+        "batch": SHARD_TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": SHARD_TRAIN_STEPS, "dtype": cfg.dtype, "init_s": init_s,
+        "single_device_loss": single,
+        "single_device_peak_bytes": single_peak, **held,
+        "embed_spec": str(pd["embed"].spec),
+        "wq_spec": str(pd["blocks"]["attn"]["wq"].spec)}})
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    seen, old = capture_first(mattn, "katt", "flash_attention")
+    events, undo = timed_calls(tstep, "_sharded_adamw")
+    old += undo
+    for fn in counters.values():
+        fn.launches = 0
+    t_run = time.perf_counter()
+    try:
+        pd, opt, prof = run_steps(step, pd, opt, stream, in_sh, rows,
+                                  events)
+    finally:
+        swap_in(old)
+    wall = time.perf_counter() - t_run
+    got = {k: fn.launches for k, fn in counters.items()}
+    want = 8 * cfg.n_layers * 2 * SHARD_TRAIN_STEPS
+    log({"path": "sharded train", "launches": got,
+         "flash_attention_reckoned": want})
+    if got["flash_attention"] != want or any(
+            n for k, n in got.items() if k != "flash_attention"):
+        raise RuntimeError(f"sharded train: launches {got}, expected "
+                           f"flash_attention {want} and nothing else")
+    peak = torch.cuda.max_memory_allocated()
+    moved = params_moved("sharded granite", named, init)
+    del init, named, pd, opt
+    torch.cuda.empty_cache()
+    (q, k, v, *rest), kw = seen[0]          # position (0, 0), layer 0
+    flash = flash_training_line(q.detach(), k.detach(), v.detach(),
+                                rest[0] if rest else kw.get("window", 0),
+                                "flash_attention[sharded]")
+    del q, k, v, seen
+    timed = [r["step_ms"] for r in rows if r["step"] in SHARD_TRAIN_TIMED]
+    step_ms = statistics.median(timed)
+    tokens = SHARD_TRAIN_BATCH * TRAIN_SEQ
+    line = {"arch": cfg.name, "mesh": list(SHARD_TRAIN_MESH),
+            "losses": [r["loss"] for r in rows],
+            "grad_norms": [r["grad_norm"] for r in rows],
+            "first_loss": rows[0]["loss"], "single_device_loss": single,
+            "first_loss_abs_diff": abs(rows[0]["loss"] - single),
+            "step_ms": [r["step_ms"] for r in rows],
+            "adamw_ms": [r["adamw_ms"] for r in rows],
+            "warmup_step_ms": rows[0]["step_ms"],
+            "step_ms_median_timed": step_ms,
+            "adamw_ms_median_timed": statistics.median(
+                r["adamw_ms"] for r in rows
+                if r["step"] in SHARD_TRAIN_TIMED),
+            "tokens_per_s_median_step": tokens / (step_ms / 1e3),
+            "tokens_per_s_run_wall": tokens * SHARD_TRAIN_STEPS / wall,
+            "peak_memory_bytes": peak, "memory_before_bytes": base_mem,
+            "launches": got, "profile": prof, "moved": moved, **held,
+            "flash_attention": flash}
+    log({"shard_train_run": line})
+    bad = [r for r in rows if not (math.isfinite(r["loss"])
+                                   and math.isfinite(r["grad_norm"]))]
+    if bad or line["first_loss_abs_diff"] > SHARD_LOSS_ABS:
+        raise RuntimeError(f"sharded train: not finite {bad}, or the first "
+                           f"loss {rows[0]['loss']} differs from the single-"
+                           f"device loss {single} by more than "
+                           f"{SHARD_LOSS_ABS}")
+    return line
+
+
+def run_steps(step, pd, opt, stream, in_sh, rows, events):
+    """14a's SHARD_TRAIN_STEPS steps, each timed by CUDA events, the step
+    at SHARD_TRAIN_PROFILE_STEP under :func:`profile_once`; appends a row
+    per step to ``rows``, with the AdamW update's time from ``events``
+    (:func:`timed_calls`). Returns (params, opt state, the profile)."""
+    import torch
+
+    from repro_torch.sharding import gather, place_tree
+
+    prof = None
+    for i in range(SHARD_TRAIN_STEPS):
+        batch = place_tree(on_card(stream.batch_at(i)), in_sh[2])
+
+        def one():
+            return step(pd, opt, batch)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if i == SHARD_TRAIN_PROFILE_STEP:
+            t_prof = time.perf_counter()
+            (pd, opt, m), wall, dev, n_k = profile_once(one)
+            prof = {"step": i, "wall_ms": wall,
+                    "device_ms": sum(dev.values()), "device_kernels": n_k,
+                    "device_busy_share": sum(dev.values()) / wall
+                    if dev else None,
+                    "profiler_s": time.perf_counter() - t_prof,
+                    "top_kernels": {k[:120]: v for k, v in sorted(
+                        dev.items(), key=lambda kv: -kv[1])[:10]}}
+        else:
+            pd, opt, m = one()
+        b.record()
+        b.synchronize()
+        ua, ub = events[-1]
+        rows.append({"step": i, **{k: float(gather(v)) for k, v in
+                                   m.items()}, "step_ms": a.elapsed_time(b),
+                     "adamw_ms": ua.elapsed_time(ub)})
+        log({"shard_train_step": rows[-1]})
+    return pd, opt, prof
+
+
+def sharded_exact(arch: str, seq: int, keep: bool = False):
+    """14b: the fp32 2-layer ``arch`` on ``SyntheticLM(vocab, seq, 4,
+    seed 0)``: the sharded step's loss and every gathered gradient leaf
+    (``sharded_value_and_grad``), then its updated parameters, loss,
+    grad_norm and lr, against the single-device ``value_and_grad`` and
+    ``train_step`` on the same parameters and batch. Returns the placed
+    (parameters, AdamW state) where ``keep``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import MeshRules, gather, place_tree
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.tree import leaves, paths
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=TRAIN_CHECK_LAYERS,
+                              dtype="float32")
+    rules = MeshRules(shard_mesh())
+    shape = ShapeConfig("exact", seq, SHARD_TRAIN_BATCH, "train")
+    ocfg = train_adamw(TRAIN_STEPS)
+    step, in_sh, _, _ = tstep.build_train_step(cfg, shape, rules, ocfg,
+                                               microbatches=1, remat=True)
+    batch = on_card(SyntheticLM(cfg.vocab, seq, SHARD_TRAIN_BATCH,
+                                seed=0).batch_at(0))
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    pd = place_tree(params, in_sh[0])
+    bd = place_tree(batch, in_sh[2])
+    t0 = time.perf_counter()
+    l1, g1 = tstep.sharded_value_and_grad(pd, cfg, bd, rules)
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    l0, g0 = tstep.value_and_grad(params, cfg, batch)
+    grad_err, repeat_err = {}, {}
+    for (k, a), b in zip(paths(g1), g0):
+        grad_err[k] = float((gather(a) - b).abs().max()
+                            / b.abs().max().clamp(min=1e-30))
+    del g1
+    # the single-device path under another order of summation (its batch
+    # in two halves, the gradients averaged): the spread that fp32 sums of
+    # this length have, printed beside each leaf's error
+    halves = [tstep.value_and_grad(params, cfg, {
+        k: v[h * SHARD_TRAIN_BATCH // 2:(h + 1) * SHARD_TRAIN_BATCH // 2]
+        for k, v in batch.items()})[1] for h in (0, 1)]
+    for (k, _), a, b, c in zip(paths(pd), *halves, g0):
+        repeat_err[k] = float(((a + b) / 2 - c).abs().max()
+                              / c.abs().max().clamp(min=1e-30))
+    del g0, halves
+    opt = tstep.sharded_adamw_init(pd)
+    pd, opt, m1 = step(pd, opt, bd)
+    params, _, m0 = tstep.train_step(params, topt.adamw_init(params), batch,
+                                     cfg, ocfg)
+    lr = float(m0["lr"])
+    worst, loose, n = 0.0, 0, 0
+    for a, b in zip(leaves(pd), leaves(params)):
+        d = (gather(a) - b).abs()
+        worst = max(worst, float(d.max()))
+        loose += int((d > SHARD_PARAM_TIGHT).sum())
+        n += d.numel()
+    rel = {k: abs(float(gather(m1[k])) - float(m0[k]))
+           / max(abs(float(m0[k])), 1e-30) for k in ("loss", "grad_norm",
+                                                      "lr")}
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "batch":
+            SHARD_TRAIN_BATCH, "seq": seq, "vocab_spec": str(
+                pd["embed"].spec), "loss": float(gather(m1["loss"])),
+            "single_loss": float(m0["loss"]),
+            "value_and_grad_loss_rel": abs(float(gather(l1)) - float(l0))
+            / abs(float(l0)), "metric_rel": rel,
+            "grad_rel_worst": max(grad_err.values()),
+            "grad_rel_worst_leaf": max(grad_err, key=grad_err.get),
+            "grad_rel_by_leaf": grad_err,
+            "single_halves_grad_rel_by_leaf": repeat_err,
+            "grad_bound": SHARD_GRAD_REL,
+            "param_abs_worst": worst, "param_bound": 2 * lr,
+            "param_elements_past_1e-6": loose, "param_elements": n,
+            "sharded_value_and_grad_s": vg_s}
+    log({"shard_exact": line})
+    if (line["value_and_grad_loss_rel"] > SHARD_REL
+            or max(rel.values()) > SHARD_REL
+            or line["grad_rel_worst"] > SHARD_GRAD_REL
+            or worst > 2 * lr or loose > SHARD_PARAM_LOOSE_SHARE * n):
+        raise RuntimeError(f"sharded step against one device: {line}")
+    del params, l0, l1
+    if keep:
+        return pd, opt
+    del pd, opt
+    torch.cuda.empty_cache()
+    return None
+
+
+def elastic_check(params, opt, scratch: Path) -> dict:
+    """14e: ``save`` of 14b's placed granite state (parameters, moments,
+    step) from the (4, 2) mesh, ``restore`` onto one device and back onto
+    the mesh: the step and every bit as saved."""
+    import torch
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.sharding import NamedSharding, gather
+    from repro_torch.sharding.placement import shape_dtype
+    from repro_torch.utils.tree import paths, tree_map
+
+    shutil.rmtree(scratch, ignore_errors=True)
+    tree = {"params": params, "opt": opt}
+    step_no = int(gather(opt["step"]))
+    t0 = time.perf_counter()
+    ckpt.save(str(scratch), step_no, tree)
+    save_s = time.perf_counter() - t0
+    like = tree_map(tree, shape_dtype)
+    t0 = time.perf_counter()
+    s1, one = ckpt.restore(str(scratch), like, device=DEVICE)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    same_one = all(torch.equal(bits(gather(a)), bits(b)) for (_, a), (_, b)
+                   in zip(paths(tree), paths(one)))
+    del one
+    layouts = tree_map(tree, lambda s: NamedSharding(s.mesh, s.spec))
+    t0 = time.perf_counter()
+    s2, back = ckpt.restore(str(scratch), like, shardings=layouts)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    same_mesh = all(a.spec == b.spec and all(
+        torch.equal(bits(x), bits(y)) for x, y in zip(a.blocks, b.blocks))
+        for (_, a), (_, b) in zip(paths(tree), paths(back)))
+    files = sum(f.stat().st_size for f in scratch.rglob("*") if f.is_file())
+    line = {"step": step_no, "restored_steps": [s1, s2],
+            "file_bytes": files, "save_s": save_s,
+            "restore_one_device_s": one_s, "restore_mesh_s": mesh_s,
+            "bits_equal_one_device": same_one, "bits_equal_mesh": same_mesh}
+    log({"shard_elastic": line})
+    shutil.rmtree(scratch, ignore_errors=True)
+    if not (same_one and same_mesh and s1 == s2 == step_no):
+        raise RuntimeError(f"elastic restore: {line}")
+    return line
+
+
+def gpipe_check() -> dict:
+    """14c: granite_3_2b's 40 bf16 layers (seed 0) as PIPE_STAGES stages
+    over a ("pod",) mesh of the card, PIPE_MICRO microbatches of 1 x
+    PIPE_TOKENS token rows forward through ``gpipe``, against the same
+    layers run in sequence: equal bits."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import gather
+    from repro_torch.sharding.pipeline import bubble_fraction, gpipe
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_arch(TRAIN_ARCH)
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    per = cfg.n_layers // PIPE_STAGES
+    stages = tree_map(params["blocks"], lambda t: t.view(
+        PIPE_STAGES, per, *t.shape[1:]))
+    g = torch.Generator(device="cpu").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (PIPE_MICRO, 1, PIPE_TOKENS),
+                           generator=g).to(DEVICE)
+    rot = mattn.rot_tables(cfg, torch.arange(PIPE_TOKENS, device=DEVICE))
+
+    def stage(p, x):
+        for pl in tf._layers(p):
+            x = tf._block_full(x, pl, cfg, rot)[0]
+        return x
+
+    mesh = shard_mesh((PIPE_STAGES,), ("pod",))
+    with torch.no_grad():
+        xs = params["embed"][tokens.long()]             # (M, 1, S, d)
+        t0 = time.perf_counter()
+        ys = gather(gpipe(stage, mesh, "pod")(stages, xs))
+        torch.cuda.synchronize()
+        piped_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = torch.stack([stage(params["blocks"], xs[i])
+                           for i in range(PIPE_MICRO)])
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    line = {"stages": PIPE_STAGES, "layers_per_stage": per,
+            "microbatches": PIPE_MICRO, "tokens": PIPE_TOKENS,
+            "dtype": cfg.dtype, "bubble_fraction": bubble_fraction(
+                PIPE_STAGES, PIPE_MICRO), "piped_s": piped_s,
+            "sequential_s": seq_s, "bits_equal": torch.equal(
+                bits(ys), bits(ref)),
+            "max_abs_err": float((ys.float() - ref.float()).abs().max())}
+    log({"shard_gpipe": line})
+    if not line["bits_equal"]:
+        raise RuntimeError(f"gpipe differs from the sequential layers: "
+                           f"{line}")
+    return line
+
+
+def compression_check() -> dict:
+    """14d: ``compressed_psum_mean`` of 8 seeded fp32 blocks of one
+    granite layer's ``wu`` size over a ("data",) mesh of 8 on the card,
+    against the same on the CPU (equal bits) and the exact mean (within
+    2 max|g| / 127); then COMPRESS_STEPS steps of ``apply_error_feedback``
+    on a constant gradient (a linspace over [-1, 1]), its drift under
+    2e-3."""
+    import torch
+
+    from repro_torch.sharding import gather, place
+    from repro_torch.train.compress import (apply_error_feedback,
+                                            compressed_psum_mean)
+
+    r, c = COMPRESS_BLOCK
+    g = torch.Generator(device="cpu").manual_seed(0)
+    gs = torch.randn(8 * r, c, generator=g)
+    mesh = shard_mesh((8,), ("data",))
+    cpu_mesh = dataclasses.replace(mesh, flat=(torch.device("cpu"),) * 8)
+    t0 = time.perf_counter()
+    card = gather(compressed_psum_mean(place(gs, mesh, ("data",)), "data"),
+                  "cpu")
+    card_s = time.perf_counter() - t0
+    host = gather(compressed_psum_mean(place(gs, cpu_mesh, ("data",)),
+                                       "data"))
+    exact = gs.double().view(8, r, c).mean(0)
+    err = float((card.view(8, r, c)[0].double() - exact).abs().max())
+    bound = 2 * float(gs.abs().max()) / 127
+    same = torch.equal(bits(card), bits(host))
+    rows_equal = all(torch.equal(card.view(8, r, c)[i], card.view(8, r, c)[0])
+                     for i in range(8))
+    del host, exact
+    const = torch.linspace(-1, 1, r * c).view(r, c).repeat(8, 1)
+    gp = place(const, mesh, ("data",))
+    e = place(torch.zeros_like(const), mesh, ("data",))
+    tot = torch.zeros(r, c, dtype=torch.float64, device=DEVICE)
+    for _ in range(COMPRESS_STEPS):
+        avg, e = apply_error_feedback(gp, e, "data")
+        tot += avg.blocks[0].double()
+    drift = float((tot.cpu() / COMPRESS_STEPS - const[:r].double()).abs()
+                  .max())
+    line = {"blocks": 8, "block": [r, c], "bits_equal_cpu": same,
+            "blocks_equal": rows_equal, "max_abs_err": err,
+            "error_bound": bound, "card_s": card_s,
+            "error_feedback_steps": COMPRESS_STEPS, "drift": drift}
+    log({"shard_compression": line})
+    if not (same and rows_equal and err < bound and drift < 2e-3):
+        raise RuntimeError(f"gradient compression on the card: {line}")
+    return line
+
+
+def sharded_train_phase(counters) -> dict:
+    """14. The sharded trainer on the card (a-e of the module docstring).
+    Returns 14a's line."""
+    import torch
+
+    t_phase = time.perf_counter()
+    mark("14a")
+    run = sharded_granite_run(counters)
+    mark("14b")
+    sharded_exact(*SHARD_EXACT[1])
+    params, opt = sharded_exact(*SHARD_EXACT[0], keep=True)
+    mark("14e")
+    elastic_check(params, opt, ROOT / "build" / "chip_smoke_elastic")
+    del params, opt
+    torch.cuda.empty_cache()
+    mark("14c")
+    gpipe_check()
+    torch.cuda.empty_cache()
+    mark("14d")
+    compression_check()
+    log({"shard_phase_s": time.perf_counter() - t_phase})
+    return run
 
 
 def main() -> int:
@@ -4832,8 +5359,13 @@ def main() -> int:
     mark("13")
     train_results, train_launches = train_phase(katt, kssd, counters)
 
-    # ------------------------------------------------------------ 14. report
+    # ------------------------------------------------- 14. the sharded trainer
+    torch.cuda.empty_cache()
     mark("14")
+    shard_run = sharded_train_phase(counters)
+
+    # ------------------------------------------------------------ 15. report
+    mark("15")
     entries = []
     for k in counters:
         r_ = results[k]
@@ -4858,6 +5390,16 @@ def main() -> int:
             entry["training"] = {
                 "launches": train_launches[k], "shape": t_["shape"],
                 **{key: t_.get(key) for key in (
+                    "max_abs_err", "kernel_ms", "backward_ms",
+                    "forward_backward_ms", "plain_ms", "bound_ms",
+                    "bound_by", "backward_bound_ms", "library_ms")}}
+        if k == "flash_attention":  # the sharded step's launches (14a)
+            f_ = shard_run["flash_attention"]
+            entry["sharded_training"] = {
+                "launches": shard_run["launches"][k],
+                "mesh": shard_run["mesh"], "shape": f_["shape"],
+                "step_ms_median": shard_run["step_ms_median_timed"],
+                **{key: f_.get(key) for key in (
                     "max_abs_err", "kernel_ms", "backward_ms",
                     "forward_backward_ms", "plain_ms", "bound_ms",
                     "bound_by", "backward_bound_ms", "library_ms")}}

@@ -14,6 +14,12 @@ directions. A bf16 leaf is written as its 2-byte words (uint16) with
 ``"bfloat16"`` in the manifest and read back by its bits; a ``|V2`` leaf
 of a bf16 manifest entry (what ``np.savez`` makes of the reference's
 ``ml_dtypes`` bf16 arrays) is read the same way.
+
+A leaf placed on a device mesh (``sharding.placement.Sharded``) is saved
+as its gathered array, in the same format; :func:`restore` with
+``shardings`` places each leaf by its layout on the current mesh. So a
+checkpoint saved on one mesh restores onto one device, or onto another
+mesh (elastic restore), as the reference's.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..sharding.placement import Sharded, gather, place, shape_dtype
 from ..utils.tree import paths, unflatten
 
 __all__ = ["save", "save_async", "restore", "latest_step", "wait_all"]
@@ -40,8 +47,9 @@ BF16 = "bfloat16"
 def _host(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
     """A leaf as (a numpy copy, its dtype's name): a bf16 tensor as its
     uint16 words. A copy also of a CPU tensor, whose ``.numpy()`` would
-    share its memory with the live tensor."""
-    t = leaf.detach()
+    share its memory with the live tensor. A placed leaf is gathered on
+    the host."""
+    t = gather(leaf, "cpu") if isinstance(leaf, Sharded) else leaf.detach()
     if t.dtype == torch.bfloat16:
         return (t.view(torch.int16).to("cpu", copy=True).numpy()
                 .view(np.uint16), BF16)
@@ -122,11 +130,13 @@ def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def restore(directory: str, like: Any, step: Optional[int] = None,
-            device=None) -> Tuple[int, Any]:
-    """Restore into the structure of ``like`` (a nested dict of tensors,
-    each giving its leaf's shape and dtype). Each leaf is cast to its
-    ``like`` leaf's dtype and placed on ``device`` (default: the ``like``
-    leaf's device)."""
+            device=None, shardings: Any = None) -> Tuple[int, Any]:
+    """Restore into the structure of ``like`` (a nested dict whose leaves
+    give each leaf's shape and dtype: tensors, placed values or ``(shape,
+    dtype)`` pairs). Each leaf is cast to that dtype and, where
+    ``shardings`` (a matching tree of ``NamedSharding`` s) is given,
+    placed by its layout on its mesh; otherwise put on ``device`` (default:
+    the ``like`` leaf's device, or the CPU for a pair)."""
     d = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -136,13 +146,20 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
     dtypes = {k: v["dtype"] for k, v in json.loads(
         (path / "manifest.json").read_text())["leaves"].items()}
     data = np.load(path / "arrays.npz")
+    layouts = dict(paths(shardings)) if shardings is not None else {}
     flat = []
     for key, ref in paths(like):
         arr = data[key]
-        if tuple(arr.shape) != tuple(ref.shape):
+        shape, dtype = shape_dtype(ref)
+        if tuple(arr.shape) != shape:
             raise ValueError(f"leaf {key}: checkpoint shape {arr.shape} != "
-                             f"expected {tuple(ref.shape)}")
-        flat.append(_tensor(arr, dtypes[key]).to(
-            device=ref.device if device is None else device,
-            dtype=ref.dtype))
+                             f"expected {shape}")
+        t = _tensor(arr, dtypes[key]).to(dtype)
+        if key in layouts:
+            flat.append(place(t, layouts[key].mesh, layouts[key].spec))
+            continue
+        if device is None and isinstance(ref, torch.Tensor):
+            flat.append(t.to(ref.device))
+        else:
+            flat.append(t.to("cpu" if device is None else device))
     return step, unflatten(like, flat)

@@ -1,5 +1,7 @@
 """Architecture configuration: ``ArchConfig``, its ``reduced()`` CPU-test
-variant and ``get_arch``.
+variant and ``get_arch``; the shape table (``ShapeConfig``, ``SHAPES``,
+``get_shape``) and the (model, shape) cells it spans (``cell_supported``,
+``all_cells``).
 
 The port's own copy of the reference's ``configs/base.py`` (which the port
 must not import): the dataclass is the same field for field, so a config
@@ -11,9 +13,10 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Tuple
+from typing import Dict, Tuple
 
-__all__ = ["ArchConfig", "ARCH_IDS", "get_arch"]
+__all__ = ["ArchConfig", "ARCH_IDS", "get_arch", "ShapeConfig", "SHAPES",
+           "get_shape", "cell_supported", "all_cells"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,3 +155,42 @@ def get_arch(arch_id: str) -> ArchConfig:
         raise KeyError(f"unknown architecture {arch_id!r}; this port serves "
                        f"{ARCH_IDS}")
     return importlib.import_module(f"{__package__}.{arch_id}").CONFIG
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cell_supported(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch: long_500k needs "
+                       "sub-quadratic attention (DESIGN.md §5)")
+    return True, ""
+
+
+def all_cells():
+    """All (arch, shape, supported, why) cells: every model of
+    :data:`ARCH_IDS` under every shape of :data:`SHAPES` (40 LM cells)."""
+    out = []
+    for aid in ARCH_IDS:
+        cfg = get_arch(aid)
+        for sname, shp in SHAPES.items():
+            ok, why = cell_supported(cfg, shp)
+            out.append((aid, sname, ok, why))
+    return out

@@ -10,7 +10,10 @@ position streams), optional QK-norm (Qwen3), causal or sliding-window.
   K/V, its absolute position and the advanced ``pos`` into the cache IN
   PLACE (the reference returns a new cache; ``index_put_`` here in place of
   ``.at[].set``).
-* :func:`init_decode_cache` / :func:`cache_window` — the cache.
+* :func:`init_decode_cache` / :func:`cache_window` — the cache
+  (:func:`decode_cache_shapes` its shapes, nothing allocated).
+* :func:`attn_logical` / :func:`decode_cache_logical` — the logical axes of
+  the attention leaves and of the cache (``sharding.rules``).
 
 Both kernels read the model's layouts through strides: q/k/v (B, S, H, D)
 and the cache (B, W, Hkv, D) go in as transposed views; nothing is copied.
@@ -26,7 +29,32 @@ from ..kernels import attention as katt
 from .layers import apply_rot, dense, mrope_tables, rms_norm, rope_tables
 
 __all__ = ["rot_tables", "attention_full", "attention_decode", "cache_window",
-           "init_decode_cache"]
+           "init_decode_cache", "decode_cache_shapes", "attn_logical",
+           "decode_cache_logical"]
+
+
+def attn_logical(cfg) -> Dict[str, tuple]:
+    """The logical axes of the attention leaves (the reference's)."""
+    p = {
+        "wq": (None, "w_embed", "heads"),
+        "wk": (None, "w_embed", "kv"),
+        "wv": (None, "w_embed", "kv"),
+        "wo": (None, "heads", "w_embed"),
+    }
+    if cfg.qk_norm:
+        p["qn"] = (None, None)
+        p["kn"] = (None, None)
+    return p
+
+
+def decode_cache_logical() -> Dict[str, tuple]:
+    """The logical axes of the stacked decode cache (the reference's)."""
+    return {
+        "k": (None, "batch", "kv_seq", "kv", None),
+        "v": (None, "batch", "kv_seq", "kv", None),
+        "abs_pos": (None, "batch", None),
+        "pos": (None, "batch"),
+    }
 
 
 def rot_tables(cfg, positions):
@@ -99,17 +127,22 @@ def attention_decode(x, p, cfg, cache, rot) -> torch.Tensor:
     return dense(out.reshape(b, 1, cfg.attn_dim), p["wo"])
 
 
+def decode_cache_shapes(cfg, batch: int, seq_len: int, dtype
+                        ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{name: (shape, dtype)} of :func:`init_decode_cache`'s tensors."""
+    w = cache_window(cfg, seq_len)
+    nl = cfg.n_layers
+    kv = (nl, batch, w, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": (kv, dtype), "v": (kv, dtype),
+            "abs_pos": ((nl, batch, w), torch.int32),
+            "pos": ((nl, batch), torch.int32)}
+
+
 def init_decode_cache(cfg, batch: int, seq_len: int, dtype, device
                       ) -> Dict[str, torch.Tensor]:
     """Per-layer KV cache, stacked: k/v (L, B, W, Hkv, Dh) zeros, abs_pos
     (L, B, W) -1 (empty), pos (L, B) 0."""
-    w = cache_window(cfg, seq_len)
-    nl = cfg.n_layers
-    kv = (nl, batch, w, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(kv, dtype=dtype, device=device),
-        "v": torch.zeros(kv, dtype=dtype, device=device),
-        "abs_pos": torch.full((nl, batch, w), -1, dtype=torch.int32,
-                              device=device),
-        "pos": torch.zeros((nl, batch), dtype=torch.int32, device=device),
-    }
+    fill = {"abs_pos": -1}
+    return {k: torch.full(shape, fill.get(k, 0), dtype=dt, device=device)
+            for k, (shape, dt) in decode_cache_shapes(cfg, batch, seq_len,
+                                                      dtype).items()}

@@ -44,7 +44,8 @@ import torch.nn.functional as F
 
 from .layers import Leaf
 
-__all__ = ["CHUNK_TOKENS", "CAPACITY_FACTOR", "moe_param_shapes", "capacity",
+__all__ = ["CHUNK_TOKENS", "CAPACITY_FACTOR", "moe_param_shapes", "moe_logical",
+           "capacity",
            "route", "Routing", "moe_ffn", "MoEStats", "stats"]
 
 CHUNK_TOKENS = 65536   # dispatch chunk: bounds the live routing buffers
@@ -110,6 +111,19 @@ def moe_param_shapes(cfg) -> Dict[str, Leaf]:
     p = {"router": Leaf((nl, d, e), d, dtype=torch.float32),
          "wg": Leaf((nl, e, d, f), d), "wu": Leaf((nl, e, d, f), d),
          "wd": Leaf((nl, e, f, d), f)}
+    if not cfg.mlp_gated:
+        del p["wg"]
+    return p
+
+
+def moe_logical(cfg) -> Dict[str, tuple]:
+    """The logical axes of the ``moe`` leaves (the reference's): experts
+    over the expert axis (``data`` by default), their hidden width over
+    ``model``."""
+    p = {"router": (None, "w_embed", None),
+         "wg": (None, "experts", "w_embed", "ff"),
+         "wu": (None, "experts", "w_embed", "ff"),
+         "wd": (None, "experts", "ff", "w_embed")}
     if not cfg.mlp_gated:
         del p["wg"]
     return p

@@ -1,0 +1,299 @@
+"""The sharded forward and loss of the attention families (``dense``,
+``vlm``, ``audio``): FSDP over the batch axes and tensor parallelism over
+``model``, written out explicitly under one controller — what GSPMD makes
+of the reference's ``forward_train`` / ``loss_fn`` under its rule table.
+
+Every value is a placed value (``sharding.placement.Sharded``): the
+parameters as ``train.step.param_shardings`` lays them out, the batch
+split over the batch axes. Per data row and per ``model`` position:
+
+* **FSDP.** Each weight's ``w_embed`` dimension is gathered over the batch
+  axes inside the block that remat checkpoints, so the backward gathers it
+  again and only the shards stay alive between layers.
+* **Attention.** Position ``j`` of ``model`` takes query heads ``[j*Hq/m,
+  (j+1)*Hq/m)`` and the kv heads they read under GQA (``h // group``);
+  the port's own ``attention.attention_full`` runs on the local slices of
+  ``wq``, ``wk``, ``wv`` and ``wo`` with those head counts (the
+  ``flash_attention`` kernel on the local heads), and the partial ``wo``
+  products are summed over ``model``. A weight whose split does not fall
+  on those heads (a kv dimension split inside a head, or one left whole)
+  is gathered over ``model`` and sliced.
+* **MLP.** The local ``ff`` slices of ``wg`` / ``wu`` / ``wd``, then a sum
+  over ``model``.
+* **Vocab-parallel embedding and head** where the vocab splits over
+  ``model``: each position looks up the tokens in its vocab range (zero
+  elsewhere) and the rows are summed; the logits stay split, and the cross
+  entropy's logsumexp takes a ``pmax`` and a ``psum`` of the exponentials,
+  the target's logit from the position that holds it. With
+  ``tie_embeddings`` the head is the embedding's transpose; where the
+  vocab is whole, so is the head on each position.
+* **The loss** is the batch's global masked mean: the masked NLL sum and
+  the mask count summed over the batch axes, then divided.
+
+``sharding.constrain`` is called where the reference calls it (the
+embedded rows, each block's output, the MLP's hidden, the logits); the
+layouts above are the ones the rules resolve, so each returns its value.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..sharding import constrain, use_rules
+from ..sharding.placement import Sharded, all_gather, pmax, psum, smap
+from . import attention as attn
+from . import transformer as tf
+from .layers import dense, rms_norm
+
+__all__ = ["FAMILIES", "Plan", "check_sharded", "loss_fn"]
+
+FAMILIES = ("dense", "vlm", "audio")
+
+
+def check_sharded(cfg, rules=None) -> None:
+    """Raise ``NotImplementedError`` for a config (or rules) the sharded
+    step does not cover; never run such a config unsharded."""
+    tf.check_supported(cfg)
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the sharded train step covers the attention "
+            f"families {FAMILIES}; the {cfg.family} family's (expert "
+            "parallelism, the split SSM) is ROADMAP A10.4 part 2")
+    if rules is not None and rules.seq_sharding:
+        raise NotImplementedError(
+            "the sharded train step does not split the sequence "
+            "(seq_sharding=True); ROADMAP A10.4 part 2")
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The mesh axes of the step: ``dp`` the batch axes, ``tp`` the model
+    axis (empty where the mesh has none) and ``m`` its extent."""
+    dp: Tuple[str, ...]
+    tp: Tuple[str, ...]
+    m: int
+
+    @classmethod
+    def of(cls, rules) -> "Plan":
+        names = rules.mesh.axis_names
+        dp = tuple(a for a in rules.axis_for("batch") if a in names)
+        tp = ("model",) if "model" in names else ()
+        return cls(dp, tp, rules.extent(tp))
+
+
+def _fsdp(w: Sharded, dim: int) -> Sharded:
+    """``w`` gathered whole along its ``w_embed`` dimension ``dim``."""
+    return all_gather(w, w.spec.axes(dim), dim)
+
+
+def _ranges(n: int, m: int) -> List[Tuple[int, int]]:
+    return [(j * n // m, (j + 1) * n // m) for j in range(m)]
+
+
+def _take(w: Sharded, dim: int, cols, plan: Plan) -> Sharded:
+    """Position ``j`` of ``model``'s part of ``w`` along ``dim``: ``cols[j]``
+    a ``(lo, hi)`` range or a list of indices. A weight already split over
+    ``model`` at those ranges is itself; otherwise it is gathered over
+    what splits ``dim`` and each position takes its part."""
+    have = w.spec.axes(dim)
+    if have:
+        n = w.shape[dim] // plan.m
+        if have == plan.tp and all(c == (j * n, (j + 1) * n)
+                                   for j, c in enumerate(cols)):
+            return w
+        w = all_gather(w, have, dim)
+
+    def part(j, b):
+        c = cols[j]
+        if isinstance(c, tuple):
+            return b.narrow(dim, c[0], c[1] - c[0])
+        return b.index_select(dim, torch.tensor(c, device=b.device))
+    return smap(part, w, coord=plan.tp)
+
+
+def _heads(cfg, plan: Plan):
+    """Per ``model`` position: its query head range, the kv heads it reads
+    (a range where each serves the same number of its query heads, else
+    one per query head) and its local config."""
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if hq < plan.m:
+        raise NotImplementedError(f"{cfg.name}: {hq} query heads over "
+                                  f"{plan.m} model positions")
+    group = hq // hkv
+    q_cols, kv_cols, cfgs = [], [], []
+    for h0, h1 in _ranges(hq, plan.m):
+        kvs = [h // group for h in range(h0, h1)]
+        ks = sorted(set(kvs))
+        counts = {kvs.count(k) for k in ks}
+        if len(counts) == 1:
+            kv_cols.append((ks[0] * dh, (ks[-1] + 1) * dh))
+            n_kv = len(ks)
+        else:
+            kv_cols.append([k * dh + i for k in kvs for i in range(dh)])
+            n_kv = len(kvs)
+        q_cols.append((h0 * dh, h1 * dh))
+        cfgs.append(dataclasses.replace(cfg, n_heads=h1 - h0,
+                                        n_kv_heads=n_kv))
+    return q_cols, kv_cols, cfgs
+
+
+def _reduced(partial: Sharded, like: Sharded, plan: Plan) -> Sharded:
+    """The per-position partial sums summed over ``model``, laid out as
+    ``like``."""
+    s = psum(partial, plan.tp)
+    return Sharded(like.shape, like.spec, like.mesh, s.blocks)
+
+
+def _attention(h: Sharded, p: Dict[str, Sharded], cfg, rot, plan: Plan
+               ) -> Sharded:
+    q_cols, kv_cols, cfgs = _heads(cfg, plan)
+    o_rows = q_cols
+    wq = _take(_fsdp(p["wq"], 0), 1, q_cols, plan)
+    wk = _take(_fsdp(p["wk"], 0), 1, kv_cols, plan)
+    wv = _take(_fsdp(p["wv"], 0), 1, kv_cols, plan)
+    wo = _take(_fsdp(p["wo"], 1), 0, o_rows, plan)
+    norms = [p[k] for k in ("qn", "kn") if cfg.qk_norm]
+
+    def local(j, x, wq, wk, wv, wo, cos, sin, *qk):
+        pl = {"wq": wq, "wk": wk, "wv": wv, "wo": wo,
+              **dict(zip(("qn", "kn"), qk))}
+        return attn.attention_full(x, pl, cfgs[j], (cos, sin))[0]
+    part = smap(local, h, wq, wk, wv, wo, *rot, *norms, coord=plan.tp)
+    return _reduced(part, h, plan)
+
+
+def _mlp(h: Sharded, p: Dict[str, Sharded], cfg, plan: Plan) -> Sharded:
+    cols = _ranges(cfg.d_ff, plan.m)
+    wu = _take(_fsdp(p["wu"], 0), 1, cols, plan)
+    wd = _take(_fsdp(p["wd"], 1), 0, cols, plan)
+    even = cfg.d_ff % plan.m == 0
+    out = (tuple(h.spec) + (None,) * (2 - len(h.spec)) + plan.tp
+           if even else None)
+    names = ("wu", "wg") if cfg.mlp_gated else ("wu",)
+    ws = [wu] + ([_take(_fsdp(p["wg"], 0), 1, cols, plan)]
+                 if cfg.mlp_gated else [])
+    hid = smap(lambda x, *w: tf.mlp_hidden(x, dict(zip(names, w)), cfg),
+               h, *ws, out=out)
+    hid = constrain(hid, ("batch", "seq", "ff"))
+    return _reduced(smap(dense, hid, wd), h, plan)
+
+
+def _block(x: Sharded, pl: Dict[str, Any], cfg, rot, plan: Plan) -> Sharded:
+    """One attention + MLP block over every position (the reference's
+    ``_block_train`` of the dense, vlm and audio families)."""
+    h = smap(rms_norm, x, pl["ln1"], out=x.spec)
+    x = smap(torch.add, x, _attention(h, pl["attn"], cfg, rot, plan),
+             out=x.spec)
+    h = smap(rms_norm, x, pl["ln2"], out=x.spec)
+    x = smap(torch.add, x, _mlp(h, pl["mlp"], cfg, plan), out=x.spec)
+    return constrain(x, ("batch", "seq", None))
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a tree of stacked (L, ...) placed leaves (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return smap(lambda b: b[i], tree, out=tuple(tree.spec)[1:])
+
+
+def _embed(params, cfg, batch, plan: Plan):
+    """(the rows (B,S,d) over the batch axes, the gathered embedding or
+    None, the rotary tables)."""
+    dt = tf.dtype_of(cfg)
+    emb = None
+    if cfg.frontend == "embed_stub":
+        x = smap(lambda e: e.to(dt), batch["embeds"],
+                 out=batch["embeds"].spec)
+        rows = batch["embeds"]
+    else:
+        rows = tok = batch["tokens"]
+        emb = _fsdp(params["embed"], 1)             # (V | V/m, d)
+        vax = emb.spec.axes(0)
+        if vax:
+            n = cfg.vocab // plan.m
+
+            def look(j, e, t):
+                t = t.long() - j * n
+                ok = (t >= 0) & (t < n)
+                return torch.where(ok[..., None], e[t.clamp(0, n - 1)],
+                                   torch.zeros((), dtype=e.dtype,
+                                               device=e.device))
+            x = psum(smap(look, emb, tok, coord=vax), vax)
+        else:
+            x = smap(lambda e, t: e[t.long()], emb, tok)
+        x = Sharded(tok.shape + (cfg.d_model,), tok.spec, tok.mesh, x.blocks)
+    if "positions" in batch:
+        pos = batch["positions"]
+    else:
+        pos = smap(lambda r: torch.arange(
+            r.shape[1], dtype=torch.int32, device=r.device)[None].expand(
+                r.shape[0], r.shape[1]), rows, out=rows.spec)
+    rot = smap(lambda q: attn.rot_tables(cfg, q), pos)
+    return constrain(x, ("batch", "seq", None)), emb, rot
+
+
+def _logits(x: Sharded, params, emb, cfg, plan: Plan) -> Sharded:
+    if cfg.tie_embeddings:
+        if emb is None:                             # an embed_stub frontend
+            emb = _fsdp(params["embed"], 1)
+        w = smap(lambda e: e.t(), emb)
+        vax = emb.spec.axes(0)
+    else:
+        w = _fsdp(params["lm_head"], 0)             # (d, V | V/m)
+        vax = w.spec.axes(1)
+    out = tuple(x.spec) + (None,) * (2 - len(x.spec)) + vax
+    logits = smap(tf.head_logits, x, w, out=out)
+    return constrain(logits, ("batch", "seq", "vocab"))
+
+
+def _nll(logits: Sharded, labels: Sharded, plan: Plan):
+    """Per data row: (the masked NLL sum, the mask count), over the
+    logits' vocab split."""
+    vax = logits.spec.axes(2)
+    if vax:
+        n = logits.shape[2] // plan.m
+        mx = pmax(smap(lambda lg: lg.detach().amax(-1), logits), vax)
+        se = psum(smap(lambda lg, m: torch.exp(lg - m[..., None]).sum(-1),
+                       logits, mx), vax)
+        lse = smap(lambda m, s: m + torch.log(s), mx, se)
+
+        def target(j, lg, lab):
+            t = lab.long() - j * n
+            ok = (t >= 0) & (t < n)
+            got = lg.gather(-1, t.clamp(0, n - 1)[..., None])[..., 0]
+            return torch.where(ok, got, torch.zeros((), device=got.device))
+        tgt = psum(smap(target, logits, labels, coord=vax), vax)
+    else:
+        lse = smap(lambda lg: torch.logsumexp(lg, dim=-1), logits)
+        tgt = smap(lambda lg, lab: lg.gather(
+            -1, lab.long().clamp(min=0)[..., None])[..., 0], logits, labels)
+    mask = smap(lambda lab: (lab >= 0).float(), labels)
+    nll = smap(lambda a, b, k: ((a - b) * k).sum(), lse, tgt, mask)
+    return nll, smap(torch.sum, mask)
+
+
+def loss_fn(params, cfg, batch, rules, remat: bool = True) -> Sharded:
+    """The masked next-token cross entropy of the batch (the reference's
+    ``loss_fn`` under GSPMD): the global masked mean, replicated on every
+    position (a :class:`Sharded` of spec ``()``)."""
+    check_sharded(cfg, rules)
+    plan = Plan.of(rules)
+    with use_rules(rules):
+        x, emb, rot = _embed(params, cfg, batch, plan)
+        for i in range(cfg.n_layers):
+            pl = _layer(params["blocks"], i)
+            if remat:
+                x = checkpoint(_block, x, pl, cfg, rot, plan,
+                               use_reentrant=False,
+                               context_fn=tf._recompute_contexts)
+            else:
+                x = _block(x, pl, cfg, rot, plan)
+        x = smap(rms_norm, x, params["final_norm"], out=x.spec)
+        logits = _logits(x, params, emb, cfg, plan)
+        nll, cnt = _nll(logits, batch["labels"], plan)
+        total, count = psum(nll, plan.dp), psum(cnt, plan.dp)
+        return smap(lambda t, c: t / torch.clamp(c, min=1.0), total, count,
+                    out=())

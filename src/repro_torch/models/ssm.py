@@ -30,7 +30,8 @@ from ..kernels import ssd as kssd
 from .layers import Leaf, dense, rms_norm
 
 __all__ = ["ssm_param_shapes", "ssm_mixer_full", "ssm_mixer_decode",
-           "init_ssm_cache"]
+           "init_ssm_cache", "ssm_cache_shapes", "ssm_logical",
+           "ssm_cache_logical"]
 
 
 def ssm_param_shapes(cfg) -> Dict[str, Leaf]:
@@ -49,6 +50,33 @@ def ssm_param_shapes(cfg) -> Dict[str, Leaf]:
         "conv_w": Leaf((nl, cfg.conv_width, di + 2 * n), cfg.conv_width),
         "norm": Leaf((nl, di)),
         "out": Leaf((nl, di, d), di),
+    }
+
+
+def ssm_logical(cfg) -> Dict[str, tuple]:
+    """The logical axes of the mixer's leaves (the reference's): the inner
+    width (``ff``) splits the in / out projections, the conv and the gated
+    norm."""
+    return {
+        "wz": (None, "w_embed", "ff"),
+        "wx": (None, "w_embed", "ff"),
+        "wb": (None, "w_embed", None),
+        "wc": (None, "w_embed", None),
+        "wdt": (None, "w_embed", None),
+        "dt_bias": (None, None),
+        "a_log": (None, None),
+        "skip_d": (None, None),
+        "conv_w": (None, None, "ff"),
+        "norm": (None, "ff"),
+        "out": (None, "ff", "w_embed"),
+    }
+
+
+def ssm_cache_logical() -> Dict[str, tuple]:
+    """The logical axes of the stacked SSM cache (the reference's)."""
+    return {
+        "conv": (None, "batch", None, "ff"),
+        "state": (None, "batch", None, None, None),
     }
 
 
@@ -128,11 +156,17 @@ def ssm_mixer_decode(x, p, cfg, cache) -> torch.Tensor:
     return _out(y, z, p)
 
 
-def init_ssm_cache(cfg, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
-    """Per-layer SSM cache, stacked: conv (L, B, K-1, C) in the model's
-    dtype and state (L, B, H, N, P) fp32, zeros."""
+def ssm_cache_shapes(cfg, batch: int, dtype
+                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{name: (shape, dtype)} of :func:`init_ssm_cache`'s tensors."""
     nl = cfg.n_layers
     conv = (nl, batch, cfg.conv_width - 1, cfg.d_inner + 2 * cfg.ssm_state)
     state = (nl, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
-    return {"conv": torch.zeros(conv, dtype=dtype, device=device),
-            "state": torch.zeros(state, dtype=torch.float32, device=device)}
+    return {"conv": (conv, dtype), "state": (state, torch.float32)}
+
+
+def init_ssm_cache(cfg, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
+    """Per-layer SSM cache, stacked: conv (L, B, K-1, C) in the model's
+    dtype and state (L, B, H, N, P) fp32, zeros."""
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in ssm_cache_shapes(cfg, batch, dtype).items()}

@@ -44,7 +44,9 @@ from . import ssm
 from .layers import Leaf, dense, he_init, rms_norm
 
 __all__ = ["check_supported", "param_shapes", "init_params", "forward",
-           "forward_train", "loss_fn", "prefill", "decode_step", "init_cache"]
+           "forward_train", "loss_fn", "prefill", "decode_step", "init_cache",
+           "cache_shapes", "logical_axes", "cache_logical", "head_logits",
+           "mlp_hidden"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -122,6 +124,37 @@ def param_shapes(cfg) -> Dict[str, Any]:
     return tree
 
 
+def _mlp_logical(cfg) -> Dict[str, tuple]:
+    p = {"wu": (None, "w_embed", "ff"), "wd": (None, "ff", "w_embed")}
+    if cfg.mlp_gated:
+        p["wg"] = (None, "w_embed", "ff")
+    return p
+
+
+def logical_axes(cfg) -> Dict[str, Any]:
+    """The logical axes of every leaf of :func:`param_shapes` (the
+    reference's table; ``sharding.rules`` maps them onto a mesh)."""
+    check_supported(cfg)
+    blocks: Dict[str, Any] = {"ln1": (None, None)}
+    if cfg.has_attention:
+        blocks["attn"] = attn.attn_logical(cfg)
+    if cfg.has_ssm:
+        blocks["ssm"] = ssm.ssm_logical(cfg)
+    if cfg.d_ff > 0:
+        blocks["ln2"] = (None, None)
+        if cfg.is_moe:
+            blocks["moe"] = moe.moe_logical(cfg)
+        else:
+            blocks["mlp"] = _mlp_logical(cfg)
+    out = {"embed": ("vocab", "w_embed"), "final_norm": (None,),
+           "blocks": blocks}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ("w_embed", "vocab")
+    if cfg.meta_tokens:
+        out["meta"] = (None, None)
+    return out
+
+
 def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random He-normal weights (constants where the leaf has a fill: norm
     scales 1, the SSM's dt_bias 0.5, a_log 0, skip_d 1), drawn by a
@@ -164,12 +197,17 @@ def _layers(stacked):
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
-def _mlp_apply(x, p, cfg):
+def mlp_hidden(x, p, cfg):
+    """The MLP's hidden activations: SiLU(x wg) * x wu, or GELU(x wu)."""
     if cfg.mlp_gated:
-        h = F.silu(dense(x, p["wg"]).float()).to(x.dtype) * dense(x, p["wu"])
-    else:   # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(dense(x, p["wu"]).float(), approximate="tanh").to(x.dtype)
-    return dense(h, p["wd"])
+        return F.silu(dense(x, p["wg"]).float()).to(x.dtype) * dense(x,
+                                                                    p["wu"])
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(dense(x, p["wu"]).float(), approximate="tanh").to(x.dtype)
+
+
+def _mlp_apply(x, p, cfg):
+    return dense(mlp_hidden(x, p, cfg), p["wd"])
 
 
 def _ffn(x, pl, cfg):
@@ -255,11 +293,17 @@ class _Head(torch.autograd.Function):
 
 def _lm_head(x, params, cfg) -> torch.Tensor:
     """fp32 logits of the activation-dtype product (the reference's
-    ``preferred_element_type=float32``): on the card, one cuBLAS product
-    that accumulates and emits fp32 (:class:`_Head`); on the CPU, the
-    product of the operands upcast to fp32 (bf16 products are exact in
-    fp32, so both sum the same terms)."""
+    ``preferred_element_type=float32``): :func:`head_logits` by the tied
+    embedding's transpose or the untied head."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return head_logits(x, w)
+
+
+def head_logits(x, w) -> torch.Tensor:
+    """x (..., d) @ w (d, V) -> fp32 logits (..., V): on the card, one
+    cuBLAS product that accumulates and emits fp32 (:class:`_Head`); on
+    the CPU, the product of the operands upcast to fp32 (bf16 products are
+    exact in fp32, so both sum the same terms)."""
     x2 = x.reshape(-1, x.shape[-1])
     if x2.is_cuda and x2.dtype != torch.float32:
         logits = _Head.apply(x2, w)
@@ -430,6 +474,29 @@ def decode_step(params, cfg, batch, cache):
         x = block(x, pl, cfg, lc, rot)
     x = rms_norm(x, params["final_norm"])
     return _lm_head(x[:, 0], params, cfg), cache
+
+
+def cache_shapes(cfg, batch: int, seq_len: int) -> Dict[str, Any]:
+    """{"attn" / "ssm": {name: (shape, dtype)}} of :func:`init_cache`'s
+    tensors, nothing allocated."""
+    check_supported(cfg)
+    out = {}
+    if cfg.has_attention:
+        out["attn"] = attn.decode_cache_shapes(cfg, batch, seq_len,
+                                               dtype_of(cfg))
+    if cfg.has_ssm:
+        out["ssm"] = ssm.ssm_cache_shapes(cfg, batch, dtype_of(cfg))
+    return out
+
+
+def cache_logical(cfg) -> Dict[str, Any]:
+    """The logical axes of the decode cache's leaves (the reference's)."""
+    out = {}
+    if cfg.has_attention:
+        out["attn"] = attn.decode_cache_logical()
+    if cfg.has_ssm:
+        out["ssm"] = ssm.ssm_cache_logical()
+    return out
 
 
 def init_cache(cfg, batch: int, seq_len: int, device="cuda"):

@@ -22,7 +22,8 @@ import torch
 from ..utils.tree import leaves, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
-           "global_norm"]
+           "global_norm", "add_squares", "clip_scale", "bias_corrections",
+           "update_leaf"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,14 +65,49 @@ def _rows(t: torch.Tensor) -> Iterator[torch.Tensor]:
     return iter(t.unbind(0)) if t.dim() >= 3 else iter((t,))
 
 
+def add_squares(total: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``total`` plus the fp32 sum of squares of ``g``, a layer at a time."""
+    for r in _rows(g):
+        total = total + torch.sum(r.float() ** 2).to(total.device)
+    return total
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over the leaves of their fp32 sums of squares."""
     total = torch.zeros((), dtype=torch.float32,
                         device=leaves(tree)[0].device)
     for g in leaves(tree):
-        for r in _rows(g):
-            total = total + torch.sum(r.float() ** 2)
+        total = add_squares(total, g)
     return torch.sqrt(total)
+
+
+def clip_scale(cfg: AdamWConfig, gnorm: torch.Tensor) -> torch.Tensor:
+    """The factor that clips the gradients to ``grad_clip`` by their norm."""
+    return torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+
+
+def bias_corrections(cfg: AdamWConfig, step: torch.Tensor):
+    """(1 - b1^step, 1 - b2^step) in fp32."""
+    return (1.0 - cfg.b1 ** step.to(torch.float32),
+            1.0 - cfg.b2 ** step.to(torch.float32))
+
+
+@torch.no_grad()
+def update_leaf(p_, g_, mu_, nu_, scale, lr, c1, c2, cfg: AdamWConfig
+                ) -> None:
+    """One AdamW step of the leaf ``p_`` (and its moments) by ``g_``, in
+    place, a layer at a time: the clipped fp32 gradient, the moments, the
+    bias-corrected step with decoupled weight decay, cast back."""
+    b1, b2 = cfg.b1, cfg.b2
+    for p, g, mu, nu in zip(_rows(p_), _rows(g_), _rows(mu_), _rows(nu_)):
+        g32 = g.float() * scale
+        mu.copy_(b1 * mu + (1 - b1) * g32)
+        nu.copy_(b2 * nu + (1 - b2) * g32 * g32)
+        mhat = mu / c1
+        nhat = nu / c2
+        delta = (mhat / (torch.sqrt(nhat) + cfg.eps)
+                 + cfg.weight_decay * p.float())
+        p.copy_((p.float() - lr * delta).to(p.dtype))
 
 
 @torch.no_grad()
@@ -83,23 +119,11 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig
     step = opt_state["step"] + 1
     lr = cosine_schedule(cfg, step)
     gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    b1, b2 = cfg.b1, cfg.b2
-    c1 = 1.0 - b1 ** step.to(torch.float32)
-    c2 = 1.0 - b2 ** step.to(torch.float32)
+    scale = clip_scale(cfg, gnorm)
+    c1, c2 = bias_corrections(cfg, step)
     for p_, g_, mu_, nu_ in zip(leaves(params), leaves(grads),
                                 leaves(opt_state["mu"]),
                                 leaves(opt_state["nu"])):
-        for p, g, mu, nu in zip(_rows(p_), _rows(g_), _rows(mu_),
-                                _rows(nu_)):
-            g32 = g.float() * scale
-            mu.copy_(b1 * mu + (1 - b1) * g32)
-            nu.copy_(b2 * nu + (1 - b2) * g32 * g32)
-            mhat = mu / c1
-            nhat = nu / c2
-            delta = (mhat / (torch.sqrt(nhat) + cfg.eps)
-                     + cfg.weight_decay * p.float())
-            p.copy_((p.float() - lr * delta).to(p.dtype))
+        update_leaf(p_, g_, mu_, nu_, scale, lr, c1, c2, cfg)
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

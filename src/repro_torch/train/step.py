@@ -1,10 +1,12 @@
-"""The single-device train step: gradient accumulation over microbatches,
-then one AdamW update (the body of the reference's ``build_train_step``),
-and the shapes of a train batch (its ``input_specs``).
+"""Step builders: the single-device train step (gradient accumulation over
+microbatches, then one AdamW update) and the sharded one over a device
+mesh (the reference's ``build_train_step``), with the shapes and layouts
+of their inputs (``input_specs``, ``param_shardings``, ``_opt_shardings``,
+``_batch_spec``).
 
-The reference's shardings, its ``build_prefill_step`` and
-``build_decode_step`` and the sharded step need a device mesh; they are
-not part of this module.
+The sharded step covers the attention families (``models.parallel``);
+its prefill and decode builders and the other families' sharded steps are
+not part of this module yet (ROADMAP A10.4 part 2).
 """
 from __future__ import annotations
 
@@ -12,28 +14,46 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..configs.base import ShapeConfig
+from ..models import parallel
 from ..models import transformer as tf
-from ..utils.tree import leaves, unflatten
+from ..sharding.placement import (NamedSharding, Sharded, all_gather,
+                                  canonical_blocks, place, smap, split,
+                                  sum_replicas, unique_blocks)
+from ..sharding.rules import MeshRules, PartitionSpec, logical_to_spec
+from ..utils.tree import leaves, paths, tree_map, unflatten
+from . import optimizer as topt
 from .optimizer import AdamWConfig, adamw_update
 
-__all__ = ["input_specs", "value_and_grad", "train_step"]
+__all__ = ["input_specs", "value_and_grad", "train_step", "param_shardings",
+           "sharded_value_and_grad", "sharded_adamw_init",
+           "build_train_step"]
+
+Spec = Tuple[Tuple[int, ...], torch.dtype]
 
 
-def input_specs(cfg, batch: int, seq_len: int
-                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """{name: (shape, dtype)} of a train batch: tokens (B, S) int32, or
-    under an ``embed_stub`` frontend embeds (B, S, d) in the model's dtype
-    with M-RoPE positions (B, 3, S) where the config has them; its labels
-    (B, S) int32."""
-    i32, b, s = torch.int32, batch, seq_len
-    if cfg.frontend == "embed_stub":
-        out = {"embeds": ((b, s, cfg.d_model), tf.dtype_of(cfg))}
+def input_specs(cfg, shape: ShapeConfig) -> Dict[str, Spec]:
+    """{name: (shape, dtype)} of a batch of ``shape`` (the reference's
+    ``input_specs``): a decode step's tokens (B,) int32 or embeds (B, d); a
+    train or prefill batch's tokens (B, S) int32, or under an
+    ``embed_stub`` frontend embeds (B, S, d) in the model's dtype with
+    M-RoPE positions (B, 3, S) where the config has them; a train batch's
+    labels (B, S) int32."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, dt = torch.int32, tf.dtype_of(cfg)
+    stub = cfg.frontend == "embed_stub"
+    if shape.kind == "decode":
+        return ({"embeds": ((b, cfg.d_model), dt)} if stub
+                else {"tokens": ((b,), i32)})
+    if stub:
+        batch = {"embeds": ((b, s, cfg.d_model), dt)}
         if cfg.mrope:
-            out["positions"] = ((b, 3, s), i32)
+            batch["positions"] = ((b, 3, s), i32)
     else:
-        out = {"tokens": ((b, s), i32)}
-    out["labels"] = ((b, s), i32)
-    return out
+        batch = {"tokens": ((b, s), i32)}
+    if shape.kind == "train":
+        batch["labels"] = ((b, s), i32)
+    return batch
 
 
 def value_and_grad(params, cfg, batch, remat: bool = True
@@ -91,3 +111,195 @@ def train_step(params, opt_state, batch, cfg,
                                               opt_state, params, opt_cfg)
     metrics["loss"] = acc_loss
     return params, opt_state, metrics
+
+
+# ---------------------------------------------------------------------------
+# Layouts (nothing allocated)
+# ---------------------------------------------------------------------------
+def _batch_spec(rules: MeshRules, batch) -> Dict[str, NamedSharding]:
+    """Each batch leaf split over the batch axes on its leading dimension."""
+    out = {}
+    for k, (shape, _) in batch.items():
+        logical = ("batch",) + (None,) * (len(shape) - 1)
+        out[k] = NamedSharding(rules.mesh,
+                               logical_to_spec(rules, logical, shape))
+    return out
+
+
+def param_shardings(cfg, rules: MeshRules):
+    """(the parameters' (shape, dtype) pairs, their NamedShardings), as
+    trees shaped as the parameters, without allocating."""
+    dt = tf.dtype_of(cfg)
+    shapes = tree_map(tf.param_shapes(cfg),
+                      lambda leaf: (tuple(leaf.shape), leaf.dtype or dt))
+    logical = tf.logical_axes(cfg)
+    flat = dict(paths(shapes))
+
+    def walk(lg, prefix):
+        if isinstance(lg, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in lg.items()}
+        shape = flat[prefix[:-1]][0]
+        return NamedSharding(rules.mesh, logical_to_spec(rules, lg, shape))
+    return shapes, walk(logical, "")
+
+
+def _opt_shardings(rules: MeshRules, p_shapes, p_shardings):
+    """AdamW's state: ``mu`` and ``nu`` (fp32) laid out as the parameters,
+    ``step`` replicated."""
+    f32 = tree_map(p_shapes, lambda sd: (sd[0], torch.float32))
+    shapes = {"mu": f32, "nu": f32, "step": ((), torch.int32)}
+    rep = NamedSharding(rules.mesh, PartitionSpec())
+    return shapes, {"mu": p_shardings, "nu": p_shardings, "step": rep}
+
+
+# ---------------------------------------------------------------------------
+# The sharded step
+# ---------------------------------------------------------------------------
+def sharded_adamw_init(params) -> Dict[str, Any]:
+    """Zero fp32 moments laid out as ``params`` (a tree of placed values),
+    step 0 replicated."""
+    def zeros32(s):
+        return smap(lambda b: torch.zeros(b.shape, dtype=torch.float32,
+                                          device=b.device), s, out=s.spec)
+    mesh = leaves(params)[0].mesh
+    return {"mu": tree_map(params, zeros32), "nu": tree_map(params, zeros32),
+            "step": place(torch.zeros((), dtype=torch.int32), mesh, ())}
+
+
+def _distinct(tree):
+    """Each distinct tensor of a tree of placed values once."""
+    out = {}
+    for s in leaves(tree):
+        for _, b in unique_blocks(s):
+            out[id(b)] = b
+    return list(out.values())
+
+
+def sharded_value_and_grad(params, cfg, batch, rules: MeshRules,
+                           remat: bool = True) -> Tuple[Sharded, Any]:
+    """(the sharded :func:`~..models.parallel.loss_fn`, its gradient as a
+    tree of placed values laid out as ``params``). One autograd graph
+    spans every position; a parameter block held on several devices gets
+    the sum of its replicas' gradients
+    (:func:`~..sharding.placement.sum_replicas`)."""
+    ts = _distinct(params)
+    for t in ts:
+        t.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss = parallel.loss_fn(params, cfg, batch, rules, remat=remat)
+            grads = torch.autograd.grad(loss.blocks[0], ts,
+                                        allow_unused=True)
+    finally:
+        for t in ts:
+            t.requires_grad_(False)
+    by_id = {id(t): (torch.zeros_like(t) if g is None else g)
+             for t, g in zip(ts, grads)}
+    del grads
+    gtree = tree_map(params, lambda s: sum_replicas(Sharded(
+        s.shape, s.spec, s.mesh, [by_id[id(b)] for b in s.blocks])))
+    return smap(torch.Tensor.detach, loss, out=()), gtree
+
+
+@torch.no_grad()
+def _sharded_adamw(grads, opt_state, params, cfg: AdamWConfig):
+    """:func:`~.optimizer.adamw_update` over placed trees: the global norm
+    counts each element once (each block once, however many positions
+    hold it), and every distinct tensor is updated once by its own
+    gradient with the global clip scale, a layer at a time as on one
+    device."""
+    step = smap(lambda t: t + 1, opt_state["step"], out=())
+    mesh = step.mesh
+    total = torch.zeros((), dtype=torch.float32, device=mesh.merge_device)
+    for g in leaves(grads):
+        for b in canonical_blocks(g):
+            total = topt.add_squares(total, b)
+    gnorm = torch.sqrt(total)
+    gn = smap(lambda t: gnorm.to(t.device), step, out=())
+    lr = smap(lambda t: topt.cosine_schedule(cfg, t), step, out=())
+    scale = smap(lambda n: topt.clip_scale(cfg, n), gn, out=())
+    cs = smap(lambda t: topt.bias_corrections(cfg, t), step, out=((), ()))
+    for p_, g_, mu_, nu_ in zip(leaves(params), leaves(grads),
+                                leaves(opt_state["mu"]),
+                                leaves(opt_state["nu"])):
+        for p, b in unique_blocks(p_):
+            topt.update_leaf(b, g_.blocks[p], mu_.blocks[p], nu_.blocks[p],
+                             scale.blocks[p], lr.blocks[p], cs[0].blocks[p],
+                             cs[1].blocks[p], cfg)
+    opt_state["step"] = step
+    return params, opt_state, {"grad_norm": gn, "lr": lr}
+
+
+def _microbatch(leaf: Sharded, i: int, mb: int, microbatches: int
+                ) -> Sharded:
+    """Global rows ``[i*mb, (i+1)*mb)`` of a batch leaf, laid out as the
+    leaf (split over the same axes)."""
+    if microbatches == 1:
+        return leaf
+    axes = leaf.spec.axes(0)
+    whole = all_gather(leaf, axes, 0)
+    rows = smap(lambda b: b.narrow(0, i * mb, mb), whole, out=whole.spec)
+    return split(rows, axes, 0)
+
+
+def build_train_step(cfg, shape: ShapeConfig, rules: MeshRules,
+                     opt_cfg: AdamWConfig = AdamWConfig(),
+                     microbatches: int = 8, remat: bool = True,
+                     accum_dtype: Optional[str] = None):
+    """The sharded train step of ``cfg`` on ``rules.mesh``: FSDP + TP
+    (``models.parallel``), gradient accumulation over ``microbatches``
+    (each the global batch's next ``B / microbatches`` rows, its loss
+    their global masked mean), then AdamW. Returns ``(step, in_specs,
+    out_specs, shapes)``: ``step(params, opt_state, batch)`` over trees of
+    placed values laid out by ``in_specs`` (``(param, opt, batch)``
+    NamedShardings), returning ``(params, opt_state, {"loss",
+    "grad_norm", "lr"})`` laid out by ``out_specs`` (parameters and
+    moments updated in place); ``shapes`` the inputs' (shape, dtype)
+    pairs. A family the step does not cover raises
+    ``NotImplementedError``."""
+    parallel.check_sharded(cfg, rules)
+    if shape.global_batch % microbatches:
+        raise ValueError(f"batch {shape.global_batch} does not split into "
+                         f"{microbatches} microbatches")
+    mb = shape.global_batch // microbatches
+    dp = rules.extent(parallel.Plan.of(rules).dp)
+    if mb % dp:
+        raise ValueError(f"a microbatch of {mb} rows does not split over "
+                         f"the {dp} data positions")
+    acc_dt = tf.dtype_of(cfg) if accum_dtype is None else tf._DTYPES[
+        accum_dtype]
+
+    def train_step(params, opt_state, batch):
+        acc_loss, acc = None, None
+        for i in range(microbatches):
+            part = {k: _microbatch(v, i, mb, microbatches)
+                    for k, v in batch.items()}
+            loss, grads = sharded_value_and_grad(params, cfg, part, rules,
+                                                 remat)
+            # the first microbatch starts the sums (0 + x is x, x / 1 is x)
+            if acc is None:
+                acc = tree_map(grads, lambda g: smap(
+                    lambda t: t.to(acc_dt) if microbatches == 1
+                    else t.to(acc_dt) / microbatches, g, out=g.spec))
+                acc_loss = smap(lambda t: t.float() / microbatches, loss,
+                                out=())
+            else:
+                acc = unflatten(acc, [smap(
+                    lambda a, t: a + t.to(acc_dt) / microbatches, a, g,
+                    out=g.spec) for a, g in zip(leaves(acc), leaves(grads))])
+                acc_loss = smap(lambda a, t: a + t.float() / microbatches,
+                                acc_loss, loss, out=())
+            del grads
+        params, opt_state, metrics = _sharded_adamw(acc, opt_state, params,
+                                                    opt_cfg)
+        metrics["loss"] = acc_loss
+        return params, opt_state, metrics
+
+    p_shapes, p_sh = param_shardings(cfg, rules)
+    o_shapes, o_sh = _opt_shardings(rules, p_shapes, p_sh)
+    batch = input_specs(cfg, shape)
+    b_sh = _batch_spec(rules, batch)
+    rep = NamedSharding(rules.mesh, PartitionSpec())
+    in_sh = (p_sh, o_sh, b_sh)
+    out_sh = (p_sh, o_sh, {"loss": rep, "grad_norm": rep, "lr": rep})
+    return train_step, in_sh, out_sh, (p_shapes, o_shapes, batch)

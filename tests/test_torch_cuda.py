@@ -1229,3 +1229,108 @@ def test_full_width_granite_step_kernel_path_matches_plain_path(cuda,
     monkeypatch.undo()
     _, state, m = train_step(params, topt.adamw_init(params), batch, cfg)
     assert int(state["step"]) == 1 and bool(torch.isfinite(m["loss"]))
+
+
+# ------------------------------------------------- the sharded trainer
+def _mesh_of(device, shape=(4, 2), axes=("data", "model")):
+    from repro_torch.core.distributed import make_mesh
+
+    n = int(np.prod(shape))
+    return make_mesh(shape, axes, [device] * n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite_3_2b", "granite_34b",
+                                  "qwen2_vl_2b"])
+def test_sharded_step_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced model's sharded step (two microbatches) on a (4, 2)
+    mesh whose positions all sit on the card, against the same step on a
+    mesh of CPU positions: B7 on every position's local heads, twice a
+    layer (remat); loss, grad_norm and parameters within fp32 summation
+    order."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.sharding import MeshRules, gather, place_tree
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.tree import leaves
+
+    cfg = get_arch(arch).reduced()
+    params = tf.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    if cfg.frontend == "embed_stub":
+        batch = {"embeds": torch.from_numpy(rng.normal(
+            0, 1, (8, 64, cfg.d_model)).astype(np.float32))}
+        if cfg.mrope:
+            batch["positions"] = torch.from_numpy(rng.integers(
+                0, 64, (8, 3, 64)).astype(np.int32))
+    else:
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (8, 64)).astype(np.int32))}
+    batch["labels"] = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (8, 64)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        rules = MeshRules(_mesh_of(dev))
+        step, in_sh, _, _ = tstep.build_train_step(
+            cfg, ShapeConfig("t", 64, 8, "train"), rules, microbatches=2)
+        pd = place_tree(params, in_sh[0])
+        n0 = katt.flash_attention.launches
+        new, _, m = step(pd, tstep.sharded_adamw_init(pd),
+                         place_tree(batch, in_sh[2]))
+        launched = katt.flash_attention.launches - n0
+        out[str(dev)] = ({k: float(gather(v)) for k, v in m.items()},
+                         [gather(v, "cpu") for v in leaves(new)], launched)
+    (m0, p0, n_cpu), (m1, p1, n_card) = out["cpu"], out[str(cuda)]
+    assert n_cpu == 0 and n_card == 8 * cfg.n_layers * 2 * 2
+    for k in m0:
+        assert abs(m1[k] - m0[k]) <= 1e-5 * abs(m0[k]), k
+    for a, b in zip(p1, p0):
+        assert float((a - b).abs().max()) <= 2 * m0["lr"]
+
+
+@pytest.mark.gpu
+def test_compression_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.sharding import gather, place
+    from repro_torch.train.compress import (apply_error_feedback,
+                                            compressed_psum_mean)
+
+    g = torch.Generator().manual_seed(0)
+    gs = torch.randn(8 * 64, 256, generator=g)
+    res = {}
+    for dev in ("cpu", cuda):
+        mesh = _mesh_of(dev, (8,), ("data",))
+        x = place(gs, mesh, ("data",))
+        avg, err = apply_error_feedback(x, place(torch.zeros_like(gs) + 1e-3,
+                                                 mesh, ("data",)), "data")
+        res[str(dev)] = [gather(t, "cpu") for t in (
+            compressed_psum_mean(x, "data"), avg, err)]
+    for a, b in zip(res[str(cuda)], res["cpu"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_gpipe_on_the_card_equals_sequential_layers(cuda):
+    """Four stages of two bf16 granite layers (reduced width) over a
+    ("pod",) mesh of the card: the pipelined outputs equal the layers run
+    in sequence, bit for bit."""
+    from repro_torch.sharding import gather
+    from repro_torch.sharding.pipeline import gpipe
+    from repro_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(get_arch("granite_3_2b").reduced(),
+                              n_layers=8, dtype="bfloat16")
+    params = tf.init_params(cfg, 0, device=cuda)
+    stages = tree_map(params["blocks"], lambda t: t.view(4, 2, *t.shape[1:]))
+    rot = mattn.rot_tables(cfg, torch.arange(128, device=cuda))
+
+    def stage(p, x):
+        for pl_ in tf._layers(p):
+            x = tf._block_full(x, pl_, cfg, rot)[0]
+        return x
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    xs = torch.randn(6, 1, 128, cfg.d_model, device=cuda, generator=g).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        ys = gather(gpipe(stage, _mesh_of(cuda, (4,), ("pod",)))(stages, xs))
+        ref = torch.stack([stage(params["blocks"], x) for x in xs])
+    assert torch.equal(ys.view(torch.int16), ref.view(torch.int16))

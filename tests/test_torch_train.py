@@ -297,7 +297,7 @@ def test_input_specs_match_reference(arch):
 
     cfg = get_arch(arch)
     want = rspecs(rget(arch), ShapeConfig("x_train", 8, 4, "train"))
-    got = input_specs(cfg, 4, 8)
+    got = input_specs(cfg, ShapeConfig("x_train", 8, 4, "train"))
     assert sorted(got) == sorted(want)
     for k, (shape, dtype) in got.items():
         assert shape == want[k].shape
