@@ -42,23 +42,24 @@ Phases (any failure raises, and the script exits non-zero):
    complement row holds nearly every live record); one fused 1024-window
    batch under ``torch.profiler`` (device busy share, top kernels, host
    ms); an
-   overflow-ladder batch at selectivity 1e-3 (each batch's first 16
+   overflow-ladder batch at selectivity 1e-3 (each batch's first 8
    windows also against the fp64 host path); ``count_candidates`` (three
    batches, one count launch each, and one under ``torch.profiler``); an
    insert + delete patched on the published snapshot (``device+delta``),
    then a forced ``device`` batch that republishes;
 6. the kNN path through the facade: 1024 points (the windows' centres) at
    k = 10 and 100, the default plan (top-k and compact kernels) against the
-   plain two-key sort and, on 16 points, the fp64 host kNN; then one top-k
+   plain two-key sort and, on 8 points, the fp64 host kNN; then one top-k
    line per (row width, k) the drive launched, with its route, on that
    shape's inputs from one more batch;
 5b. (after 6) the paper's baselines on phase 3's store as the facade holds
    it: ``RTree`` and ``QuadTree`` built over it (each build's wall and
    ``stats()`` index bytes beside GLIN's ``total_index_bytes``; phase 5's
-   deleted record deleted from each), the first 64 main windows through
+   deleted record deleted from each), the first 16 main windows through
    each tree for ``intersects`` and ``contains`` (per-window ms beside the
    fused 1024-window batch's wall over its windows), ids equal to the
-   fused batch and to the fp64 host path; ``SortedArray`` on 1 of them;
+   fused batch and to the fp64 host path; ``SortedArray`` on 1 of them
+   for ``contains``;
    1,024 published records deleted from each tree and inserted again (ms
    per operation), then the same windows and checks again;
 5c. (after 5b) the port's examples, each ``main`` in-process on the card:
@@ -75,7 +76,7 @@ Phases (any failure raises, and the script exits non-zero):
    1024 kNN points at k = 10 through ``device+delta``. Every batch equal to
    the same batch on a synchronous republish at the same epoch (a second
    facade over the same host tree; its wall split into capture, build,
-   upload and payload) and, on 16 windows, to the fp64 host path; kNN ids
+   upload and payload) and, on 8 windows, to the fp64 host path; kNN ids
    and distances equal to the republished device result;
 6b. the async swap: ``async_republish`` set on the index (as the server
    sets it), 1,536 more inserts past ``refresh_threshold``, 1024-window
@@ -84,14 +85,14 @@ Phases (any failure raises, and the script exits non-zero):
    landing mid-build: batches in flight, their median and largest wall
    beside the synchronous republish's, the build's start to the swap; the
    first and last in-flight batches and the first after the swap equal to
-   the host path on 16 windows;
+   the host path on 8 windows;
 6c. serving: ``SpatialQueryServer`` with the reference launcher's settings
    (2 replicas, max_queue 2048, min_batch 8, max_batch 4096, two tenants;
    ``intersects``, ``contains``, ``dwithin:0.003`` over a pool of 65,536
    windows at 1e-4, seed 11; a write fraction of 0.02): a closed loop of
    1024 submissions with interleaved inserts and 64 ``submit_knn`` points,
    every ticket equal to ``index.query`` at the flush's epoch and the
-   first 16 (and the kNN points) to the host path; then Poisson arrivals
+   first 8 (and the kNN points) to the host path; then Poisson arrivals
    at 2,000 and
    16,000 offered queries/s for 8 s each (offered, submitted and served
    queries/s, shed, p50/p99/max latency from submit to result, the batch
@@ -105,7 +106,7 @@ Phases (any failure raises, and the script exits non-zero):
    and 1024 kNN points at k = 10 and 100, each planned ``sharded`` (wall
    ms, dispatches, escalations, merge bytes, launches) and equal to the
    primary facade's ``device`` batch (kNN ids exactly, distances within
-   1e-4 relative) and to the host path on 16 windows for every relation
+   1e-4 relative) and to the host path on 8 windows for every relation
    and the ladder (the fp64 host walk takes ~12 s per 64 windows of an
    augmented probe at this size);
    the compact kernel with a shard's walk against its plain version on
@@ -114,7 +115,7 @@ Phases (any failure raises, and the script exits non-zero):
    each of the first 64 windows) and 16 deletes (a hit of each of the
    first 16) through the sharded facade and a 1024-window ``intersects``
    batch served sharded with the delta patched on top, equal to the host
-   path on 16 windows;
+   path on 8 windows;
 7. the kernel-level ``ops`` entry point: the Morton keys of every record
    against the host's, the candidate mask against the candidate counts, and
    the keys, the mask, the counts and the compaction (both in slot-as-leaf
@@ -127,8 +128,9 @@ Phases (any failure raises, and the script exits non-zero):
    lengths (numpy seed 0) — prefill ms per request, decode ms per step,
    tokens/s, peak memory, the device busy share of a few decode steps; then
    the two attention kernels against their plain versions on q/k/v captured
-   from layer 0 of a real prefill and a real decode step (bf16, fp32, and a
-   128-slot windowed ring that wraps), decode against the full forward (bf16
+   from layer 0 of a real prefill and a real decode step (the decode kernel
+   also its log-sum-exp output; bf16, fp32, and a 128-slot windowed ring
+   that wraps), decode against the full forward (bf16
    and fp32 weights), and the kernel path against the plain path
    (teacher-forced prefill + 32 decode steps of 2 requests); for the two
    bf16 cases also the launch (blocks, tokens per flash block, the blocks
@@ -260,15 +262,59 @@ Phases (any failure raises, and the script exits non-zero):
       bits to the CPU's, within 2 max|g| / 127 of the exact mean; 20
       steps of ``apply_error_feedback`` on a constant gradient, drift
       under 2e-3;
-15. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
+15. the sharded families and serving steps (``families_phase``) on the
+   (4, 2) mesh of the card, bf16 and seed 0 unless stated:
+   a. ``mamba2_2p7b`` at full width, its first 8 of 64 layers, and
+   b. ``hymba_1p5b`` at full width, its first 8 of 32 layers
+      (FAM_TRAIN_LAYERS; ``None`` runs the full depth), each through
+      ``build_train_step`` (microbatches 1, remat on, the launcher's
+      AdamW) for 4 steps on ``SyntheticLM(vocab, 4096, 4, seed 0)``: a
+      warm-up, two timed (their median), the last profiled; step ms,
+      tokens/s, peak bytes, the busy share, B9's (and B7's) launches
+      against 8 positions x layers x 2 (forward, remat recompute) a step;
+   c. ``mixtral_8x22b`` (4 x 4,096 tokens) and ``qwen3_moe_235b`` (4 x
+      2,048) at published widths with every expert, one layer each, the
+      same steps: also the replicas dropped, the largest expert load
+      (global counters) and the bytes the two ``all_to_all`` s hand over a
+      layer;
+   d. the sharded prefill and 8 teacher-forced decode steps
+      (``build_prefill_step`` / ``build_decode_step``) against one
+      device's ``prefill`` / ``decode_step`` on the same weights:
+      ``granite_3_2b`` at full depth (a 4 x 4,096 prompt into a
+      32,768-slot cache, 16,384 slots a position), ``hymba_1p5b`` at 8
+      layers (1,024 tokens after the 128 meta tokens: the 1,024-slot ring
+      wraps) and ``mixtral_8x22b`` at 2 layers (a 6,136-token prompt: the
+      4,096-slot ring wraps, and the written slot crosses from the first
+      position's slots to the second's in the eighth step); prefill and
+      decode ms, B8 a position a layer a step; granite's logits within
+      LM_BF16_REL of one device's largest at every step, its gathered
+      caches within it of each leaf's largest (integer leaves equal);
+      hymba's and mixtral's held by phase 9's rule instead (within
+      SSM_BF16_DRIFT_RATIO times one device's bf16 distance from its
+      fp32-upcast run; a mixtral token that a bf16 near tie routes
+      differently on the two paths leaves its row's logits and its ring
+      slots out, counted); B8 on position (0, 0)'s inputs against its
+      plain version and SDPA (its slot range, with the log-sum-exp), and
+      the merge's time;
+   e. fp32, the first 2 layers, 4 x 1,024 tokens: ``mamba2_2p7b``,
+      ``hymba_1p5b``, ``mixtral_8x22b`` and ``qwen3_moe_235b``: the sharded
+      loss and every gathered gradient leaf against the single-device
+      ``value_and_grad`` (the loss within 1e-5 relative, each leaf within
+      3e-5 of its largest, hymba's 2e-4: FAM_EXACT_REL), the MoE drop
+      counts equal, and a 512-token prefill with 8 decode steps against
+      one device at the same bound;
+16. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
    their hymba numbers under ``hymba``, the attention kernels' also each
    phase 11 and 12 model's under its name, B7's and B9's their training
    numbers under ``training``, B7's phase 14a's under
-   ``sharded_training``), and last the ``{"ok": true, ...}`` line.
+   ``sharded_training``, B7's, B8's and B9's phase 15 launches under
+   ``sharded_families``, with B8's position-local line), and last the
+   ``{"ok": true, ...}`` line.
 
 Launch counters are zeroed just before each of phases 5, 6, 5b, 5c, 6a, 6b,
 6c, 6d (its two paths), 7, 8's, 9's, 10's and 11's serving runs, 12's runs,
-13's two training runs and 14a's sharded run, and read just after (6a's,
+13's two training runs, 14a's sharded run and each run of 15a-15d (15d's
+prefill apart from its decode steps), and read just after (6a's,
 6c's and 6d's before the comparisons that check them): every kernel of
 that path must have launched, and a kernel's ``launches`` in the last line
 is its count from its path, summed over phases 5-6d for
@@ -299,7 +345,7 @@ N_WINDOWS = 1024
 SELECTIVITY = 1e-4         # the main batch: ~200 records per window
 LADDER_SELECTIVITY = 1e-3  # ~2000 per window: past the budget, up the ladder
 BUDGET = 256
-HOST_CHECK = 16            # windows held against the fp64 host path
+HOST_CHECK = 8             # windows held against the fp64 host path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor-core rate (dense)
@@ -376,8 +422,9 @@ SHARD_MESH = (4, 2)       # (data, model): 4 record shards, 2 query columns
 SHARD_INSERTS = 64        # the delta patched on top of the sharded batch
 SHARD_DELETES = 16
 # phase 5b: the paper's baselines on phase 3's store
-BASE_WINDOWS = 64           # of the main windows, through each tree
+BASE_WINDOWS = 16           # of the main windows, through each tree
 BASE_SORTED_WINDOWS = 1     # SortedArray refines its whole augmented run
+BASE_SORTED_RELATIONS = ("contains",)  # intersects: 33.9 s a window (s25-j)
 BASE_RELATIONS = ("intersects", "contains")
 BASE_MAINTAIN = 1024        # published records deleted and inserted again
 # phase 5c: the port's examples at the verify skill's sizes
@@ -473,6 +520,34 @@ SHARD_PARAM_TIGHT = 1e-6             # parameters within 2 lr everywhere,
 SHARD_PARAM_LOOSE_SHARE = 1e-3       # within 1e-6 but on 0.1%
 PIPE_STAGES, PIPE_MICRO, PIPE_TOKENS = 4, 8, 512     # 14c
 COMPRESS_BLOCK, COMPRESS_STEPS = (2048, 8192), 20    # 14d
+FAM_BATCH = 4                        # 15: one sequence a data row
+FAM_TRAIN = ("mamba2_2p7b", "hymba_1p5b")            # 15a, 15b
+FAM_TRAIN_LAYERS = 8     # of 64 and 32: at full depth 15a and 15b took
+#                          87 and 67 s of the script's time (s25-b)
+FAM_MOE = (("mixtral_8x22b", 4096), ("qwen3_moe_235b", 2048))  # 15c: 1 layer
+FAM_STEPS, FAM_TIMED = 4, (1, 2)     # a warm-up, two timed, the last profiled
+# 15d: (arch, layers (None: all), prompt, cache slots); mixtral's prompt
+# puts the decode's written slot (pos % 4096) across the two positions'
+# boundary at 2,048 in its eighth step
+FAM_SERVE = (("granite_3_2b", None, 4096, 32768),
+             ("hymba_1p5b", 8, 1024, 1168), ("mixtral_8x22b", 2, 6136, 6152))
+FAM_SERVE_STEPS = 8      # 16 took 12 s of granite's decode (s25-b)
+FAM_EXACT = ("mamba2_2p7b", "hymba_1p5b", "mixtral_8x22b", "qwen3_moe_235b")
+FAM_EXACT_LAYERS, FAM_EXACT_SEQ = 2, 1024                        # 15e
+FAM_EXACT_PROMPT, FAM_EXACT_STEPS = 512, 8
+# 15e's bound on each gradient leaf, the logits and the caches, as a share
+# of the largest: 14b's SHARD_GRAD_REL, but for hymba_1p5b, whose fp32
+# gradient differs from itself by up to 8.39e-5 of a leaf's largest when
+# one device takes its batch in two halves (``embed``; the sharded step's
+# worst leaf 7.86e-5, s25-d): about twice that (mamba2_2p7b's halves reach
+# 1.88e-5, inside 3e-5)
+FAM_EXACT_REL = {"hymba_1p5b": 2e-4}
+# a token whose top-k experts differ between 15e's two fp32 paths in the
+# first layer where any does must sit at a tie on one device: its k-th and
+# next expert's probabilities within this (the paths' router inputs differ
+# by fp32 roundings there, ~1e-7 of them; s25-h: qwen3's one such token,
+# 3.54e-8; the later layers' differences follow from it)
+FAM_NEAR_TIE = 1e-5
 _CU = "src/repro_torch/kernels/csrc/"
 CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
         "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
@@ -975,6 +1050,8 @@ def lm_phase(katt, counters) -> tuple:
         if not ok:
             raise RuntimeError(f"{name}[{case}]: max abs err {err} from the "
                                f"plain version, past its bound ({line})")
+        if name == "decode_attention":
+            line.update(lse_check(katt, args, window, line["name"]))
         if case != "bf16":
             log(line)
             continue
@@ -2427,7 +2504,8 @@ def baselines_phase(idx, wins, counters, read_path):
     :data:`BASE_WINDOWS` main windows for ``intersects`` and ``contains``
     through each tree (per-window ms beside the fused 1024-window batch's
     wall over its windows), ids equal to that fused batch and to the fp64
-    host path; ``SortedArray`` on :data:`BASE_SORTED_WINDOWS` of them;
+    host path; ``SortedArray`` on :data:`BASE_SORTED_WINDOWS` of them for
+    :data:`BASE_SORTED_RELATIONS`;
     then :data:`BASE_MAINTAIN` published records (hits of those windows)
     deleted from each tree and inserted again, per operation, and the
     windows once more with the same checks. Returns the path's launches
@@ -2471,11 +2549,11 @@ def baselines_phase(idx, wins, counters, read_path):
             "hits_first_windows": int(sum(len(r) for r in fused[rel]))}})
     launches = read_path("baselines", ("refine_fused",))
 
-    def through(tree, name, windows, tag, filt=None):
+    def through(tree, name, windows, tag, filt=None, rels=BASE_RELATIONS):
         """Each window through ``tree``, one at a time: ids (ascending)
         against the fused batch's and the host path's, and the walls."""
         per = {}
-        for rel in BASE_RELATIONS:
+        for rel in rels:
             walls, got = [], []
             for row in windows:
                 t0 = time.perf_counter()
@@ -2513,7 +2591,8 @@ def baselines_phase(idx, wins, counters, read_path):
     log({"baselines_build": {"index": "SortedArray", "records": len(gs),
                              "build_s": sa_s, **sa.stats(),
                              "glin_total_index_bytes": glin_bytes}})
-    through(sa, "SortedArray", w[:BASE_SORTED_WINDOWS], "built", filt=live)
+    through(sa, "SortedArray", w[:BASE_SORTED_WINDOWS], "built", filt=live,
+            rels=BASE_SORTED_RELATIONS)
 
     # maintenance: published records that the windows hit, deleted from
     # each tree and inserted again (dead records stay out of both lists)
@@ -2623,6 +2702,30 @@ def att_bound(got, want) -> tuple:
     return float(d.max()), float((d / lim).max()), bool(ok.all())
 
 
+def lse_check(katt, args, win, name: str) -> dict:
+    """B8's log-sum-exp output (``return_lse``) against its plain
+    version's on ``args``: within ATT_TOL's fp32 bound, -inf on the same
+    (row, head)s; the output unchanged by asking for it. Raises past it."""
+    import torch
+
+    out, lse = katt.decode_attention(*args, win, return_lse=True)
+    _, want = katt.decode_attention_plain(*args, win, return_lse=True)
+    empty = torch.isneginf(want)
+    same_empty = bool(torch.equal(torch.isneginf(lse), empty))
+    err = (float((lse[~empty] - want[~empty]).abs().max())
+           if bool((~empty).any()) else 0.0)
+    line = {"lse_max_abs_err": err, "lse_tolerance": ATT_TOL["float32"],
+            "lse_rows_heads_without_live_slot": int(empty.sum()),
+            "lse_empty_equal": same_empty,
+            "lse_output_unchanged": bool(torch.equal(
+                out, katt.decode_attention(*args, win)))}
+    if not (same_empty and err < ATT_TOL["float32"]
+            and line["lse_output_unchanged"]):
+        raise RuntimeError(f"{name}: the log-sum-exp differs from the "
+                           f"plain version's ({line})")
+    return line
+
+
 def attention_check(katt, label, name, case, args, win) -> dict:
     """``katt.<name>`` (``flash_attention`` or ``decode_attention``)
     against its plain version on ``args`` (a layer's captured inputs) at
@@ -2649,6 +2752,8 @@ def attention_check(katt, label, name, case, args, win) -> dict:
         raise RuntimeError(f"{name}[{label} {case}]: max abs err {err} "
                            f"from the plain version, past its bound "
                            f"({line})")
+    if name == "decode_attention":
+        line.update(lse_check(katt, args, win, line["name"]))
     if args[0].dtype != torch.bfloat16:
         log(line)
         return line
@@ -3851,7 +3956,8 @@ def flash_training_line(q, k, v, window: int,
     return line
 
 
-def ssd_training_line(args, chunk: int) -> dict:
+def ssd_training_line(args, chunk: int, name: str = "ssd_scan[train]"
+                      ) -> dict:
     """B9 at the training shape (layer 0's captured bf16 inputs): the
     kernel's forward against the plain version (:func:`ssd_check`'s rule)
     and the Function's backward (the plain derivative) timed."""
@@ -3862,7 +3968,7 @@ def ssd_training_line(args, chunk: int) -> dict:
     x, dt, a, b, c = args
     g = torch.Generator(device=DEVICE).manual_seed(14)
     dy = torch.randn(x.shape, device=DEVICE, generator=g).to(x.dtype)
-    line = ssd_check(kssd, "ssd_scan[train]", args, chunk)
+    line = ssd_check(kssd, name, args, chunk)
     line.update({
         "kernel_ms": queued_ms(lambda: kssd.ssd_scan(*args, chunk), 10),
         "plain_ms": cuda_ms(lambda: kssd.ssd_scan_plain(*args, chunk), 3, 1),
@@ -3874,7 +3980,7 @@ def ssd_training_line(args, chunk: int) -> dict:
 
     grads = fn_fwd_bwd()
     if not all(bool(torch.isfinite(t).all()) for t in grads):
-        raise RuntimeError("ssd_scan[train]: gradients not finite")
+        raise RuntimeError(f"{name}: gradients not finite")
     _, ops_cb, ops_rest = ssd_work(x, dt, b, kssd.TILE)
     xb, bb = x.numel() * x.element_size(), b.numel() * b.element_size()
     line.update({
@@ -3886,7 +3992,7 @@ def ssd_training_line(args, chunk: int) -> dict:
         "backward_bound_ms": bound(
             3 * xb + 2 * (dt.numel() + a.numel()) * 4 + 4 * bb,
             2 * (ops_cb + ops_rest), BF16_OPS_PER_S)["bound_ms"]})
-    log({"ssd_scan[train]": line})
+    log({name: line})
     return line
 
 
@@ -4187,17 +4293,20 @@ def sharded_granite_run(counters) -> dict:
     return line
 
 
-def run_steps(step, pd, opt, stream, in_sh, rows, events):
-    """14a's SHARD_TRAIN_STEPS steps, each timed by CUDA events, the step
-    at SHARD_TRAIN_PROFILE_STEP under :func:`profile_once`; appends a row
-    per step to ``rows``, with the AdamW update's time from ``events``
-    (:func:`timed_calls`). Returns (params, opt state, the profile)."""
+def run_steps(step, pd, opt, stream, in_sh, rows, events,
+              steps=SHARD_TRAIN_STEPS, profile_at=SHARD_TRAIN_PROFILE_STEP,
+              label="shard_train_step"):
+    """``steps`` steps of a sharded step (14a's by default), each timed by
+    CUDA events, the step at ``profile_at`` under :func:`profile_once`;
+    appends a row per step to ``rows``, with the AdamW update's time from
+    ``events`` (:func:`timed_calls`), and logs it under ``label``. Returns
+    (params, opt state, the profile)."""
     import torch
 
     from repro_torch.sharding import gather, place_tree
 
     prof = None
-    for i in range(SHARD_TRAIN_STEPS):
+    for i in range(steps):
         batch = place_tree(on_card(stream.batch_at(i)), in_sh[2])
 
         def one():
@@ -4205,7 +4314,7 @@ def run_steps(step, pd, opt, stream, in_sh, rows, events):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        if i == SHARD_TRAIN_PROFILE_STEP:
+        if i == profile_at:
             t_prof = time.perf_counter()
             (pd, opt, m), wall, dev, n_k = profile_once(one)
             prof = {"step": i, "wall_ms": wall,
@@ -4223,7 +4332,7 @@ def run_steps(step, pd, opt, stream, in_sh, rows, events):
         rows.append({"step": i, **{k: float(gather(v)) for k, v in
                                    m.items()}, "step_ms": a.elapsed_time(b),
                      "adamw_ms": ua.elapsed_time(ub)})
-        log({"shard_train_step": rows[-1]})
+        log({label: rows[-1]})
     return pd, opt, prof
 
 
@@ -4492,6 +4601,656 @@ def sharded_train_phase(counters) -> dict:
     compression_check()
     log({"shard_phase_s": time.perf_counter() - t_phase})
     return run
+
+
+# --------------------------------------------- 15. the sharded families
+def family_cfg(arch: str, layers=None, dtype=None):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def a2a_bytes(cfg, tokens: int, dp: int) -> dict:
+    """The bytes the MoE FFN's two ``all_to_all`` s hand over a layer
+    forward: each of the ``dp`` data rows sends its (E, cap, d) dispatch
+    buffer cut into ``dp`` expert (or capacity) blocks, and each owner sends
+    its (E/dp, cap, d) rows back to every row; the share that leaves its
+    position is (dp - 1) / dp (on one card no byte leaves the device)."""
+    from repro_torch.models import moe
+
+    cap = moe.capacity(tokens, cfg.top_k, cfg.n_experts)
+    one = dp * cfg.n_experts * cap * cfg.d_model * 2     # bf16
+    return {"cap": cap, "dispatch_bytes": one, "return_bytes": one,
+            "off_position_bytes": 2 * one * (dp - 1) // dp}
+
+
+def family_train_run(tag, arch, layers, seq, counters, kernels) -> dict:
+    """15a-15c: ``arch`` (cut to ``layers`` where given) at full width,
+    bf16, seed 0, on the (4, 2) mesh of the card: FAM_STEPS steps of
+    ``build_train_step`` (microbatches 1, remat on, the launcher's AdamW)
+    on ``SyntheticLM(vocab, seq, 4, seed 0)``, the last profiled; each
+    kernel of ``kernels`` launched 8 positions x layers x 2 (forward,
+    remat recompute) a step and nothing else; finite losses."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import moe
+    from repro_torch.models import parallel_ssm as pssm
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import MeshRules, place_tree
+    from repro_torch.train import step as tstep
+
+    cfg = family_cfg(arch, layers)
+    rules = MeshRules(shard_mesh())
+    shape = ShapeConfig("train_4k", seq, FAM_BATCH, "train")
+    step, in_sh, _, _ = tstep.build_train_step(
+        cfg, shape, rules, train_adamw(FAM_STEPS), microbatches=1,
+        remat=True)
+    stream = SyntheticLM(cfg.vocab, seq, FAM_BATCH, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    pd = place_tree(params, in_sh[0])
+    del params
+    torch.cuda.empty_cache()
+    opt = tstep.sharded_adamw_init(pd)
+    init_s = time.perf_counter() - t0
+    held = {"param_bytes_distinct": distinct_bytes(pd),
+            "adamw_state_bytes_distinct": distinct_bytes(
+                {"mu": opt["mu"], "nu": opt["nu"]}),
+            "parameters": cfg.param_count()}
+    rows = []
+    events, undo = timed_calls(tstep, "_sharded_adamw")
+    grabbed = {}                # position (0, 0)'s layer-0 kernel inputs
+    if "flash_attention" in kernels:
+        grabbed["flash_attention"], old = capture_first(
+            mattn, "katt", "flash_attention")
+        undo += old
+    if "ssd_scan" in kernels:
+        grabbed["ssd_scan"], old = capture_first(pssm, "kssd", "ssd_scan")
+        undo += old
+    moe.stats.reset()
+    for fn in counters.values():
+        fn.launches = 0
+    t_run = time.perf_counter()
+    try:
+        pd, opt, prof = run_steps(step, pd, opt, stream, in_sh, rows, events,
+                                  FAM_STEPS, FAM_STEPS - 1,
+                                  f"family_train_step[{tag}]")
+    finally:
+        swap_in(undo)
+    wall = time.perf_counter() - t_run
+    got = {k: fn.launches for k, fn in counters.items()}
+    want = {k: 8 * cfg.n_layers * 2 * FAM_STEPS for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    drops = moe.stats.read()
+    del pd, opt
+    torch.cuda.empty_cache()
+    at_shape = {}               # each kernel at a position's shape
+    if "flash_attention" in grabbed:
+        (q, k, v, *rest), kw = grabbed.pop("flash_attention")[0]
+        at_shape["flash_attention"] = flash_training_line(
+            q.detach(), k.detach(), v.detach(),
+            rest[0] if rest else kw.get("window", 0),
+            f"flash_attention[{tag} {arch}]")
+    if "ssd_scan" in grabbed:
+        (x, dt, a, b, c, chunk), _ = grabbed.pop("ssd_scan")[0]
+        at_shape["ssd_scan"] = ssd_training_line(
+            tuple(t.detach() for t in (x, dt, a, b, c)), chunk,
+            f"ssd_scan[{tag} {arch}]")
+    timed = [r["step_ms"] for r in rows if r["step"] in FAM_TIMED]
+    step_ms = statistics.median(timed)
+    tokens = FAM_BATCH * seq
+    line = {"tag": tag, "arch": cfg.name, "layers": cfg.n_layers,
+            "mesh": list(SHARD_TRAIN_MESH), "batch": FAM_BATCH, "seq": seq,
+            "dtype": cfg.dtype, "init_s": init_s, **held,
+            "losses": [r["loss"] for r in rows],
+            "grad_norms": [r["grad_norm"] for r in rows],
+            "step_ms": [r["step_ms"] for r in rows],
+            "adamw_ms": [r["adamw_ms"] for r in rows],
+            "step_ms_median_timed": step_ms,
+            "tokens_per_s_median_step": tokens / (step_ms / 1e3),
+            "tokens_per_s_run_wall": tokens * FAM_STEPS / wall,
+            "peak_memory_bytes": peak, "peak_gb": peak / 1e9,
+            "profile": {k: prof[k] for k in (
+                "wall_ms", "device_ms", "device_kernels",
+                "device_busy_share", "top_kernels")},
+            "launches": got, "launches_reckoned": want,
+            "backward_launches": "none: the backward is the plain "
+                                 "version's derivative (ROADMAP B-T1, B-T2)",
+            "kernels_at_position_shape": at_shape}
+    if cfg.is_moe:
+        line["moe"] = {**drops, **a2a_bytes(cfg, tokens, rules.extent(
+            ("data",)))}
+    log({"family_train_run": line})
+    bad = [r for r in rows if not (math.isfinite(r["loss"])
+                                   and math.isfinite(r["grad_norm"]))]
+    if bad or any(got[k] != want.get(k, 0) for k in got):
+        raise RuntimeError(f"family train {tag}: not finite {bad}, or "
+                           f"launches {got}, expected {want} and nothing "
+                           "else")
+    return line
+
+
+def cache_errors(got, want, skip=None) -> dict:
+    """Each cache leaf of the sharded path (gathered) against one
+    device's: integer leaves equal, float leaves' largest |difference| as a
+    share of the one-device leaf's largest magnitude; ``skip`` ((B, W)
+    bool) leaves those ring slots out of ``attn/k`` and ``attn/v``."""
+    import torch
+
+    from repro_torch.sharding import gather
+    from repro_torch.utils.tree import paths
+
+    out = {}
+    for (k, s), (_, w) in zip(paths(got), paths(want)):
+        g = gather(s)
+        if w.dtype in (torch.int32, torch.int64):
+            out[k] = 0.0 if torch.equal(g, w) else math.inf
+        else:
+            if skip is not None and k in ("attn/k", "attn/v"):
+                keep = ~skip[None, :, :, None, None]
+                g, w = g * keep, w * keep
+            out[k] = max_err(g, w) / max(float(w.float().abs().max()), 1e-30)
+        del g
+    return out
+
+
+class RouteLog:
+    """The MoE routing of a run, a call at a time: which experts keep each
+    token (its replicas below the capacity), as a (T, E) bool matrix, from
+    ``models.moe.route`` on one device and from ``parallel_moe.routing``
+    (the data rows' tokens in order) on the mesh. In bf16 the two paths'
+    router inputs differ by roundings, and a near tie can send a token to
+    another expert (phase 11 logs that share between the kernel and plain
+    paths); the steps and cache slots such a token touches are left out of
+    15d's gates and counted."""
+
+    def __init__(self):
+        self.calls = {"one": [], "sharded": []}
+        self.gaps = []          # one device: each token's p_k - p_(k+1)
+
+    @staticmethod
+    def kept(eidx, keep, e: int):
+        import torch
+
+        t, k = eidx.shape
+        return torch.zeros(t, e, dtype=torch.bool, device=eidx.device
+                           ).scatter(1, eidx, keep.view(t, k))
+
+    def one_device(self, e: int):
+        import torch
+
+        from repro_torch.models import moe
+
+        real = moe.route
+
+        def rec(xf, router, k, *a, **kw):
+            r = real(xf, router, k, *a, **kw)
+            with torch.no_grad():
+                self.calls["one"].append(self.kept(r.eidx, r.keep, e))
+                top = torch.softmax(xf.detach().float() @ router.detach(),
+                                    -1).topk(k + 1).values
+                self.gaps.append(top[:, k - 1] - top[:, k])
+            return r
+        return swap_in([(moe, "route", rec)])
+
+    def sharded(self, e: int):
+        import torch
+
+        from repro_torch.models import parallel_moe as pmoe
+
+        real, m = pmoe.routing, SHARD_TRAIN_MESH[1]
+
+        def rec(h, router, cfg, plan):
+            out = real(h, router, cfg, plan)
+            eidx, _, _, keep = out[0][:4]
+            self.calls["sharded"].append(self.kept(
+                torch.cat(eidx.blocks[::m]), torch.cat(keep.blocks[::m]), e))
+            return out
+        return swap_in([(pmoe, "routing", rec)])
+
+    def flips(self, calls: int) -> list:
+        """Per call of the first ``calls``: (the tokens whose kept experts
+        differ, their gaps between the k-th and the next expert's
+        probability on one device)."""
+        out = []
+        for c in range(calls):
+            t = (self.calls["one"][c] != self.calls["sharded"][c]).any(1)
+            idx = t.nonzero().flatten()
+            out.append((idx.tolist(), self.gaps[c][idx].tolist()))
+        return out
+
+    def differ(self, layers: int, b: int, prompt: int) -> dict:
+        """{segment (0: the prefill, t: decode step t): the (row, position)
+        of each token whose kept experts differ between the paths in some
+        layer}."""
+        one, sh = self.calls["one"], self.calls["sharded"]
+        if len(one) != len(sh):
+            raise RuntimeError(f"MoE calls: {len(one)} on one device, "
+                               f"{len(sh)} on the mesh")
+        out = {}
+        for c, (a, z) in enumerate(zip(one, sh)):
+            seg = c // layers
+            for t in (a != z).any(1).nonzero().flatten().tolist():
+                out.setdefault(seg, set()).add(
+                    (t // prompt, t % prompt) if seg == 0
+                    else (t, prompt + seg - 1))
+        return out
+
+
+def serve_pair(cfg, box, toks, prompt: int, seq: int, steps: int,
+               counters, label: str, rel: float, grab: bool = False,
+               drift: bool = False, keep_placed: bool = False) -> dict:
+    """The sharded prefill of ``toks[:, :prompt]`` into a ``seq``-slot
+    cache and ``steps`` teacher-forced decode steps
+    (``build_prefill_step`` / ``build_decode_step`` on the (4, 2) mesh of
+    the card) against one device's ``prefill`` / ``decode_step`` on the
+    same weights (``box``: a list holding them, emptied so that they are
+    freed once placed): each step's logits within
+    ``rel`` of one device's largest, the final caches (gathered) within
+    ``rel`` of each leaf's largest, integer leaves equal. With ``drift``
+    (a bf16 model with an SSM or experts) the bound is phase 9's instead:
+    SSM_BF16_DRIFT_RATIO times how far one device's bf16 run strays from
+    the same run with the weights upcast to fp32 (the largest over the
+    steps; per leaf for the caches). The sharded run's launches are read
+    from ``counters`` (zeroed just before it). With ``grab``, position (0,
+    0)'s B8 inputs at layer 0 of the first sharded decode step come back
+    under ``decode_args``; with ``keep_placed``, the placed weights under
+    ``placed``."""
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import moe
+    from repro_torch.models import parallel_serve as pserve
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import MeshRules, gather, place_tree
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.tree import paths
+
+    params = box.pop()
+    b = toks.shape[0]
+    routes = RouteLog()
+    undo = routes.one_device(cfg.n_experts) if cfg.is_moe else []
+    moe.stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, c0 = tf.prefill(params, cfg, {"tokens": toks[:, :prompt]},
+                        seq_len_cache=seq)
+    torch.cuda.synchronize()
+    one_prefill_ms = (time.perf_counter() - t0) * 1e3
+    one = [lg.float()]
+    t0 = time.perf_counter()
+    for t in range(steps):
+        lg, c0 = tf.decode_step(params, cfg, {"tokens": toks[:, prompt + t]},
+                                c0)
+        one.append(lg.float())
+    torch.cuda.synchronize()
+    one_decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    one_drops = moe.stats.read()
+    swap_in(undo)
+    if drift:                   # the same run with the weights upcast
+        from repro_torch.utils.tree import tree_map
+
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = tree_map(params, lambda t: t.float())
+        lg, c32 = tf.prefill(p32, cfg32, {"tokens": toks[:, :prompt]},
+                             seq_len_cache=seq)
+        up = [lg]
+        for t in range(steps):
+            lg, c32 = tf.decode_step(p32, cfg32,
+                                     {"tokens": toks[:, prompt + t]}, c32)
+            up.append(lg)
+        del p32
+        torch.cuda.empty_cache()
+    rules = MeshRules(shard_mesh())
+    pf, pin, pout, _ = tstep.build_prefill_step(
+        cfg, ShapeConfig("prefill", seq, b, "prefill"), rules)
+    df, din, _, _ = tstep.build_decode_step(
+        cfg, ShapeConfig("decode", seq, b, "decode"), rules)
+    pd = place_tree(params, pin[0])
+    del params
+    torch.cuda.empty_cache()
+    moe.stats.reset()
+    seen, undo = [], []
+    if grab:
+        seen, undo = grab_first(pserve, "katt", "decode_attention")
+    if cfg.is_moe:
+        undo += routes.sharded(cfg.n_experts)
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = pf(pd, place_tree({"tokens": toks[:, :prompt]}, pin[1]))
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = {k: fn.launches for k, fn in counters.items()}
+        got = [gather(lg).float()]
+        dec_ms = []
+        for t in range(steps):
+            tb = place_tree({"tokens": toks[:, prompt + t]}, din[2])
+            t0 = time.perf_counter()
+            lg, cache = df(pd, cache, tb)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            got.append(gather(lg).float())
+    finally:
+        swap_in(undo)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    drops = moe.stats.read()
+    errs = [(max_err(g, w), float(w.abs().max())) for g, w in zip(got, one)]
+    flips = (routes.differ(cfg.n_layers, b, prompt) if cfg.is_moe else {})
+    # a row's logits whose own token went to other experts are not gated
+    ungated = [(i, r) for i in range(len(got)) for r in range(b)
+               if (r, prompt + i - 1) in flips.get(i, ())]
+    worst = max(max_err(g[r], w[r]) / float(w.abs().max())
+                for i, (g, w) in enumerate(zip(got, one)) for r in range(b)
+                if (i, r) not in ungated)
+    skip = None
+    if flips:
+        ap = c0["attn"]["abs_pos"][0]                       # (B, W)
+        skip = torch.zeros_like(ap, dtype=torch.bool)
+        for row, p in set().union(*flips.values()):
+            skip[row] |= ap[row] == p
+    cerr = cache_errors(cache, c0, skip)
+    rule = "a share of one device's largest"
+    gate = {"logits": (worst, rel)}
+    gate.update({k: (e, rel) for k, e in cerr.items()})
+    if drift:
+        d_logits = max(max_err(a, b) for a, b in zip(one, up))
+        gap = max(max_err(g[r], w[r]) for i, (g, w) in enumerate(zip(
+            got, one)) for r in range(b) if (i, r) not in ungated)
+        rule = "SSM_BF16_DRIFT_RATIO x one device's bf16 - fp32 distance"
+        gate = {"logits": (gap, SSM_BF16_DRIFT_RATIO * d_logits)}
+        for k, e in cerr.items():
+            w16 = dict(paths(c0))[k]
+            if w16.dtype in (torch.int32, torch.int64):
+                gate[k] = (e, 0.0)
+                continue
+            w32 = dict(paths(c32))[k]
+            keep = (~skip[None, :, :, None, None] if skip is not None
+                    and k in ("attn/k", "attn/v") else 1)
+            scale = max(float(w16.float().abs().max()), 1e-30)
+            gate[k] = (e * scale, SSM_BF16_DRIFT_RATIO * max_err(
+                w16 * keep, w32 * keep))
+        del c32, up
+    line = {"label": label, "arch": cfg.name, "layers": cfg.n_layers,
+            "batch": b, "prompt": prompt, "cache_slots": int(
+                cache["attn"]["k"].shape[2]) if "attn" in cache else None,
+            "steps": steps, "dtype": cfg.dtype,
+            "cache_specs": {k: str(v.spec) for k, v in paths(cache)},
+            "prefill_ms": prefill_ms, "decode_ms": dec_ms,
+            "decode_ms_median": statistics.median(dec_ms),
+            "one_device_prefill_ms": one_prefill_ms,
+            "one_device_decode_ms": one_decode_ms,
+            "logit_errs": [e for e, _ in errs],
+            "logit_err_worst_share": worst, "bound_share": rel,
+            "route_differs": {str(k): sorted(v) for k, v in flips.items()},
+            "logit_rows_ungated": ungated,
+            "cache_slots_ungated": 0 if skip is None else int(skip.sum()),
+            "cache_err_share": cerr, "gate_rule": rule,
+            "gate": gate, "gate_ok": all(e <= lim for e, lim in
+                                         gate.values()),
+            "prefill_launches": prefill_launches,
+            "launches": launches}
+    if cfg.is_moe:
+        line["moe_drops"] = {"sharded": drops, "one_device": one_drops}
+    if keep_placed:
+        line["placed"] = pd
+    del pd, cache, c0, got, one
+    torch.cuda.empty_cache()
+    if grab:
+        line["decode_args"] = seen[0]
+    return line
+
+
+def grab_first(module, attr, fn):
+    """:func:`capture_first` keeping copies of the first call's tensors
+    (the call's inputs may be views that later calls change)."""
+    import torch
+
+    real = getattr(module, attr)
+    seen = []
+
+    def keep(*a, **kw):
+        if not seen:
+            seen.append(tuple(t.clone() for t in a
+                              if isinstance(t, torch.Tensor)))
+        return getattr(real, fn)(*a, **kw)
+    ns = types.SimpleNamespace(**{k: getattr(real, k) for k in dir(real)
+                                  if not k.startswith("__")})
+    setattr(ns, fn, keep)
+    return seen, swap_in([(module, attr, ns)])
+
+
+def family_serve_run(katt, arch, layers, prompt, seq, counters,
+                     local_line: bool) -> dict:
+    """15d: ``arch`` (cut to ``layers``) at full width, bf16, seed 0: the
+    sharded prefill and FAM_SERVE_STEPS decode steps against one device
+    (:func:`serve_pair`, at LM_BF16_REL); B8 launched 8 positions x layers a
+    step, B7 (and B9) 8 x layers in the prefill. With ``local_line``, B8
+    on position (0, 0)'s captured inputs against its plain version and
+    SDPA (its slot range), and the merge's time at that shape."""
+    import torch
+
+    from repro_torch.models import parallel_serve as pserve
+    from repro_torch.models import transformer as tf
+
+    cfg = family_cfg(arch, layers)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (FAM_BATCH, prompt + FAM_SERVE_STEPS),
+                         generator=g).to(DEVICE)
+    line = serve_pair(cfg, [tf.init_params(cfg, 0, device=DEVICE)], toks,
+                      prompt, seq, FAM_SERVE_STEPS, counters, f"15d {arch}",
+                      LM_BF16_REL, local_line,
+                      drift=cfg.has_ssm or cfg.is_moe)
+    per_layer = 8 * cfg.n_layers
+    want_dec = {"decode_attention": per_layer * FAM_SERVE_STEPS}
+    want_pre = {"flash_attention": per_layer}
+    if cfg.has_ssm:
+        want_pre["ssd_scan"] = per_layer
+    got_pre = line["prefill_launches"]
+    got_dec = {k: line["launches"][k] - got_pre[k] for k in got_pre}
+    line["launches_reckoned"] = {"prefill": want_pre, "decode": want_dec}
+    ok = (all(got_pre[k] == want_pre.get(k, 0) for k in got_pre)
+          and all(got_dec[k] == want_dec.get(k, 0) for k in got_dec))
+    if local_line:
+        args = line.pop("decode_args")          # q, k, v, abs_pos, pos
+        ap = args[3]
+        line["b8_position_local"] = attention_check(
+            katt, "sharded decode", "decode_attention",
+            f"position 0 of 2, {ap.shape[1]} slots", args, cfg.window)
+        outs = torch.stack([katt.decode_attention(*args, cfg.window)] * 2)
+        lse = torch.stack([katt.decode_attention(
+            *args, cfg.window, return_lse=True)[1]] * 2)
+        line["merge_ms"] = queued_ms(
+            lambda: pserve.merge_softmax(outs, lse), 50)
+        line["merge_shape"] = list(outs.shape)
+    log({"family_serve_run": line})
+    if (not ok or not line["gate_ok"]
+            or not all(math.isfinite(e) for e in line["logit_errs"])):
+        raise RuntimeError(f"family serve {arch}: launches "
+                           f"{line['prefill_launches']} / "
+                           f"{line['launches']} (reckoned "
+                           f"{line['launches_reckoned']}), gate "
+                           f"{line['gate']}")
+    return line
+
+
+def leaf_err(a, b) -> float:
+    """A placed gradient leaf ``a`` against ``b`` (on the host): the
+    largest |difference| over b's largest magnitude, a layer at a time for
+    a stacked leaf (a MoE layer's experts are GBs in fp32)."""
+    from repro_torch.sharding import gather, smap
+
+    parts = [(a, b)]
+    if len(a.shape) >= 3 and not a.spec.axes(0):
+        parts = [(smap(lambda t, i=i: t[i], a, out=tuple(a.spec)[1:]), b[i])
+                 for i in range(a.shape[0])]
+    worst = 0.0
+    for s_, w in parts:
+        g, w = gather(s_), w.to(DEVICE)
+        worst = max(worst, float((g - w).abs().max()))
+        del g, w
+    return worst / max(float(b.abs().max()), 1e-30)
+
+
+def family_exact(arch: str, counters) -> dict:
+    """15e: the fp32 ``arch`` cut to FAM_EXACT_LAYERS layers at full width
+    on ``SyntheticLM(vocab, FAM_EXACT_SEQ, 4, seed 0)``: the sharded loss
+    and every gathered gradient leaf against the single-device
+    ``value_and_grad`` (the loss within SHARD_REL relative, each leaf
+    within FAM_EXACT_REL's bound of its largest; with an SSM, each leaf's
+    spread when one device takes its batch in two halves printed beside),
+    the MoE drop counts equal; then the prefill of the batch's first
+    FAM_EXACT_PROMPT tokens and FAM_EXACT_STEPS decode steps against one
+    device's (:func:`serve_pair`, at the same bound)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import MeshRules, gather, place_tree
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.tree import paths
+
+    cfg = family_cfg(arch, FAM_EXACT_LAYERS, "float32")
+    rel = FAM_EXACT_REL.get(arch, SHARD_GRAD_REL)
+    rules = MeshRules(shard_mesh())
+    shape = ShapeConfig("exact", FAM_EXACT_SEQ, FAM_BATCH, "train")
+    _, in_sh, _, _ = tstep.build_train_step(cfg, shape, rules,
+                                            microbatches=1)
+    batch = on_card(SyntheticLM(cfg.vocab, FAM_EXACT_SEQ, FAM_BATCH,
+                                seed=0).batch_at(0))
+    params = tf.init_params(cfg, 0, device=DEVICE)
+    routes = RouteLog()
+    undo = routes.one_device(cfg.n_experts) if cfg.is_moe else []
+    moe.stats.reset()
+    l0, g0 = tstep.value_and_grad(params, cfg, batch)
+    drops0 = moe.stats.read()
+    swap_in(undo)
+    halves = {}
+    if cfg.has_ssm:             # one device's spread over another order
+        hs = [tstep.value_and_grad(params, cfg, {
+            k: v[h * FAM_BATCH // 2:(h + 1) * FAM_BATCH // 2]
+            for k, v in batch.items()})[1] for h in (0, 1)]
+        for (k, _), a, b, c in zip(paths(params), *hs, g0):
+            halves[k] = float(((a + b) / 2 - c).abs().max()
+                              / c.abs().max().clamp(min=1e-30))
+        del hs
+    g0 = [g.cpu() for g in g0]
+    torch.cuda.empty_cache()
+    # the serving comparison first: it places the weights and frees one
+    # device's (two fp32 copies of a MoE layer pair and its gradient do
+    # not fit the card beside each other)
+    box = [params]
+    del params
+    serve = serve_pair(cfg, box, batch["tokens"], FAM_EXACT_PROMPT,
+                       FAM_EXACT_PROMPT + FAM_EXACT_STEPS, FAM_EXACT_STEPS,
+                       counters, f"15e {arch}", rel, keep_placed=True)
+    pd = serve.pop("placed")
+    bd = place_tree(batch, in_sh[2])
+    undo = routes.sharded(cfg.n_experts) if cfg.is_moe else []
+    moe.stats.reset()
+    t0 = time.perf_counter()
+    l1, g1 = tstep.sharded_value_and_grad(pd, cfg, bd, rules)
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    drops1 = moe.stats.read()
+    swap_in(undo)
+    # the forward's routing (the remat recompute routes again after it)
+    flips = (routes.flips(cfg.n_layers) if cfg.is_moe else [])
+    flipped = [(c, t, g) for c, (ts, gs) in enumerate(flips)
+               for t, g in zip(ts, gs)]
+    del pd, bd
+    grad_err = {k: leaf_err(a, b) for (k, a), b in zip(paths(g1), g0)}
+    del g1, g0
+    torch.cuda.empty_cache()
+    loss_rel = abs(float(gather(l1)) - float(l0)) / abs(float(l0))
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "batch": FAM_BATCH,
+            "seq": FAM_EXACT_SEQ, "loss": float(gather(l1)),
+            "single_loss": float(l0), "loss_rel": loss_rel,
+            "grad_rel_worst": max(grad_err.values()),
+            "grad_rel_worst_leaf": max(grad_err, key=grad_err.get),
+            "grad_rel_by_leaf": grad_err, "grad_bound": rel,
+            "single_halves_grad_rel_by_leaf": halves,
+            "sharded_value_and_grad_s": vg_s,
+            "logit_err_worst_share": serve["logit_err_worst_share"],
+            "cache_err_share": serve["cache_err_share"],
+            "prefill_ms": serve["prefill_ms"],
+            "decode_ms_median": serve["decode_ms_median"]}
+    if cfg.is_moe:
+        line["drops"] = {"sharded": drops1, "one_device": drops0,
+                         "serve": serve["moe_drops"]}
+        line["route_flips"] = [{"layer": c, "token": t, "gap": g}
+                               for c, t, g in flipped]
+    log({"family_exact": line})
+    same_drops = not cfg.is_moe or (
+        drops0["dropped"] == drops1["dropped"]
+        and serve["moe_drops"]["sharded"]["dropped"]
+        == serve["moe_drops"]["one_device"]["dropped"])
+    first = min((c for c, _, _ in flipped), default=None)
+    if any(g > FAM_NEAR_TIE for c, _, g in flipped if c == first):
+        raise RuntimeError(f"family exact {arch}: a token routed apart "
+                           f"with no near tie: {line['route_flips']}")
+    if flipped:
+        # a token at a tie between its k-th and next expert goes to either
+        # on the two paths; past the capacity that moves a replica across
+        # the line, the later tokens' inputs part, and so do later layers'
+        # routes: the loss, the drops and the gradients are logged, not
+        # gated
+        log({"family_exact_ungated": {
+            "arch": arch, "route_flips": line["route_flips"],
+            "loss_rel": loss_rel, "grad_rel_worst": line["grad_rel_worst"],
+            "drops": [drops0["dropped"], drops1["dropped"]]}})
+    elif (loss_rel > SHARD_REL or line["grad_rel_worst"] > rel
+            or not same_drops):
+        raise RuntimeError(f"family exact {arch}: {line}")
+    if not serve["gate_ok"]:
+        raise RuntimeError(f"family exact {arch}: serving gate "
+                           f"{serve['gate']}")
+    return line
+
+
+def families_phase(katt, counters) -> dict:
+    """15. The sharded families and serving steps on the card (a-e of the
+    module docstring). Returns {sub-phase: its line}."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    mark("15a")
+    out["15a"] = family_train_run("15a", FAM_TRAIN[0], FAM_TRAIN_LAYERS,
+                                  TRAIN_SEQ, counters, ("ssd_scan",))
+    mark("15b")
+    out["15b"] = family_train_run("15b", FAM_TRAIN[1], FAM_TRAIN_LAYERS,
+                                  TRAIN_SEQ, counters,
+                                  ("flash_attention", "ssd_scan"))
+    mark("15c")
+    for arch, seq in FAM_MOE:
+        out[f"15c {arch}"] = family_train_run(
+            "15c", arch, 1, seq, counters, ("flash_attention",))
+    mark("15d")
+    for i, (arch, layers, prompt, seq) in enumerate(FAM_SERVE):
+        out[f"15d {arch}"] = family_serve_run(katt, arch, layers, prompt,
+                                              seq, counters, i == 0)
+    torch.cuda.empty_cache()
+    mark("15e")
+    for arch in FAM_EXACT:
+        out[f"15e {arch}"] = family_exact(arch, counters)
+        torch.cuda.empty_cache()
+    log({"families_phase_s": time.perf_counter() - t_phase})
+    return out
 
 
 def main() -> int:
@@ -5364,8 +6123,13 @@ def main() -> int:
     mark("14")
     shard_run = sharded_train_phase(counters)
 
-    # ------------------------------------------------------------ 15. report
+    # ------------------------------------ 15. the sharded families, serving
+    torch.cuda.empty_cache()
     mark("15")
+    fam = families_phase(katt, counters)
+
+    # ------------------------------------------------------------ 16. report
+    mark("16")
     entries = []
     for k in counters:
         r_ = results[k]
@@ -5403,6 +6167,31 @@ def main() -> int:
                     "max_abs_err", "kernel_ms", "backward_ms",
                     "forward_backward_ms", "plain_ms", "bound_ms",
                     "bound_by", "backward_bound_ms", "library_ms")}}
+        fam_paths = {tag: run["launches"][k] for tag, run in fam.items()
+                      if run.get("launches", {}).get(k)}
+        if fam_paths:               # phase 15's paths (15a-15d)
+            entry["sharded_families"] = {"launches": fam_paths}
+            for tag, run in fam.items():
+                if run.get("launches", {}).get(k) and \
+                        "step_ms_median_timed" in run:
+                    at = run["kernels_at_position_shape"].get(k, {})
+                    entry["sharded_families"][tag] = {
+                        "step_ms_median": run["step_ms_median_timed"],
+                        "tokens_per_s": run["tokens_per_s_median_step"],
+                        **{key: at.get(key) for key in (
+                            "shape", "max_abs_err", "kernel_ms",
+                            "backward_ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms") if at}}
+            if k == "decode_attention":
+                b8 = fam["15d granite_3_2b"]
+                loc = b8["b8_position_local"]
+                entry["sharded_families"]["position_local"] = {
+                    "shape": loc["shape"], "live_slots": loc["live_slots"],
+                    "merge_ms": b8["merge_ms"],
+                    "decode_ms_median": b8["decode_ms_median"],
+                    **{key: loc.get(key) for key in (
+                        "max_abs_err", "lse_max_abs_err", "kernel_ms",
+                        "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for label, lines in family_results.items():
             if k in lines:          # the same kernel at a family's shapes
                 f_ = lines[k]

@@ -52,7 +52,7 @@ _SIGNATURES = {
     + [_P],
     "glin_flash_attention_bf16_smem": [_I],
     "glin_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _I, _I] + [_L] * 6
-    + [_P],
+    + [_P, _P],
     "glin_ssd_scan": [_P] * 10 + [_I] * 6 + [_L] * 9 + [_P],
 }
 

@@ -66,10 +66,13 @@ def flash_attention_plain(q, k, v, window: int = 0, q_offset: int = 0):
     return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
 
 
-def decode_attention_plain(q, k, v, abs_pos, pos, window: int = 0):
+def decode_attention_plain(q, k, v, abs_pos, pos, window: int = 0,
+                           return_lse: bool = False):
     """``repro.kernels.ref.decode_attention_ref`` in torch: a slot counts
     where ``0 <= abs_pos <= pos`` (and ``pos - abs_pos < window`` with a
-    window); the others take the -1e30 fill."""
+    window); the others take the -1e30 fill. With ``return_lse`` also the
+    fp32 log-sum-exp (B, Hq) of each (row, head)'s scaled scores over its
+    live slots alone: -inf where none is live (not the fill's)."""
     b, hq, d = q.shape
     group = hq // k.shape[1]
     k = k.repeat_interleave(group, dim=1).float()
@@ -78,9 +81,14 @@ def decode_attention_plain(q, k, v, abs_pos, pos, window: int = 0):
     valid = (abs_pos >= 0) & (abs_pos <= pos[:, None])
     if window > 0:
         valid &= (pos[:, None] - abs_pos) < window
-    sc = torch.where(valid[:, None, :], sc, torch.full_like(sc, NEG_INF))
-    p = torch.softmax(sc, dim=-1)
-    return torch.einsum("bhk,bhkd->bhd", p, v).to(q.dtype)
+    live = valid[:, None, :]
+    p = torch.softmax(torch.where(live, sc, torch.full_like(sc, NEG_INF)),
+                      dim=-1)
+    out = torch.einsum("bhk,bhkd->bhd", p, v).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(
+        torch.where(live, sc, torch.full_like(sc, -math.inf)), dim=-1)
 
 
 def _check_strided(name, t, dtype, shape):
@@ -245,10 +253,14 @@ def _flash_launch(q, k, v, window: int):
     return out
 
 
-def decode_attention(q, k, v, abs_pos, pos, window: int = 0):
+def decode_attention(q, k, v, abs_pos, pos, window: int = 0,
+                     return_lse: bool = False):
     """q (B, Hq, D), k/v (B, Hkv, W, D), abs_pos (B, W) int32 (-1 = empty
     slot), pos (B,) int32 -> (B, Hq, D) in q's dtype: one query token per
-    row against its ring of W slots.
+    row against its ring of W slots. With ``return_lse`` also the fp32
+    log-sum-exp (B, Hq) of each (row, head)'s scaled scores over its live
+    slots (-inf where none is live), from which partial softmaxes over
+    disjoint slot ranges merge (the sharded decode's slots over ``model``).
 
     Replaces ``decode_attention_pallas`` (repro/kernels/decode_attention.py).
     Bound on this card: bytes (the live slots' K and V). Each (row, kv
@@ -257,10 +269,11 @@ def decode_attention(q, k, v, abs_pos, pos, window: int = 0):
     group's query heads in registers and leaving its partial softmax state
     in a scratch tensor; in the same launch, the last block of the row to
     finish (counted on per-stream counters that the kernel leaves at zero)
-    merges them.
+    merges them, and writes the log-sum-exp where it is asked for.
     """
     if not _route(q, k, v, abs_pos, pos):
-        return decode_attention_plain(q, k, v, abs_pos, pos, window)
+        return decode_attention_plain(q, k, v, abs_pos, pos, window,
+                                      return_lse)
     b, hq, d = q.shape
     _check_heads(q, k, d)
     w = k.shape[2]
@@ -278,6 +291,8 @@ def decode_attention(q, k, v, abs_pos, pos, window: int = 0):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: needs a contiguous last dimension")
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b and w:
         hkv = k.shape[1]
         split = decode_plan(b, hkv)["split"]
@@ -289,9 +304,11 @@ def decode_attention(q, k, v, abs_pos, pos, window: int = 0):
                 out, part, _decode_done(q.device, b * hkv), b, hq, hkv, w, d,
                 int(window), 1.0 / math.sqrt(d),
                 int(q.dtype == torch.bfloat16), split, *q.stride()[:2],
-                *k.stride()[:3], abs_pos.stride(0))
+                *k.stride()[:3], abs_pos.stride(0), lse)
         _count(decode_attention)
-    return out
+    elif lse is not None:
+        lse.fill_(-math.inf)
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

@@ -32,10 +32,14 @@
 // the last block of the row to finish (a counter per (row, kv head),
 // __threadfence before the atomicAdd) rescales every partial by
 // exp(m_i - m) and writes the output, and sets the counter back to 0 for
-// the next launch: one launch. A row with no live slot at all (every flag
-// 0) averages all W values, as the reference's softmax of equal -1e30
-// scores does. Any W, also W < split (a block with no slot leaves an empty
-// partial). At most 128 registers a thread keep four blocks an SM.
+// the next launch: one launch. Where asked, that block also writes each
+// head's log-sum-exp over the live slots (m + log l of the merged state; -inf
+// in a row with no live slot), so that partial softmaxes over disjoint slot
+// ranges merge (the sharded decode's slots over the model axis). A row with
+// no live slot at all (every flag 0) averages all W values, as the
+// reference's softmax of equal -1e30 scores does. Any W, also W < split (a
+// block with no slot leaves an empty partial). At most 128 registers a
+// thread keep four blocks an SM.
 //
 // A thread block cluster merging the partials through distributed shared
 // memory was tried first and was slower at the serving shape on an H100:
@@ -78,7 +82,7 @@ __global__ void __launch_bounds__(kThreads, 4)  // four blocks an SM
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ abs_pos, const int* __restrict__ pos,
                     T* __restrict__ out, float* __restrict__ part, int* __restrict__ done,
-                    int group, int w, int window, float scale, int64_t sqb, int64_t sqh,
+                    float* __restrict__ lse, int group, int w, int window, float scale, int64_t sqb, int64_t sqh,
                     int64_t skb, int64_t skh, int64_t skw, int64_t sab) {
   using L = Layout<T, D>;
   constexpr int E = L::E, LPS = L::LPS, NG = L::NG, V = L::V, CH = L::CH, CPR = L::CPR;
@@ -341,6 +345,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int r = 0; r < kMaxSplit; ++r)
     if (r < split) live += __ldcg(prow + r * pstride + pstride - 1);
   T* ob = out + (static_cast<int64_t>(b) * gridDim.y * group + h0) * D;
+  // the heads' log-sum-exp over the live slots, where it is asked for
+  float* lb = lse == nullptr ? nullptr : lse + static_cast<int64_t>(b) * gridDim.y * group + h0;
   for (int i = tid; i < group * D; i += kThreads) {
     const int g = i / D, d = i % D;
     float pm[kMaxSplit], pl[kMaxSplit], pa[kMaxSplit];
@@ -365,9 +371,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       den += pl[r] * f;
       num += pa[r] * f;
     }
-    if (live > 0.f) attn_io::store(ob + i, num / fmaxf(den, 1e-30f));
+    if (live > 0.f) {
+      attn_io::store(ob + i, num / fmaxf(den, 1e-30f));
+      if (lb != nullptr && d == 0) lb[g] = mm + logf(den);
+    }
   }
   if (live > 0.f) return;
+  if (lb != nullptr)
+    for (int g = tid; g < group; g += kThreads) lb[g] = -CUDART_INF_F;
   // no live slot in the row: every slot scores -1e30, so every head
   // averages all W values (the reference's softmax of equal scores)
   float* w_sum = reinterpret_cast<float*>(s_ring);  // [ROWS_][D] partial sums
@@ -393,28 +404,28 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* abs_pos,
-                   const void* pos, void* out, void* part, void* done, int b, int hkv, int group,
-                   int w, int window, float scale, int split, const int64_t* st,
+                   const void* pos, void* out, void* part, void* done, void* lse, int b, int hkv,
+                   int group, int w, int window, float scale, int split, const int64_t* st,
                    cudaStream_t stream) {
   decode_split_kernel<T, D><<<dim3(split, hkv, b), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(abs_pos), static_cast<const int*>(pos), static_cast<T*>(out),
-      static_cast<float*>(part), static_cast<int*>(done), group, w, window, scale, st[0], st[1],
-      st[2], st[3], st[4], st[5]);
+      static_cast<float*>(part), static_cast<int*>(done), static_cast<float*>(lse), group, w,
+      window, scale, st[0], st[1], st[2], st[3], st[4], st[5]);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const void* abs_pos,
-                     const void* pos, void* out, void* part, void* done, int b, int hkv,
-                     int group, int w, int window, float scale, int split, const int64_t* st,
-                     cudaStream_t stream) {
+                     const void* pos, void* out, void* part, void* done, void* lse, int b,
+                     int hkv, int group, int w, int window, float scale, int split,
+                     const int64_t* st, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, abs_pos, pos, out, part, done, b, hkv, group, w, window, scale, split, st, stream);
-    case 32: return launch<T, 32>(q, k, v, abs_pos, pos, out, part, done, b, hkv, group, w, window, scale, split, st, stream);
-    case 64: return launch<T, 64>(q, k, v, abs_pos, pos, out, part, done, b, hkv, group, w, window, scale, split, st, stream);
-    case 128: return launch<T, 128>(q, k, v, abs_pos, pos, out, part, done, b, hkv, group, w, window, scale, split, st, stream);
-    case 256: return launch<T, 256>(q, k, v, abs_pos, pos, out, part, done, b, hkv, group, w, window, scale, split, st, stream);
+    case 16: return launch<T, 16>(q, k, v, abs_pos, pos, out, part, done, lse, b, hkv, group, w, window, scale, split, st, stream);
+    case 32: return launch<T, 32>(q, k, v, abs_pos, pos, out, part, done, lse, b, hkv, group, w, window, scale, split, st, stream);
+    case 64: return launch<T, 64>(q, k, v, abs_pos, pos, out, part, done, lse, b, hkv, group, w, window, scale, split, st, stream);
+    case 128: return launch<T, 128>(q, k, v, abs_pos, pos, out, part, done, lse, b, hkv, group, w, window, scale, split, st, stream);
+    case 256: return launch<T, 256>(q, k, v, abs_pos, pos, out, part, done, lse, b, hkv, group, w, window, scale, split, st, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -429,21 +440,23 @@ extern "C" {
 // contiguous. is_bf16: 1 for bf16 q/k/v/out, 0 for fp32. split: blocks
 // that share a row's slots, 1..8. part: fp32 scratch of
 // B * Hkv * split * (Hq / Hkv * (D + 2) + 1) floats; done: B * Hkv int32
-// counters, 0 before the launch and 0 again after it.
+// counters, 0 before the launch and 0 again after it. lse: null, or fp32
+// (B, Hq) contiguous, each (row, head)'s log-sum-exp of its scaled scores
+// over the live slots (-inf where none is live).
 int glin_decode_attention(const void* q, const void* k, const void* v, const void* abs_pos,
                           const void* pos, void* out, void* part, void* done, int b, int hq,
                           int hkv, int w, int d, int window, float scale, int is_bf16, int split,
                           long long sqb, long long sqh, long long skb, long long skh,
-                          long long skw, long long sab, void* stream) {
+                          long long skw, long long sab, void* lse, void* stream) {
   if (b < 1 || w < 1 || hkv < 1 || hq % hkv || split < 1 || split > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[6] = {sqb, sqh, skb, skh, skw, sab};
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      is_bf16 ? dispatch<__nv_bfloat16>(d, q, k, v, abs_pos, pos, out, part, done, b, hkv,
-                                        hq / hkv, w, window, scale, split, st, cs)
-              : dispatch<float>(d, q, k, v, abs_pos, pos, out, part, done, b, hkv, hq / hkv, w,
-                                window, scale, split, st, cs);
+      is_bf16 ? dispatch<__nv_bfloat16>(d, q, k, v, abs_pos, pos, out, part, done, lse, b,
+                                        hkv, hq / hkv, w, window, scale, split, st, cs)
+              : dispatch<float>(d, q, k, v, abs_pos, pos, out, part, done, lse, b, hkv, hq / hkv,
+                                w, window, scale, split, st, cs);
   return static_cast<int>(e);
 }
 

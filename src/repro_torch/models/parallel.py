@@ -1,7 +1,7 @@
-"""The sharded forward and loss of the attention families (``dense``,
-``vlm``, ``audio``): FSDP over the batch axes and tensor parallelism over
-``model``, written out explicitly under one controller — what GSPMD makes
-of the reference's ``forward_train`` / ``loss_fn`` under its rule table.
+"""The sharded forward and loss of every family: FSDP over the batch axes
+and tensor parallelism over ``model``, written out explicitly under one
+controller — what GSPMD makes of the reference's ``forward_train`` /
+``loss_fn`` under its rule table.
 
 Every value is a placed value (``sharding.placement.Sharded``): the
 parameters as ``train.step.param_shardings`` lays them out, the batch
@@ -20,6 +20,11 @@ split over the batch axes. Per data row and per ``model`` position:
   is gathered over ``model`` and sliced.
 * **MLP.** The local ``ff`` slices of ``wg`` / ``wu`` / ``wd``, then a sum
   over ``model``.
+* **The SSM mixer** (``ssm`` and ``hybrid``) splits its heads over
+  ``model`` (:mod:`.parallel_ssm`); the **MoE FFN** dispatches over the
+  batch axes with global capacity ranks (:mod:`.parallel_moe`). A
+  ``hybrid`` block runs the attention and the split mixer on the same
+  normed input and averages them; its ``meta`` rows go ahead of every row.
 * **Vocab-parallel embedding and head** where the vocab splits over
   ``model``: each position looks up the tokens in its vocab range (zero
   elsewhere) and the rows are summed; the logits stay split, and the cross
@@ -33,6 +38,8 @@ split over the batch axes. Per data row and per ``model`` position:
 ``sharding.constrain`` is called where the reference calls it (the
 embedded rows, each block's output, the MLP's hidden, the logits); the
 layouts above are the ones the rules resolve, so each returns its value.
+:func:`forward` also collects each layer's per-position cache pieces for
+the sharded prefill (:mod:`.parallel_serve`).
 """
 from __future__ import annotations
 
@@ -45,43 +52,47 @@ from torch.utils.checkpoint import checkpoint
 from ..sharding import constrain, use_rules
 from ..sharding.placement import Sharded, all_gather, pmax, psum, smap
 from . import attention as attn
+from . import parallel_moe as pmoe
+from . import parallel_ssm as pssm
 from . import transformer as tf
 from .layers import dense, rms_norm
 
-__all__ = ["FAMILIES", "Plan", "check_sharded", "loss_fn"]
+__all__ = ["FAMILIES", "Plan", "check_sharded", "forward", "loss_fn"]
 
-FAMILIES = ("dense", "vlm", "audio")
+FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 
 
 def check_sharded(cfg, rules=None) -> None:
     """Raise ``NotImplementedError`` for a config (or rules) the sharded
-    step does not cover; never run such a config unsharded."""
+    steps do not cover; never run such a config unsharded."""
     tf.check_supported(cfg)
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded train step covers the attention "
-            f"families {FAMILIES}; the {cfg.family} family's (expert "
-            "parallelism, the split SSM) is ROADMAP A10.4 part 2")
+        raise NotImplementedError(f"{cfg.name}: no sharded step for the "
+                                  f"{cfg.family} family")
     if rules is not None and rules.seq_sharding:
         raise NotImplementedError(
-            "the sharded train step does not split the sequence "
-            "(seq_sharding=True); ROADMAP A10.4 part 2")
+            "the sharded steps do not split the sequence "
+            "(seq_sharding=True); ROADMAP A10.4 part 3")
+    if rules is not None and cfg.is_moe:
+        pmoe.expert_parallel(cfg, rules)        # raises where it cannot
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """The mesh axes of the step: ``dp`` the batch axes, ``tp`` the model
-    axis (empty where the mesh has none) and ``m`` its extent."""
+    axis (empty where the mesh has none) and ``m`` its extent, ``n`` the
+    batch axes' extent."""
     dp: Tuple[str, ...]
     tp: Tuple[str, ...]
     m: int
+    n: int = 1
 
     @classmethod
     def of(cls, rules) -> "Plan":
         names = rules.mesh.axis_names
         dp = tuple(a for a in rules.axis_for("batch") if a in names)
         tp = ("model",) if "model" in names else ()
-        return cls(dp, tp, rules.extent(tp))
+        return cls(dp, tp, rules.extent(tp), rules.extent(dp))
 
 
 def _fsdp(w: Sharded, dim: int) -> Sharded:
@@ -115,29 +126,30 @@ def _take(w: Sharded, dim: int, cols, plan: Plan) -> Sharded:
 
 
 def _heads(cfg, plan: Plan):
-    """Per ``model`` position: its query head range, the kv heads it reads
-    (a range where each serves the same number of its query heads, else
-    one per query head) and its local config."""
+    """Per ``model`` position: its query head range, the kv columns it
+    reads (a range where each kv head serves the same number of its query
+    heads, else one kv head per query head), its local config and the kv
+    head of each of its local kv heads."""
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if hq < plan.m:
         raise NotImplementedError(f"{cfg.name}: {hq} query heads over "
                                   f"{plan.m} model positions")
     group = hq // hkv
-    q_cols, kv_cols, cfgs = [], [], []
+    q_cols, kv_cols, cfgs, kv_ids = [], [], [], []
     for h0, h1 in _ranges(hq, plan.m):
         kvs = [h // group for h in range(h0, h1)]
         ks = sorted(set(kvs))
         counts = {kvs.count(k) for k in ks}
         if len(counts) == 1:
             kv_cols.append((ks[0] * dh, (ks[-1] + 1) * dh))
-            n_kv = len(ks)
+            kv_ids.append(ks)
         else:
             kv_cols.append([k * dh + i for k in kvs for i in range(dh)])
-            n_kv = len(kvs)
+            kv_ids.append(kvs)
         q_cols.append((h0 * dh, h1 * dh))
         cfgs.append(dataclasses.replace(cfg, n_heads=h1 - h0,
-                                        n_kv_heads=n_kv))
-    return q_cols, kv_cols, cfgs
+                                        n_kv_heads=len(kv_ids[-1])))
+    return q_cols, kv_cols, cfgs, kv_ids
 
 
 def _reduced(partial: Sharded, like: Sharded, plan: Plan) -> Sharded:
@@ -147,22 +159,26 @@ def _reduced(partial: Sharded, like: Sharded, plan: Plan) -> Sharded:
     return Sharded(like.shape, like.spec, like.mesh, s.blocks)
 
 
-def _attention(h: Sharded, p: Dict[str, Sharded], cfg, rot, plan: Plan
-               ) -> Sharded:
-    q_cols, kv_cols, cfgs = _heads(cfg, plan)
-    o_rows = q_cols
+def _attention(h: Sharded, p: Dict[str, Sharded], cfg, rot, plan: Plan,
+               collect: bool = False):
+    """(the attention output, and where ``collect`` each position's local
+    (k, v) (B, S, local kv heads, Dh), else None)."""
+    q_cols, kv_cols, cfgs, _ = _heads(cfg, plan)
     wq = _take(_fsdp(p["wq"], 0), 1, q_cols, plan)
     wk = _take(_fsdp(p["wk"], 0), 1, kv_cols, plan)
     wv = _take(_fsdp(p["wv"], 0), 1, kv_cols, plan)
-    wo = _take(_fsdp(p["wo"], 1), 0, o_rows, plan)
+    wo = _take(_fsdp(p["wo"], 1), 0, q_cols, plan)
     norms = [p[k] for k in ("qn", "kn") if cfg.qk_norm]
 
     def local(j, x, wq, wk, wv, wo, cos, sin, *qk):
         pl = {"wq": wq, "wk": wk, "wv": wv, "wo": wo,
               **dict(zip(("qn", "kn"), qk))}
-        return attn.attention_full(x, pl, cfgs[j], (cos, sin))[0]
-    part = smap(local, h, wq, wk, wv, wo, *rot, *norms, coord=plan.tp)
-    return _reduced(part, h, plan)
+        out, kv = attn.attention_full(x, pl, cfgs[j], (cos, sin))
+        return (out, kv["k"], kv["v"]) if collect else out
+    res = smap(local, h, wq, wk, wv, wo, *rot, *norms, coord=plan.tp)
+    if collect:
+        return _reduced(res[0], h, plan), res[1:]
+    return _reduced(res, h, plan), None
 
 
 def _mlp(h: Sharded, p: Dict[str, Sharded], cfg, plan: Plan) -> Sharded:
@@ -181,15 +197,44 @@ def _mlp(h: Sharded, p: Dict[str, Sharded], cfg, plan: Plan) -> Sharded:
     return _reduced(smap(dense, hid, wd), h, plan)
 
 
-def _block(x: Sharded, pl: Dict[str, Any], cfg, rot, plan: Plan) -> Sharded:
-    """One attention + MLP block over every position (the reference's
-    ``_block_train`` of the dense, vlm and audio families)."""
+def _ffn(h: Sharded, pl, cfg, plan: Plan) -> Sharded:
+    """The block's feed-forward: the sharded MoE FFN or the MLP."""
+    if cfg.is_moe:
+        return pmoe.moe_ffn(h, pl["moe"], cfg, plan)
+    return _mlp(h, pl["mlp"], cfg, plan)
+
+
+def _add(x: Sharded, y: Sharded) -> Sharded:
+    return smap(torch.add, x, y, out=x.spec)
+
+
+def _block(x: Sharded, pl: Dict[str, Any], cfg, rot, plan: Plan,
+           collect: bool = False):
+    """One block of the reference's ``_block_train`` over every position:
+    attention, then the MLP or the MoE FFN (dense, moe, vlm, audio); the
+    split SSM mixer alone (ssm); both mixers, averaged, then the MLP
+    (hybrid). Returns (x, the layer's per-position cache pieces or
+    None)."""
     h = smap(rms_norm, x, pl["ln1"], out=x.spec)
-    x = smap(torch.add, x, _attention(h, pl["attn"], cfg, rot, plan),
-             out=x.spec)
-    h = smap(rms_norm, x, pl["ln2"], out=x.spec)
-    x = smap(torch.add, x, _mlp(h, pl["mlp"], cfg, plan), out=x.spec)
-    return constrain(x, ("batch", "seq", None))
+    cache = {}
+    if cfg.family == "ssm":
+        s_out, cache["ssm"] = pssm.mixer(h, pl["ssm"], cfg, plan, collect)
+        x = _add(x, s_out)
+    elif cfg.family == "hybrid":
+        a_out, cache["attn"] = _attention(h, pl["attn"], cfg, rot, plan,
+                                          collect)
+        s_out, cache["ssm"] = pssm.mixer(h, pl["ssm"], cfg, plan, collect)
+        # (a + s) / 2 in the activation dtype, as the reference's mix / 2
+        x = smap(lambda x, a, s: x + (a + s) / 2, x, a_out, s_out,
+                 out=x.spec)
+    else:
+        a_out, cache["attn"] = _attention(h, pl["attn"], cfg, rot, plan,
+                                          collect)
+        x = _add(x, a_out)
+    if cfg.d_ff > 0:
+        h = smap(rms_norm, x, pl["ln2"], out=x.spec)
+        x = _add(x, _ffn(h, pl, cfg, plan))
+    return constrain(x, ("batch", "seq", None)), (cache if collect else None)
 
 
 def _layer(tree, i: int):
@@ -199,9 +244,33 @@ def _layer(tree, i: int):
     return smap(lambda b: b[i], tree, out=tuple(tree.spec)[1:])
 
 
+def _lookup(params, cfg, tok: Sharded, plan: Plan):
+    """(the token rows (B, S, d) over the batch axes, the gathered
+    embedding) of token ids ``tok`` (B, S): vocab-parallel where the vocab
+    splits over ``model``."""
+    emb = _fsdp(params["embed"], 1)             # (V | V/m, d)
+    vax = emb.spec.axes(0)
+    if vax:
+        n = cfg.vocab // plan.m
+
+        def look(j, e, t):
+            t = t.long() - j * n
+            ok = (t >= 0) & (t < n)
+            return torch.where(ok[..., None], e[t.clamp(0, n - 1)],
+                               torch.zeros((), dtype=e.dtype,
+                                           device=e.device))
+        x = psum(smap(look, emb, tok, coord=vax), vax)
+    else:
+        x = smap(lambda e, t: e[t.long()], emb, tok)
+    return Sharded(tok.shape + (cfg.d_model,), tok.spec, tok.mesh,
+                   x.blocks), emb
+
+
 def _embed(params, cfg, batch, plan: Plan):
-    """(the rows (B,S,d) over the batch axes, the gathered embedding or
-    None, the rotary tables)."""
+    """(the rows (B, M+S, d) over the batch axes — the ``meta`` rows ahead
+    of every row where the config has them —, the gathered embedding or
+    None, the rotary tables of their positions, or None without
+    attention)."""
     dt = tf.dtype_of(cfg)
     emb = None
     if cfg.frontend == "embed_stub":
@@ -209,44 +278,47 @@ def _embed(params, cfg, batch, plan: Plan):
                  out=batch["embeds"].spec)
         rows = batch["embeds"]
     else:
-        rows = tok = batch["tokens"]
-        emb = _fsdp(params["embed"], 1)             # (V | V/m, d)
-        vax = emb.spec.axes(0)
-        if vax:
-            n = cfg.vocab // plan.m
-
-            def look(j, e, t):
-                t = t.long() - j * n
-                ok = (t >= 0) & (t < n)
-                return torch.where(ok[..., None], e[t.clamp(0, n - 1)],
-                                   torch.zeros((), dtype=e.dtype,
-                                               device=e.device))
-            x = psum(smap(look, emb, tok, coord=vax), vax)
-        else:
-            x = smap(lambda e, t: e[t.long()], emb, tok)
-        x = Sharded(tok.shape + (cfg.d_model,), tok.spec, tok.mesh, x.blocks)
+        rows = batch["tokens"]
+        x, emb = _lookup(params, cfg, rows, plan)
     if "positions" in batch:
         pos = batch["positions"]
     else:
         pos = smap(lambda r: torch.arange(
             r.shape[1], dtype=torch.int32, device=r.device)[None].expand(
                 r.shape[0], r.shape[1]), rows, out=rows.spec)
-    rot = smap(lambda q: attn.rot_tables(cfg, q), pos)
+    m = cfg.meta_tokens
+    if m:
+        def with_meta(x, meta, q):
+            b = x.shape[0]
+            rows = torch.cat([meta.to(x.dtype)[None].expand(
+                b, m, x.shape[-1]), x], dim=1)
+            mpos = torch.arange(m, dtype=torch.int32, device=x.device)
+            mpos = mpos.expand(*q.shape[:-1], m)
+            return rows, torch.cat([mpos, q + m], dim=-1)
+        x, pos = smap(with_meta, x, params["meta"], pos,
+                      out=(x.spec, pos.spec))
+    rot = (smap(lambda q: attn.rot_tables(cfg, q), pos)
+           if cfg.has_attention else None)
     return constrain(x, ("batch", "seq", None)), emb, rot
 
 
-def _logits(x: Sharded, params, emb, cfg, plan: Plan) -> Sharded:
+def _head(params, emb, cfg) -> Tuple[Sharded, Tuple[str, ...]]:
+    """(the head (d, V | V/m) on every position, its vocab axes)."""
     if cfg.tie_embeddings:
         if emb is None:                             # an embed_stub frontend
             emb = _fsdp(params["embed"], 1)
-        w = smap(lambda e: e.t(), emb)
-        vax = emb.spec.axes(0)
-    else:
-        w = _fsdp(params["lm_head"], 0)             # (d, V | V/m)
-        vax = w.spec.axes(1)
-    out = tuple(x.spec) + (None,) * (2 - len(x.spec)) + vax
+        return smap(lambda e: e.t(), emb), emb.spec.axes(0)
+    w = _fsdp(params["lm_head"], 0)                 # (d, V | V/m)
+    return w, w.spec.axes(1)
+
+
+def _logits(x: Sharded, params, emb, cfg, plan: Plan) -> Sharded:
+    w, vax = _head(params, emb, cfg)
+    out = tuple(x.spec) + (None,) * (x.blocks[0].dim() - 1 - len(x.spec)
+                                     ) + vax
     logits = smap(tf.head_logits, x, w, out=out)
-    return constrain(logits, ("batch", "seq", "vocab"))
+    lg = ("batch",) + ("seq",) * (x.blocks[0].dim() - 2) + ("vocab",)
+    return constrain(logits, lg)
 
 
 def _nll(logits: Sharded, labels: Sharded, plan: Plan):
@@ -275,24 +347,44 @@ def _nll(logits: Sharded, labels: Sharded, plan: Plan):
     return nll, smap(torch.sum, mask)
 
 
-def loss_fn(params, cfg, batch, rules, remat: bool = True) -> Sharded:
-    """The masked next-token cross entropy of the batch (the reference's
-    ``loss_fn`` under GSPMD): the global masked mean, replicated on every
-    position (a :class:`Sharded` of spec ``()``)."""
+def forward(params, cfg, batch, rules, remat: bool = False,
+            collect_cache: bool = False, logits_last_only: bool = False):
+    """The sharded full-sequence forward (the reference's
+    ``forward_train`` under GSPMD): (fp32 logits (B, S, V) — (B, 1, V)
+    with ``logits_last_only`` — laid out ``("batch", "seq", "vocab")``,
+    and with ``collect_cache`` each layer's per-position cache pieces
+    (:func:`_block`), else None). With ``remat`` each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant)."""
     check_sharded(cfg, rules)
     plan = Plan.of(rules)
+    caches = [] if collect_cache else None
     with use_rules(rules):
         x, emb, rot = _embed(params, cfg, batch, plan)
         for i in range(cfg.n_layers):
             pl = _layer(params["blocks"], i)
             if remat:
-                x = checkpoint(_block, x, pl, cfg, rot, plan,
-                               use_reentrant=False,
-                               context_fn=tf._recompute_contexts)
+                x, c = checkpoint(_block, x, pl, cfg, rot, plan,
+                                  collect_cache, use_reentrant=False,
+                                  context_fn=tf._recompute_contexts)
             else:
-                x = _block(x, pl, cfg, rot, plan)
+                x, c = _block(x, pl, cfg, rot, plan, collect_cache)
+            if collect_cache:
+                caches.append(c)
         x = smap(rms_norm, x, params["final_norm"], out=x.spec)
-        logits = _logits(x, params, emb, cfg, plan)
+        m = cfg.meta_tokens
+        if m or logits_last_only:
+            x = smap(lambda b: b[:, -1:] if logits_last_only else b[:, m:],
+                     x, out=x.spec)
+        return _logits(x, params, emb, cfg, plan), caches
+
+
+def loss_fn(params, cfg, batch, rules, remat: bool = True) -> Sharded:
+    """The masked next-token cross entropy of the batch (the reference's
+    ``loss_fn`` under GSPMD): the global masked mean, replicated on every
+    position (a :class:`Sharded` of spec ``()``)."""
+    plan = Plan.of(rules)
+    logits, _ = forward(params, cfg, batch, rules, remat=remat)
+    with use_rules(rules):
         nll, cnt = _nll(logits, batch["labels"], plan)
         total, count = psum(nll, plan.dp), psum(cnt, plan.dp)
         return smap(lambda t, c: t / torch.clamp(c, min=1.0), total, count,

@@ -14,16 +14,16 @@ import contextlib
 import threading
 from typing import Optional, Tuple
 
-from .placement import (NamedSharding, Sharded, all_gather, gather,
-                        gather_tree, place, place_tree, pmax, ppermute, psum,
-                        reduce_scatter, relayout, smap)
+from .placement import (NamedSharding, Sharded, all_gather, all_to_all,
+                        gather, gather_tree, place, place_tree, pmax,
+                        ppermute, psum, reduce_scatter, relayout, smap)
 from .rules import MeshRules, PartitionSpec, logical_to_spec, spec_tree
 
 __all__ = ["MeshRules", "PartitionSpec", "logical_to_spec", "spec_tree",
            "use_rules", "constrain", "current_rules", "Sharded",
            "NamedSharding", "place", "gather", "place_tree", "gather_tree",
-           "smap", "psum", "pmax", "all_gather", "reduce_scatter",
-           "ppermute", "relayout"]
+           "smap", "psum", "pmax", "all_gather", "all_to_all",
+           "reduce_scatter", "ppermute", "relayout"]
 
 _STATE = threading.local()
 

@@ -15,14 +15,15 @@ sharded backend, ``core.distributed``):
 * :func:`place` is ``jax.device_put(x, NamedSharding(mesh, spec))``;
   :func:`gather` returns the global tensor on one device.
 * The collectives (:func:`psum`, :func:`pmax`, :func:`all_gather`,
-  :func:`reduce_scatter`, :func:`ppermute`) are plain torch ops on the
-  blocks of the positions that differ only along the named axes, taken in
-  mesh order (deterministic), each block moved to the receiving position's
-  device with ``.to()``. They differentiate through ``.to()``, ``cat`` and
-  ``+``, so one autograd graph spans every position and autograd delivers
-  the backward collectives itself: the gradient of an all-gather arrives
-  summed over the positions that read the gathered value, and a value
-  copied to several positions gets their gradients summed.
+  :func:`reduce_scatter`, :func:`ppermute`, :func:`all_to_all`) are plain
+  torch ops on the blocks of the positions that differ only along the
+  named axes, taken in mesh order (deterministic), each block moved to the
+  receiving position's device with ``.to()``. They differentiate through
+  ``.to()``, ``cat`` and ``+``, so one autograd graph spans every position
+  and autograd delivers the backward collectives itself: the gradient of
+  an all-gather arrives summed over the positions that read the gathered
+  value, and a value copied to several positions gets their gradients
+  summed.
 * :func:`smap` runs a function on every position's blocks; positions whose
   blocks are the same tensors (and device) share one call.
 
@@ -45,8 +46,8 @@ from .rules import PartitionSpec, shape_of
 
 __all__ = ["Sharded", "NamedSharding", "place", "gather", "place_tree",
            "gather_tree", "smap", "psum", "pmax", "all_gather",
-           "reduce_scatter", "ppermute", "relayout", "split", "sum_replicas",
-           "canonical_blocks", "unique_blocks", "block_slices",
+           "reduce_scatter", "ppermute", "all_to_all", "relayout", "split",
+           "sum_replicas", "canonical_blocks", "unique_blocks", "block_slices",
            "shape_dtype"]
 
 
@@ -394,6 +395,29 @@ def ppermute(s: Sharded, axis: str, perm: Sequence[Tuple[int, int]]
         return torch.zeros_like(gb[rank], device=dev)
     return Sharded(None, None, s.mesh,
                    _collective(s, (axis,), send, by_rank=True))
+
+
+def all_to_all(s: Sharded, axis, split_dim: int, concat_dim: int
+               ) -> Sharded:
+    """``jax.lax.all_to_all``: each position's block cut into ``n`` equal
+    chunks along ``split_dim`` (``n`` the extent of ``axis``); chunk ``i``
+    of the position at coordinate ``j`` goes to coordinate ``i``, which
+    concatenates what it receives along ``concat_dim`` in mesh order. Its
+    gradient is the reverse ``all_to_all`` (autograd's, through ``.to()``,
+    ``chunk`` and ``cat``). A per-position value."""
+    axes = _axes(axis)
+    if not axes:
+        return s
+
+    def exchange(gb, dev, rank):
+        n = len(gb)
+        if gb[0].shape[split_dim] % n:
+            raise ValueError(f"dimension {split_dim} of a block "
+                             f"{tuple(gb[0].shape)} does not split into {n}")
+        return torch.cat([b.chunk(n, split_dim)[rank].to(dev) for b in gb],
+                         concat_dim)
+    return Sharded(None, None, s.mesh,
+                   _collective(s, axes, exchange, by_rank=True))
 
 
 def split(s: Sharded, axis, dim: int) -> Sharded:

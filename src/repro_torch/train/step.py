@@ -1,12 +1,13 @@
 """Step builders: the single-device train step (gradient accumulation over
-microbatches, then one AdamW update) and the sharded one over a device
-mesh (the reference's ``build_train_step``), with the shapes and layouts
-of their inputs (``input_specs``, ``param_shardings``, ``_opt_shardings``,
-``_batch_spec``).
+microbatches, then one AdamW update) and the sharded steps over a device
+mesh (the reference's ``build_train_step``, ``build_prefill_step`` and
+``build_decode_step``), with the shapes and layouts of their inputs
+(``input_specs``, ``param_shardings``, ``_opt_shardings``,
+``_batch_spec``, ``_cache_shardings``).
 
-The sharded step covers the attention families (``models.parallel``);
-its prefill and decode builders and the other families' sharded steps are
-not part of this module yet (ROADMAP A10.4 part 2).
+The sharded steps cover every family (``models.parallel``,
+``models.parallel_serve``); sequence sharding (``seq_sharding=True``) is
+ROADMAP A10.4 part 3 and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from ..configs.base import ShapeConfig
 from ..models import parallel
+from ..models import parallel_serve as pserve
 from ..models import transformer as tf
 from ..sharding.placement import (NamedSharding, Sharded, all_gather,
                                   canonical_blocks, place, smap, split,
@@ -27,7 +29,7 @@ from .optimizer import AdamWConfig, adamw_update
 
 __all__ = ["input_specs", "value_and_grad", "train_step", "param_shardings",
            "sharded_value_and_grad", "sharded_adamw_init",
-           "build_train_step"]
+           "build_train_step", "build_prefill_step", "build_decode_step"]
 
 Spec = Tuple[Tuple[int, ...], torch.dtype]
 
@@ -303,3 +305,59 @@ def build_train_step(cfg, shape: ShapeConfig, rules: MeshRules,
     in_sh = (p_sh, o_sh, b_sh)
     out_sh = (p_sh, o_sh, {"loss": rep, "grad_norm": rep, "lr": rep})
     return train_step, in_sh, out_sh, (p_shapes, o_shapes, batch)
+
+
+# ---------------------------------------------------------------------------
+# The sharded prefill and decode steps
+# ---------------------------------------------------------------------------
+def _cache_shardings(cfg, shape: ShapeConfig, rules: MeshRules):
+    """The decode cache's NamedShardings for ``shape`` (``logical_to_spec``
+    of ``transformer.cache_logical`` over ``transformer.cache_shapes``)."""
+    specs = pserve.cache_specs(cfg, rules, shape.global_batch,
+                               shape.seq_len)
+    return tree_map(specs, lambda sp: NamedSharding(rules.mesh, sp))
+
+
+def _logits_sharding(cfg, shape: ShapeConfig, rules: MeshRules):
+    return NamedSharding(rules.mesh, logical_to_spec(
+        rules, ("batch", "vocab"), (shape.global_batch, cfg.vocab)))
+
+
+def build_prefill_step(cfg, shape: ShapeConfig, rules: MeshRules):
+    """The sharded prefill of ``cfg`` on ``rules.mesh``
+    (``models.parallel_serve.prefill``, the cache ``shape.seq_len`` slots
+    deep). Returns ``(prefill_step, in_specs, out_specs, shapes)``:
+    ``prefill_step(params, batch)`` over placed trees laid out by
+    ``in_specs`` (params, batch) returns (last-token logits, cache) laid
+    out by ``out_specs``; ``shapes`` the inputs' (shape, dtype) pairs."""
+    parallel.check_sharded(cfg, rules)
+
+    def prefill_step(params, batch):
+        return pserve.prefill(params, cfg, batch, rules,
+                              seq_len_cache=shape.seq_len)
+
+    p_shapes, p_sh = param_shardings(cfg, rules)
+    batch = input_specs(cfg, shape)
+    in_sh = (p_sh, _batch_spec(rules, batch))
+    out_sh = (_logits_sharding(cfg, shape, rules),
+              _cache_shardings(cfg, shape, rules))
+    return prefill_step, in_sh, out_sh, (p_shapes, batch)
+
+
+def build_decode_step(cfg, shape: ShapeConfig, rules: MeshRules):
+    """One sharded decode step against a ``shape.seq_len``-deep cache
+    (``models.parallel_serve.decode_step``). Returns ``(decode_fn,
+    in_specs, out_specs, shapes)``: ``decode_fn(params, cache, batch)``
+    returns (logits, cache), the cache updated in place in its layout."""
+    parallel.check_sharded(cfg, rules)
+
+    def decode_fn(params, cache, batch):
+        return pserve.decode_step(params, cfg, batch, cache, rules)
+
+    p_shapes, p_sh = param_shardings(cfg, rules)
+    cache_sh = _cache_shardings(cfg, shape, rules)
+    batch = input_specs(cfg, shape)
+    in_sh = (p_sh, cache_sh, _batch_spec(rules, batch))
+    out_sh = (_logits_sharding(cfg, shape, rules), cache_sh)
+    cache = tf.cache_shapes(cfg, shape.global_batch, shape.seq_len)
+    return decode_fn, in_sh, out_sh, (p_shapes, cache, batch)

@@ -221,7 +221,7 @@ def test_decode_arguments_for_the_models_cache_views(launches, dtype, b, hkv,
     assert args[8:17] == (b, hkv * group, hkv, w, d, 7, 1 / math.sqrt(d),
                           int(dtype == torch.bfloat16), plan["split"])
     assert args[17:] == (q.stride(0), q.stride(1), w * hkv * d, d, hkv * d,
-                         w)
+                         w, None)           # no log-sum-exp asked for
     assert plan["blocks"] == plan["split"] * hkv * b
     # the blocks' partials (acc, m, l per head, a live flag per block) and
     # the per-(row, kv head) counters, which start at zero

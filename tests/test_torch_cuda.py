@@ -1334,3 +1334,122 @@ def test_gpipe_on_the_card_equals_sequential_layers(cuda):
         ys = gather(gpipe(stage, _mesh_of(cuda, (4,), ("pod",)))(stages, xs))
         ref = torch.stack([stage(params["blocks"], x) for x in xs])
     assert torch.equal(ys.view(torch.int16), ref.view(torch.int16))
+
+
+# ------------------------------------- the sharded families and serving
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model,b,w,fresh", [
+    ("mixtral", 8, 4096, 0), ("mixtral", 1, 4096, 0),
+    ("mixtral", 8, 4096, 512), ("qwen3", 8, 1024, 0),
+    ("qwen3", 8, 1024, 512), ("qwen2_vl", 8, 1024, 0),
+    ("musicgen", 8, 1024, 0), ("musicgen", 8, 1024, 512)])
+def test_decode_lse_at_family_shapes(cuda, dtype, model, b, w, fresh):
+    """B8's log-sum-exp output (the sharded decode's merge weights) at
+    ``test_decode_kernel_at_family_shapes``' shapes: against the plain
+    version's within ATT_TOL, -inf on the row with no live slot; the
+    output the same as without it."""
+    m = FAMILY_ATT[model]
+    q, k, v, ap, pos = _decode_inputs(cuda, dtype, b, m["hkv"], m["group"],
+                                      w, m["d"], b * 17 + w + fresh, fresh)
+    a, lse = katt.decode_attention(q, k, v, ap, pos, m["window"],
+                                   return_lse=True)
+    pa, plse = katt.decode_attention_plain(q, k, v, ap, pos, m["window"],
+                                           return_lse=True)
+    assert torch.equal(a, katt.decode_attention(q, k, v, ap, pos,
+                                                m["window"]))
+    assert _att_err(a, pa) < ATT_TOL[dtype]
+    empty = torch.isneginf(plse)
+    assert torch.equal(torch.isneginf(lse), empty)
+    if not bool(empty.all()):           # b = 1: the one row has no live slot
+        assert _att_err(lse[~empty], plse[~empty]) < ATT_TOL[torch.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2_2p7b", "hymba_1p5b",
+                                  "mixtral_8x22b", "qwen3_moe_235b"])
+def test_sharded_family_step_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced (2-layer, fp32) model's sharded step (two microbatches)
+    on a (4, 2) mesh of the card against the same on CPU positions: B9 on
+    every position's SSM heads and B7 on its query heads, twice a layer
+    (remat); loss, grad_norm and parameters as the attention families'."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.sharding import MeshRules, gather, place_tree
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.tree import leaves
+
+    cfg = get_arch(arch).reduced()
+    params = tf.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (8, 64)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    out = {}
+    for dev in ("cpu", cuda):
+        rules = MeshRules(_mesh_of(dev))
+        step, in_sh, _, _ = tstep.build_train_step(
+            cfg, ShapeConfig("t", 64, 8, "train"), rules, microbatches=2)
+        pd = place_tree(params, in_sh[0])
+        n0 = (katt.flash_attention.launches, kssd.ssd_scan.launches)
+        new, _, m = step(pd, tstep.sharded_adamw_init(pd),
+                         place_tree(batch, in_sh[2]))
+        launched = (katt.flash_attention.launches - n0[0],
+                    kssd.ssd_scan.launches - n0[1])
+        out[str(dev)] = ({k: float(gather(v)) for k, v in m.items()},
+                         [gather(v, "cpu") for v in leaves(new)], launched)
+    (m0, p0, n_cpu), (m1, p1, n_card) = out["cpu"], out[str(cuda)]
+    each = 8 * cfg.n_layers * 2 * 2
+    assert n_cpu == (0, 0)
+    assert n_card == (each if cfg.has_attention else 0,
+                      each if cfg.has_ssm else 0)
+    for k in m0:
+        assert abs(m1[k] - m0[k]) <= 1e-5 * abs(m0[k]), k
+    for a, b in zip(p1, p0):
+        assert float((a - b).abs().max()) <= 2 * m0["lr"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite_3_2b", "hymba_1p5b"])
+def test_sharded_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """The sharded prefill of a 40-token prompt into a 48-slot ring (24 |
+    24 over ``model``; hymba's window of 32 wraps it) and 3 decode steps
+    on the card's (4, 2) mesh against the same on CPU positions: B8 on
+    each position's slots, merged by its log-sum-exp; fp32 logits and
+    caches within the kernel path's tolerance against the plain path
+    (``test_family_kernel_path_matches_plain_path``)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.sharding import MeshRules, gather, place_tree
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.tree import paths
+
+    cfg = get_arch(arch).reduced()
+    params = tf.init_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (8, 43)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        rules = MeshRules(_mesh_of(dev))
+        pf, pin, _, _ = tstep.build_prefill_step(
+            cfg, ShapeConfig("p", 48, 8, "prefill"), rules)
+        df, din, _, _ = tstep.build_decode_step(
+            cfg, ShapeConfig("d", 48, 8, "decode"), rules)
+        pd = place_tree(params, pin[0])
+        n0 = katt.decode_attention.launches
+        lg, cache = pf(pd, place_tree({"tokens": toks[:, :40]}, pin[1]))
+        logits = [gather(lg, "cpu")]
+        for t in range(3):
+            lg, cache = df(pd, cache, place_tree({"tokens": toks[:, 40 + t]},
+                                                 din[2]))
+            logits.append(gather(lg, "cpu"))
+        out[str(dev)] = (logits, {k: gather(v, "cpu") for k, v in
+                                  paths(cache)},
+                         katt.decode_attention.launches - n0)
+    (l0, c0, n_cpu), (l1, c1, n_card) = out["cpu"], out[str(cuda)]
+    assert n_cpu == 0 and n_card == 3 * cfg.n_layers * 8
+    torch.testing.assert_close(l1[0], l0[0], atol=2e-4, rtol=1e-3)
+    for a, b in zip(l1[1:], l0[1:]):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=1e-2)
+    for k in c0:
+        if c0[k].dtype == torch.int32:
+            assert torch.equal(c1[k], c0[k]), k
+        else:
+            torch.testing.assert_close(c1[k], c0[k], atol=2e-4, rtol=1e-3)
