@@ -125,7 +125,8 @@ Phases (any failure raises, and the script exits non-zero):
 8. LM serving: ``granite_3_2b`` at full width in bf16 (weights drawn on the
    card from seed 0) behind the port's ``SlotServer``: 8 slots, max_ctx
    1024, 8 requests of 512-token prompts with ``main_lm``'s generation
-   lengths (numpy seed 0) — prefill ms per request, decode ms per step,
+   lengths capped at SERVE_GEN_MAX (numpy seed 0) — prefill ms per
+   request, decode ms per step,
    tokens/s, peak memory, the device busy share of a few decode steps; then
    the two attention kernels against their plain versions on q/k/v captured
    from layer 0 of a real prefill and a real decode step (the decode kernel
@@ -189,12 +190,13 @@ Phases (any failure raises, and the script exits non-zero):
    bf16 kernel and plain paths differ logged;
 12. the stub frontends: ``qwen2_vl_2b`` (M-RoPE; its prompts' first 256
    embeddings on a 16 x 16 patch grid) and ``musicgen_medium`` at full
-   width and depth, bf16, seed 0, through ``prefill`` / ``decode_step``
+   width, their first 12 layers (STUB_LAYERS), bf16, seed 0, through
+   ``prefill`` / ``decode_step``
    with seeded embeddings (8 rows of 512, then 128 decode steps): prefill
    and decode ms, tokens/s, peak bytes, the busy share; the two attention
    kernels against their plain versions at their shapes with times,
    bounds and SDPA; decode against the forward and the kernel path
-   against the plain path, fp32 at full depth and bf16;
+   against the plain path, fp32 and bf16 at those layers;
 13. training on the card (``train_phase``), bf16 unless stated:
    a. ``granite_3_2b`` at full width and depth (2.53 B parameters, seed 0)
       on ``SyntheticLM(vocab, 4096, 2, seed 0)`` through the launcher's
@@ -233,10 +235,10 @@ Phases (any failure raises, and the script exits non-zero):
    n)``):
    a. ``granite_3_2b`` at full width and depth, bf16, seed 0, on a (4, 2)
       ``("data", "model")`` mesh: ``build_train_step`` (FSDP + TP,
-      microbatches 1, remat on, the launcher's AdamW) for 5 steps on
+      microbatches 1, remat on, the launcher's AdamW) for 3 steps on
       ``SyntheticLM(vocab, 4096, 4, seed 0)`` (one sequence a data row):
-      a warm-up step, three timed steps (step ms and tokens/s are their
-      median), the last under ``torch.profiler``; each step's loss,
+      a warm-up step, one timed step (step ms and tokens/s are its), the
+      last under ``torch.profiler``; each step's loss,
       grad_norm, lr, ms and AdamW ms, the peak, the busy share, the bytes
       each position holds; the first loss within 1e-2 of the single-device
       ``loss_fn`` on the same parameters and batch, finite losses, every
@@ -268,8 +270,8 @@ Phases (any failure raises, and the script exits non-zero):
    b. ``hymba_1p5b`` at full width, its first 8 of 32 layers
       (FAM_TRAIN_LAYERS; ``None`` runs the full depth), each through
       ``build_train_step`` (microbatches 1, remat on, the launcher's
-      AdamW) for 4 steps on ``SyntheticLM(vocab, 4096, 4, seed 0)``: a
-      warm-up, two timed (their median), the last profiled; step ms,
+      AdamW) for 3 steps on ``SyntheticLM(vocab, 4096, 4, seed 0)``: a
+      warm-up, one timed, the last profiled; step ms,
       tokens/s, peak bytes, the busy share, B9's (and B7's) launches
       against 8 positions x layers x 2 (forward, remat recompute) a step;
    c. ``mixtral_8x22b`` (4 x 4,096 tokens) and ``qwen3_moe_235b`` (4 x
@@ -303,18 +305,51 @@ Phases (any failure raises, and the script exits non-zero):
       3e-5 of its largest, hymba's 2e-4: FAM_EXACT_REL), the MoE drop
       counts equal, and a 512-token prefill with 8 decode steps against
       one device at the same bound;
-16. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
+16. sequence sharding and the production meshes' refused cells
+   (``seq_phase``), bf16 and seed 0 unless stated:
+   a. ``granite_3_2b`` at full width and depth on 14a's (4, 2) mesh with
+      ``MeshRules(seq_sharding=True)``, 4 x 4,096 tokens, 3 steps of
+      ``build_train_step`` (a warm-up, one timed, the last profiled):
+      step ms, tokens/s, peak bytes and the busy share beside 14a's, the
+      bytes remat keeps of a layer (the block input, laid out ``("data",
+      "model")``: each position's rows); finite losses; B7 launched 8
+      positions x 40 layers x 2 a step and nothing else; B7 at a
+      position's shape;
+   b. (first, on the same seed-0 weights) granite's seq-sharded prefill of
+      15d's 4 x 4,096 tokens into 32,768 slots and 2 decode steps against
+      15d's sharded run without ``seq`` on the same placed weights: each
+      step's logits and the gathered caches within LM_BF16_REL of the
+      largest; B7 8 x 40 in the prefill, B8 8 x 40 a decode step;
+   c. fp32, 2 layers, 4 x 1,024 tokens: ``granite_3_2b`` and
+      ``hymba_1p5b`` (its 128 meta rows and 1,024 rows split over 2)
+      seq-sharded against one device (15e's gates: the loss within 1e-5
+      relative, each gradient leaf within 3e-5 of its largest, hymba's
+      2e-4), B7 (and B9) launched 8 x 2 x 2, B9 at a position's shape;
+   d. the production meshes' refused cells at reduced depth:
+      ``qwen2_vl_2b`` (12 query heads) at full width, 4 layers, on a
+      (1, 16) ``("data", "model")`` mesh: the sharded prefill of 1 x 2,048
+      embeddings and 4 decode steps against one device at LM_BF16_REL, B7
+      on the 12 positions that hold a head (the other 4 launch none), B8
+      on all 16, each at a position's shape against its plain version;
+      15e's fp32 ``qwen3_moe_235b`` check on a (2, 2, 2) ``("pod", "data",
+      "model")`` mesh (experts over ``data``, capacity slots over
+      ``pod``), with 15e's gates, its logging of routing ties and its
+      launch counts;
+17. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
    their hymba numbers under ``hymba``, the attention kernels' also each
    phase 11 and 12 model's under its name, B7's and B9's their training
    numbers under ``training``, B7's phase 14a's under
    ``sharded_training``, B7's, B8's and B9's phase 15 launches under
-   ``sharded_families``, with B8's position-local line), and last the
-   ``{"ok": true, ...}`` line.
+   ``sharded_families``, with B8's position-local line, and their phase
+   16 launches under ``seq_sharded`` (16a-16c) and ``pf2`` (16d), with
+   their lines at those shapes), and last the ``{"ok": true, ...}``
+   line.
 
 Launch counters are zeroed just before each of phases 5, 6, 5b, 5c, 6a, 6b,
 6c, 6d (its two paths), 7, 8's, 9's, 10's and 11's serving runs, 12's runs,
-13's two training runs, 14a's sharded run and each run of 15a-15d (15d's
-prefill apart from its decode steps), and read just after (6a's,
+13's two training runs, 14a's sharded run, each run of 15a-15d (15d's
+prefill apart from its decode steps) and each of 16a-16d's sharded runs,
+and read just after (6a's,
 6c's and 6d's before the comparisons that check them): every kernel of
 that path must have launched, and a kernel's ``launches`` in the last line
 is its count from its path, summed over phases 5-6d for
@@ -358,6 +393,10 @@ MASK_WINDOWS = 64            # the (Q, N) int8 mask: 2 MB per window
 LM_ARCH = "granite_3_2b"
 FLASH_D128_ARCH = "phi4_mini_3p8b"   # the flash kernel at head dim 128
 LM_SLOTS, LM_CTX, LM_REQUESTS, LM_PROMPT = 8, 1024, 8, 512
+# the serving runs' generation lengths (phases 8-11): main_lm draws each
+# from [8, max_ctx - prompt); capped here, so a run is at most 127 decode
+# steps (uncapped, the five runs took 111 s of the script on an H100)
+SERVE_GEN_MAX = 128
 LM_WINDOW = 128              # the windowed case: a 128-slot ring that wraps
 LM_FORWARD_STEPS = 8         # decode steps held against the full forward
 LM_TEACHER_STEPS = 32        # kernel path vs plain path, teacher-forced
@@ -408,14 +447,15 @@ WRITE_INSERTS, WRITE_DELETES = 2048, 1024   # a delta of 3072 < 4096
 ASYNC_INSERTS = 1536                         # the delta past refresh_threshold
 # 6a's disjoint windows: a complement row holds nearly every live record
 # (~2M ids), and 6a runs each row three ways (patched, republished,
-# host) besides phase 5's 64; 16 keep that to seconds
+# host) besides phase 5's 64; 16 keep that to seconds (and fewer than
+# the planner's device_min_batch of 16 would take the host path)
 DISJOINT_WINDOWS = 16
 SERVE_POOL = 65_536       # windows at SELECTIVITY: the cache seldom hits
 SERVE_RELATIONS = ("intersects", "contains", "dwithin:0.003")
 SERVE_CLOSED = 1024       # closed-loop submissions
 SERVE_KNN = 64            # closed-loop kNN points (k = 10)
 SERVE_RATES = (2_000.0, 16_000.0)   # offered queries/s, Poisson arrivals
-SERVE_SECONDS = 8.0
+SERVE_SECONDS = 4.0       # each rate's open-loop run
 SERVE_WRITE_FRAC = 0.02   # the launcher's: an 8-vertex ring, radius 2e-4
 # phase 6d: the sharded backend
 SHARD_MESH = (4, 2)       # (data, model): 4 record shards, 2 query columns
@@ -478,9 +518,11 @@ MOE_WINDOW_PROMPT = 4608     # mixtral: a prompt past its 4,096 window
 # 2% of the output's largest magnitude is ~5 bf16 steps there, and a
 # replica routed to a wrong expert, a wrong gate or a lost row is O(1)
 MOE_ORACLE_REL = 0.02
-# phase 12: the stub-frontend models at full width and depth, through
-# prefill / decode_step with embeddings (the slot server takes tokens only)
+# phase 12: the stub-frontend models at full width, their first
+# STUB_LAYERS layers (of 28 and 48), through prefill / decode_step with
+# embeddings (the slot server takes tokens only)
 STUB_ARCHS = ("qwen2_vl_2b", "musicgen_medium")
+STUB_LAYERS = 12
 STUB_ROWS, STUB_PROMPT, STUB_STEPS = 8, 512, 128
 STUB_GRID = 16               # qwen2_vl: a 16 x 16 patch grid of M-RoPE
 STUB_FORWARD_PROMPT = 384
@@ -504,8 +546,8 @@ TRAIN_CRASH_AT = 7
 # eight positions all sit on the card
 SHARD_TRAIN_MESH = (4, 2)
 SHARD_TRAIN_BATCH = 4                # one train_4k sequence a data row
-SHARD_TRAIN_STEPS = 5                # step 0 warms up, 1-3 are timed,
-SHARD_TRAIN_TIMED = (1, 2, 3)        # the last runs under torch.profiler
+SHARD_TRAIN_STEPS = 3                # step 0 warms up, 1 is timed,
+SHARD_TRAIN_TIMED = (1,)             # the last runs under torch.profiler
 SHARD_TRAIN_PROFILE_STEP = SHARD_TRAIN_STEPS - 1
 SHARD_LOSS_ABS = 1e-2                # 14a: bf16 sharded vs one device
 # 14b: fp32, 2 layers, against the single-device step: (arch, sequence)
@@ -525,7 +567,7 @@ FAM_TRAIN = ("mamba2_2p7b", "hymba_1p5b")            # 15a, 15b
 FAM_TRAIN_LAYERS = 8     # of 64 and 32: at full depth 15a and 15b took
 #                          87 and 67 s of the script's time (s25-b)
 FAM_MOE = (("mixtral_8x22b", 4096), ("qwen3_moe_235b", 2048))  # 15c: 1 layer
-FAM_STEPS, FAM_TIMED = 4, (1, 2)     # a warm-up, two timed, the last profiled
+FAM_STEPS, FAM_TIMED = 3, (1,)       # a warm-up, one timed, the last profiled
 # 15d: (arch, layers (None: all), prompt, cache slots); mixtral's prompt
 # puts the decode's written slot (pos % 4096) across the two positions'
 # boundary at 2,048 in its eighth step
@@ -548,6 +590,21 @@ FAM_EXACT_REL = {"hymba_1p5b": 2e-4}
 # by fp32 roundings there, ~1e-7 of them; s25-h: qwen3's one such token,
 # 3.54e-8; the later layers' differences follow from it)
 FAM_NEAR_TIE = 1e-5
+# phase 16: sequence sharding (MeshRules(seq_sharding=True)) and the
+# production meshes' refused cells (PF2), on meshes of the card
+SEQ_TRAIN_STEPS = 3                  # 16a: a warm-up, one timed, the last
+SEQ_TRAIN_TIMED = (1,)               # profiled
+SEQ_SERVE_STEPS = 2                  # 16b: decode steps after the prefill
+SEQ_EXACT = ("granite_3_2b", "hymba_1p5b")                       # 16c
+# 16d: qwen2_vl_2b's 12 query heads over a (1, 16) mesh's 16 model
+# positions: (arch, layers, prompt rows, decode steps, cache slots; 16
+# divides the slots, so the ring splits its slots as on the production
+# mesh)
+PF2_VL = ("qwen2_vl_2b", 4, 2048, 4, 2064)
+PF2_VL_MESH = (1, 16)
+# ... and 15e's qwen3_moe_235b on a pod mesh: the experts over data, the
+# capacity slots over pod
+PF2_POD_MESH, PF2_POD_AXES = (2, 2, 2), ("pod", "data", "model")
 _CU = "src/repro_torch/kernels/csrc/"
 CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
         "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
@@ -838,7 +895,8 @@ def max_err(a, b) -> float:
 
 def serve(server, cfg, counters, requests: int, prompt_len: int, ctx: int):
     """Drive ``server`` as ``main_lm`` does: ``requests`` prompts of
-    ``prompt_len`` tokens with ``main_lm``'s generation lengths (numpy seed
+    ``prompt_len`` tokens with ``main_lm``'s generation lengths, capped at
+    SERVE_GEN_MAX (numpy seed
     0), admitted into free slots, every slot stepped, finished requests
     retired. Zeroes every launch counter (and the peak memory) just before
     the first admit. CUDA events time each admit (the prefill) and each
@@ -853,7 +911,7 @@ def serve(server, cfg, counters, requests: int, prompt_len: int, ctx: int):
     slots = server.slots
     rng = np.random.default_rng(0)
     queue = [(rng.integers(0, cfg.vocab, prompt_len).astype(np.int32),
-              int(rng.integers(8, ctx - prompt_len)))
+              int(rng.integers(8, min(ctx - prompt_len, SERVE_GEN_MAX))))
              for _ in range(requests)]
     prompts = [p for p, _ in queue]
     gens = [g for _, g in queue]
@@ -3311,7 +3369,7 @@ def stub_model(arch, katt, counters) -> tuple:
     from repro_torch.utils.tree import leaves
 
     t_model = time.perf_counter()
-    cfg = get_arch(arch)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=STUB_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base_mem = torch.cuda.memory_allocated()
@@ -3441,9 +3499,9 @@ def stub_model(arch, katt, counters) -> tuple:
 
 def stub_phase(katt, counters) -> tuple:
     """12. The stub-frontend models on the port: each of STUB_ARCHS at full
-    width and depth in bf16, through ``prefill`` / ``decode_step`` with
-    embeddings (:func:`stub_model`). Returns ({arch: {kernel: bf16
-    line}}, {arch: {kernel: launches of its run}})."""
+    width, its first STUB_LAYERS layers, in bf16, through ``prefill`` /
+    ``decode_step`` with embeddings (:func:`stub_model`). Returns ({arch:
+    {kernel: bf16 line}}, {arch: {kernel: launches of its run}})."""
     results, launches = {}, {}
     for arch in STUB_ARCHS:
         res, launches[arch] = stub_model(arch, katt, counters)
@@ -4802,12 +4860,14 @@ class RouteLog:
             return r
         return swap_in([(moe, "route", rec)])
 
-    def sharded(self, e: int):
+    def sharded(self, e: int, m: int = SHARD_TRAIN_MESH[1]):
+        """Record the mesh's routing; ``m`` the ``model`` extent (the
+        data rows' tokens are read from every m-th position)."""
         import torch
 
         from repro_torch.models import parallel_moe as pmoe
 
-        real, m = pmoe.routing, SHARD_TRAIN_MESH[1]
+        real = pmoe.routing
 
         def rec(h, router, cfg, plan):
             out = real(h, router, cfg, plan)
@@ -4848,10 +4908,13 @@ class RouteLog:
 
 def serve_pair(cfg, box, toks, prompt: int, seq: int, steps: int,
                counters, label: str, rel: float, grab: bool = False,
-               drift: bool = False, keep_placed: bool = False) -> dict:
-    """The sharded prefill of ``toks[:, :prompt]`` into a ``seq``-slot
+               drift: bool = False, keep_placed: bool = False,
+               rules=None) -> dict:
+    """The sharded prefill of ``toks[:, :prompt]`` (token ids, or a prompt
+    batch of embeddings and M-RoPE positions) into a ``seq``-slot
     cache and ``steps`` teacher-forced decode steps
-    (``build_prefill_step`` / ``build_decode_step`` on the (4, 2) mesh of
+    (``build_prefill_step`` / ``build_decode_step`` on ``rules``' mesh,
+    default the (4, 2) mesh of
     the card) against one device's ``prefill`` / ``decode_step`` on the
     same weights (``box``: a list holding them, emptied so that they are
     freed once placed): each step's logits within
@@ -4877,21 +4940,21 @@ def serve_pair(cfg, box, toks, prompt: int, seq: int, steps: int,
     from repro_torch.utils.tree import paths
 
     params = box.pop()
-    b = toks.shape[0]
+    batch = toks if isinstance(toks, dict) else {"tokens": toks}
+    b = next(iter(batch.values())).shape[0]
     routes = RouteLog()
     undo = routes.one_device(cfg.n_experts) if cfg.is_moe else []
     moe.stats.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lg, c0 = tf.prefill(params, cfg, {"tokens": toks[:, :prompt]},
+    lg, c0 = tf.prefill(params, cfg, prefix(batch, prompt),
                         seq_len_cache=seq)
     torch.cuda.synchronize()
     one_prefill_ms = (time.perf_counter() - t0) * 1e3
     one = [lg.float()]
     t0 = time.perf_counter()
     for t in range(steps):
-        lg, c0 = tf.decode_step(params, cfg, {"tokens": toks[:, prompt + t]},
-                                c0)
+        lg, c0 = tf.decode_step(params, cfg, at(batch, prompt + t), c0)
         one.append(lg.float())
     torch.cuda.synchronize()
     one_decode_ms = (time.perf_counter() - t0) * 1e3 / steps
@@ -4902,16 +4965,15 @@ def serve_pair(cfg, box, toks, prompt: int, seq: int, steps: int,
 
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         p32 = tree_map(params, lambda t: t.float())
-        lg, c32 = tf.prefill(p32, cfg32, {"tokens": toks[:, :prompt]},
+        lg, c32 = tf.prefill(p32, cfg32, prefix(batch, prompt),
                              seq_len_cache=seq)
         up = [lg]
         for t in range(steps):
-            lg, c32 = tf.decode_step(p32, cfg32,
-                                     {"tokens": toks[:, prompt + t]}, c32)
+            lg, c32 = tf.decode_step(p32, cfg32, at(batch, prompt + t), c32)
             up.append(lg)
         del p32
         torch.cuda.empty_cache()
-    rules = MeshRules(shard_mesh())
+    rules = rules or MeshRules(shard_mesh())
     pf, pin, pout, _ = tstep.build_prefill_step(
         cfg, ShapeConfig("prefill", seq, b, "prefill"), rules)
     df, din, _, _ = tstep.build_decode_step(
@@ -4924,20 +4986,20 @@ def serve_pair(cfg, box, toks, prompt: int, seq: int, steps: int,
     if grab:
         seen, undo = grab_first(pserve, "katt", "decode_attention")
     if cfg.is_moe:
-        undo += routes.sharded(cfg.n_experts)
+        undo += routes.sharded(cfg.n_experts, rules.mesh.shape["model"])
     for fn in counters.values():
         fn.launches = 0
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = pf(pd, place_tree({"tokens": toks[:, :prompt]}, pin[1]))
+        lg, cache = pf(pd, place_tree(prefix(batch, prompt), pin[1]))
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         prefill_launches = {k: fn.launches for k, fn in counters.items()}
         got = [gather(lg).float()]
         dec_ms = []
         for t in range(steps):
-            tb = place_tree({"tokens": toks[:, prompt + t]}, din[2])
+            tb = place_tree(at(batch, prompt + t), din[2])
             t0 = time.perf_counter()
             lg, cache = df(pd, cache, tb)
             torch.cuda.synchronize()
@@ -4984,6 +5046,8 @@ def serve_pair(cfg, box, toks, prompt: int, seq: int, steps: int,
                 w16 * keep, w32 * keep))
         del c32, up
     line = {"label": label, "arch": cfg.name, "layers": cfg.n_layers,
+            "mesh": dict(rules.mesh.shape),
+            "seq_sharding": rules.seq_sharding,
             "batch": b, "prompt": prompt, "cache_slots": int(
                 cache["attn"]["k"].shape[2]) if "attn" in cache else None,
             "steps": steps, "dtype": cfg.dtype,
@@ -5013,16 +5077,17 @@ def serve_pair(cfg, box, toks, prompt: int, seq: int, steps: int,
     return line
 
 
-def grab_first(module, attr, fn):
+def grab_first(module, attr, fn, when=None):
     """:func:`capture_first` keeping copies of the first call's tensors
-    (the call's inputs may be views that later calls change)."""
+    (the call's inputs may be views that later calls change); with
+    ``when``, of the first call whose arguments it accepts."""
     import torch
 
     real = getattr(module, attr)
     seen = []
 
     def keep(*a, **kw):
-        if not seen:
+        if not seen and (when is None or when(*a)):
             seen.append(tuple(t.clone() for t in a
                               if isinstance(t, torch.Tensor)))
         return getattr(real, fn)(*a, **kw)
@@ -5104,16 +5169,22 @@ def leaf_err(a, b) -> float:
     return worst / max(float(b.abs().max()), 1e-30)
 
 
-def family_exact(arch: str, counters) -> dict:
+def family_exact(arch: str, counters, tag: str = "15e", rules=None,
+                 serve: bool = True) -> dict:
     """15e: the fp32 ``arch`` cut to FAM_EXACT_LAYERS layers at full width
     on ``SyntheticLM(vocab, FAM_EXACT_SEQ, 4, seed 0)``: the sharded loss
     and every gathered gradient leaf against the single-device
     ``value_and_grad`` (the loss within SHARD_REL relative, each leaf
     within FAM_EXACT_REL's bound of its largest; with an SSM, each leaf's
     spread when one device takes its batch in two halves printed beside),
-    the MoE drop counts equal; then the prefill of the batch's first
-    FAM_EXACT_PROMPT tokens and FAM_EXACT_STEPS decode steps against one
-    device's (:func:`serve_pair`, at the same bound)."""
+    the MoE drop counts equal, B7 (and B9) launched positions x layers x 2
+    (forward, remat recompute) and nothing else; then (with ``serve``) the
+    prefill of the batch's first FAM_EXACT_PROMPT tokens and
+    FAM_EXACT_STEPS decode steps against one device's (:func:`serve_pair`,
+    at the same bound; B7 and B9 positions x layers in the prefill, B8
+    positions x layers a decode step). ``rules``: the mesh and rules
+    (default the (4, 2) mesh, no sequence sharding); 16c and 16d run it
+    on others under their ``tag``."""
     import torch
 
     from repro_torch.configs import ShapeConfig
@@ -5124,9 +5195,12 @@ def family_exact(arch: str, counters) -> dict:
     from repro_torch.train import step as tstep
     from repro_torch.utils.tree import paths
 
+    from repro_torch.models import parallel as par
+
     cfg = family_cfg(arch, FAM_EXACT_LAYERS, "float32")
     rel = FAM_EXACT_REL.get(arch, SHARD_GRAD_REL)
-    rules = MeshRules(shard_mesh())
+    rules = rules or MeshRules(shard_mesh())
+    npos, m = len(rules.mesh.flat), rules.mesh.shape["model"]
     shape = ShapeConfig("exact", FAM_EXACT_SEQ, FAM_BATCH, "train")
     _, in_sh, _, _ = tstep.build_train_step(cfg, shape, rules,
                                             microbatches=1)
@@ -5155,19 +5229,48 @@ def family_exact(arch: str, counters) -> dict:
     # not fit the card beside each other)
     box = [params]
     del params
-    serve = serve_pair(cfg, box, batch["tokens"], FAM_EXACT_PROMPT,
-                       FAM_EXACT_PROMPT + FAM_EXACT_STEPS, FAM_EXACT_STEPS,
-                       counters, f"15e {arch}", rel, keep_placed=True)
-    pd = serve.pop("placed")
+    per_layer = npos * cfg.n_layers
+    serve_want = {}
+    if serve:
+        serve = serve_pair(cfg, box, batch["tokens"], FAM_EXACT_PROMPT,
+                           FAM_EXACT_PROMPT + FAM_EXACT_STEPS,
+                           FAM_EXACT_STEPS, counters, f"{tag} {arch}", rel,
+                           keep_placed=True, rules=rules)
+        pd = serve.pop("placed")
+        pre = {"flash_attention": per_layer if cfg.has_attention else 0,
+               "ssd_scan": per_layer if cfg.has_ssm else 0}
+        serve_want = {"prefill": pre, "decode": {
+            "decode_attention": per_layer * FAM_EXACT_STEPS
+            if cfg.has_attention else 0}}
+        serve_got = {"prefill": serve["prefill_launches"], "decode": {
+            k: n - serve["prefill_launches"][k]
+            for k, n in serve["launches"].items()}}
+    else:
+        pd = place_tree(box.pop(), in_sh[0])
+        torch.cuda.empty_cache()
     bd = place_tree(batch, in_sh[2])
-    undo = routes.sharded(cfg.n_experts) if cfg.is_moe else []
+    undo = routes.sharded(cfg.n_experts, m) if cfg.is_moe else []
+    specs = []                  # each block input's layout
+
+    def block(x, *a, **kw):
+        specs.append(str(x.spec))
+        return real_block(x, *a, **kw)
+    real_block = par._block
+    undo += swap_in([(par, "_block", block)])
     moe.stats.reset()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    l1, g1 = tstep.sharded_value_and_grad(pd, cfg, bd, rules)
-    torch.cuda.synchronize()
+    try:
+        l1, g1 = tstep.sharded_value_and_grad(pd, cfg, bd, rules)
+        torch.cuda.synchronize()
+    finally:
+        swap_in(undo)
     vg_s = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    want = {"flash_attention": 2 * per_layer if cfg.has_attention else 0,
+            "ssd_scan": 2 * per_layer if cfg.has_ssm else 0}
     drops1 = moe.stats.read()
-    swap_in(undo)
     # the forward's routing (the remat recompute routes again after it)
     flips = (routes.flips(cfg.n_layers) if cfg.is_moe else [])
     flipped = [(c, t, g) for c, (ts, gs) in enumerate(flips)
@@ -5177,28 +5280,43 @@ def family_exact(arch: str, counters) -> dict:
     del g1, g0
     torch.cuda.empty_cache()
     loss_rel = abs(float(gather(l1)) - float(l0)) / abs(float(l0))
-    line = {"arch": cfg.name, "layers": cfg.n_layers, "batch": FAM_BATCH,
-            "seq": FAM_EXACT_SEQ, "loss": float(gather(l1)),
+    line = {"tag": tag, "arch": cfg.name, "layers": cfg.n_layers,
+            "mesh": dict(rules.mesh.shape),
+            "seq_sharding": rules.seq_sharding,
+            "block_input_specs": sorted(set(specs)),
+            "batch": FAM_BATCH, "seq": FAM_EXACT_SEQ,
+            "loss": float(gather(l1)),
             "single_loss": float(l0), "loss_rel": loss_rel,
             "grad_rel_worst": max(grad_err.values()),
             "grad_rel_worst_leaf": max(grad_err, key=grad_err.get),
             "grad_rel_by_leaf": grad_err, "grad_bound": rel,
             "single_halves_grad_rel_by_leaf": halves,
             "sharded_value_and_grad_s": vg_s,
-            "logit_err_worst_share": serve["logit_err_worst_share"],
-            "cache_err_share": serve["cache_err_share"],
-            "prefill_ms": serve["prefill_ms"],
-            "decode_ms_median": serve["decode_ms_median"]}
+            "launches": got, "launches_reckoned": want}
+    if serve:
+        line.update({"logit_err_worst_share": serve["logit_err_worst_share"],
+                     "cache_err_share": serve["cache_err_share"],
+                     "prefill_ms": serve["prefill_ms"],
+                     "decode_ms_median": serve["decode_ms_median"],
+                     "serve_launches": serve_got,
+                     "serve_launches_reckoned": serve_want})
     if cfg.is_moe:
         line["drops"] = {"sharded": drops1, "one_device": drops0,
-                         "serve": serve["moe_drops"]}
+                         "serve": serve["moe_drops"] if serve else None}
         line["route_flips"] = [{"layer": c, "token": t, "gap": g}
                                for c, t, g in flipped]
     log({"family_exact": line})
     same_drops = not cfg.is_moe or (
-        drops0["dropped"] == drops1["dropped"]
-        and serve["moe_drops"]["sharded"]["dropped"]
-        == serve["moe_drops"]["one_device"]["dropped"])
+        drops0["dropped"] == drops1["dropped"] and (
+            not serve or serve["moe_drops"]["sharded"]["dropped"]
+            == serve["moe_drops"]["one_device"]["dropped"]))
+    if any(got[k] != want.get(k, 0) for k in got) or any(
+            serve_got[w][k] != serve_want[w].get(k, 0)
+            for w in serve_want for k in serve_got[w]):
+        raise RuntimeError(f"family exact {arch} ({tag}): launches {got}, "
+                           f"expected {want} and nothing else; serving "
+                           f"{serve_got if serve else None}, expected "
+                           f"{serve_want}")
     first = min((c for c, _, _ in flipped), default=None)
     if any(g > FAM_NEAR_TIE for c, _, g in flipped if c == first):
         raise RuntimeError(f"family exact {arch}: a token routed apart "
@@ -5216,7 +5334,7 @@ def family_exact(arch: str, counters) -> dict:
     elif (loss_rel > SHARD_REL or line["grad_rel_worst"] > rel
             or not same_drops):
         raise RuntimeError(f"family exact {arch}: {line}")
-    if not serve["gate_ok"]:
+    if serve and not serve["gate_ok"]:
         raise RuntimeError(f"family exact {arch}: serving gate "
                            f"{serve['gate']}")
     return line
@@ -5250,6 +5368,354 @@ def families_phase(katt, counters) -> dict:
         out[f"15e {arch}"] = family_exact(arch, counters)
         torch.cuda.empty_cache()
     log({"families_phase_s": time.perf_counter() - t_phase})
+    return out
+
+
+# ------------------------- 16. sequence sharding, the production meshes' cells
+def seq_serve_check(pd, cfg, counters) -> dict:
+    """16b: granite_3_2b's sharded prefill of 15d's 4 x 4,096 tokens into
+    32,768 slots and SEQ_SERVE_STEPS decode steps on the (4, 2) mesh with
+    ``MeshRules(seq_sharding=True)``, against 15d's sharded run without it
+    on the same placed weights ``pd``: each step's logits and every
+    gathered cache leaf within LM_BF16_REL of the largest (integer leaves
+    equal); with sequence sharding B7 launched 8 x layers in the prefill
+    and B8 8 x layers a decode step, nothing else."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.sharding import MeshRules, gather, gather_tree
+    from repro_torch.sharding import place_tree
+    from repro_torch.train import step as tstep
+
+    _, _, prompt, seq = FAM_SERVE[0]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (FAM_BATCH, prompt + SEQ_SERVE_STEPS),
+                         generator=g).to(DEVICE)
+    runs = {}
+    for split in (False, True):
+        rules = MeshRules(shard_mesh(), seq_sharding=split)
+        pf, pin, _, _ = tstep.build_prefill_step(
+            cfg, ShapeConfig("prefill", seq, FAM_BATCH, "prefill"), rules)
+        df, din, _, _ = tstep.build_decode_step(
+            cfg, ShapeConfig("decode", seq, FAM_BATCH, "decode"), rules)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = pf(pd, place_tree({"tokens": toks[:, :prompt]}, pin[1]))
+        torch.cuda.synchronize()
+        run = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+               "prefill_launches": {k: fn.launches
+                                    for k, fn in counters.items()},
+               "logits": [gather(lg).float()], "decode_ms": []}
+        for t in range(SEQ_SERVE_STEPS):
+            tb = place_tree({"tokens": toks[:, prompt + t]}, din[2])
+            t0 = time.perf_counter()
+            lg, cache = df(pd, cache, tb)
+            torch.cuda.synchronize()
+            run["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["logits"].append(gather(lg).float())
+        run["launches"] = {k: fn.launches - run["prefill_launches"][k]
+                           for k, fn in counters.items()}
+        run["cache"] = cache if split else gather_tree(cache)
+        del cache
+        runs[split] = run
+    want, got = runs[False], runs[True]
+    errs = [max_err(a, b) / float(b.abs().max())
+            for a, b in zip(got["logits"], want["logits"])]
+    cerr = cache_errors(got["cache"], want["cache"])
+    per_layer = 8 * cfg.n_layers
+    reckoned = {"prefill": {"flash_attention": per_layer},
+                "decode": {"decode_attention": per_layer * SEQ_SERVE_STEPS}}
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "batch": FAM_BATCH,
+            "prompt": prompt, "cache_slots": seq,
+            "steps": SEQ_SERVE_STEPS, "dtype": cfg.dtype,
+            "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
+            "no_seq_prefill_ms": want["prefill_ms"],
+            "no_seq_decode_ms": want["decode_ms"],
+            "logit_err_share": errs, "cache_err_share": cerr,
+            "bound_share": LM_BF16_REL,
+            "prefill_launches": got["prefill_launches"],
+            "decode_launches": got["launches"],
+            "launches_reckoned": reckoned}
+    del runs, want, got
+    torch.cuda.empty_cache()
+    log({"seq_serve_run": line})
+    ok = all(line["prefill_launches"][k] == reckoned["prefill"].get(k, 0)
+             and line["decode_launches"][k] == reckoned["decode"].get(k, 0)
+             for k in counters)
+    if not (ok and max(errs) <= LM_BF16_REL and all(
+            e <= LM_BF16_REL for e in cerr.values())):
+        raise RuntimeError(f"seq serve: {line}")
+    return line
+
+
+def seq_train_run(pd, cfg, counters, shard_run) -> dict:
+    """16a: granite_3_2b at full width and depth, bf16, on the (4, 2) mesh
+    with ``MeshRules(seq_sharding=True)``: SEQ_TRAIN_STEPS steps of
+    ``build_train_step`` (microbatches 1, remat on, the launcher's AdamW)
+    on 14a's ``SyntheticLM(vocab, 4096, 4, seed 0)`` from the placed
+    weights ``pd``: step ms, tokens/s, peak bytes and the busy share
+    beside 14a's; the bytes remat keeps of a layer a position (the block
+    input: the position's rows); finite losses; B7 launched 8 positions x
+    layers x 2 (forward, remat recompute) a step and nothing else; B7 at a
+    position's shape (the whole sequence: the heads split, not the
+    rows)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import parallel as par
+    from repro_torch.sharding import MeshRules, PartitionSpec
+    from repro_torch.train import step as tstep
+
+    rules = MeshRules(shard_mesh(), seq_sharding=True)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, SHARD_TRAIN_BATCH, "train")
+    step, in_sh, _, _ = tstep.build_train_step(
+        cfg, shape, rules, train_adamw(SEQ_TRAIN_STEPS), microbatches=1,
+        remat=True)
+    stream = SyntheticLM(cfg.vocab, TRAIN_SEQ, SHARD_TRAIN_BATCH, seed=0)
+    opt = tstep.sharded_adamw_init(pd)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    events, undo = timed_calls(tstep, "_sharded_adamw")
+    seen, old = capture_first(mattn, "katt", "flash_attention")
+    undo += old
+    inputs = []                 # the first block's input, as remat keeps it
+
+    def block(x, *a, **kw):
+        if not inputs:
+            inputs.append((str(x.spec), list(x.blocks[0].shape),
+                           x.blocks[0].numel() * x.blocks[0].element_size()))
+        return real_block(x, *a, **kw)
+    real_block = par._block
+    undo += swap_in([(par, "_block", block)])
+    for fn in counters.values():
+        fn.launches = 0
+    t_run = time.perf_counter()
+    try:
+        pd, opt, prof = run_steps(step, pd, opt, stream, in_sh, rows, events,
+                                  SEQ_TRAIN_STEPS, SEQ_TRAIN_STEPS - 1,
+                                  "seq_train_step")
+    finally:
+        swap_in(undo)
+    wall = time.perf_counter() - t_run
+    got = {k: fn.launches for k, fn in counters.items()}
+    want = {"flash_attention": 8 * cfg.n_layers * 2 * SEQ_TRAIN_STEPS}
+    peak = torch.cuda.max_memory_allocated()
+    del opt
+    torch.cuda.empty_cache()
+    (q, k, v, *rest), kw = seen[0]          # position (0, 0), layer 0
+    flash = flash_training_line(q.detach(), k.detach(), v.detach(),
+                                rest[0] if rest else kw.get("window", 0),
+                                "flash_attention[16a seq_sharded]")
+    del q, k, v, seen
+    step_ms = statistics.median(r["step_ms"] for r in rows
+                                if r["step"] in SEQ_TRAIN_TIMED)
+    tokens = SHARD_TRAIN_BATCH * TRAIN_SEQ
+    spec, local, nbytes = inputs[0]
+    line = {"arch": cfg.name, "mesh": list(SHARD_TRAIN_MESH),
+            "seq_sharding": True, "batch": SHARD_TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": SEQ_TRAIN_STEPS,
+            "losses": [r["loss"] for r in rows],
+            "grad_norms": [r["grad_norm"] for r in rows],
+            "step_ms": [r["step_ms"] for r in rows],
+            "adamw_ms": [r["adamw_ms"] for r in rows],
+            "step_ms_timed": step_ms,
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "tokens_per_s_run_wall": tokens * SEQ_TRAIN_STEPS / wall,
+            "peak_memory_bytes": peak,
+            "busy_share": prof["device_busy_share"],
+            "profile": {k: prof[k] for k in (
+                "wall_ms", "device_ms", "device_kernels",
+                "device_busy_share", "top_kernels")},
+            "block_input": {"spec": spec, "local_shape": local,
+                            "bytes_a_position": nbytes,
+                            "remat_kept_bytes_all_layers_positions":
+                                nbytes * 8 * cfg.n_layers},
+            "beside_14a": {
+                "step_ms": shard_run["step_ms_median_timed"],
+                "tokens_per_s": shard_run["tokens_per_s_median_step"],
+                "peak_memory_bytes": shard_run["peak_memory_bytes"],
+                "busy_share": shard_run["profile"]["device_busy_share"]},
+            "step_ms_over_14a": step_ms / shard_run["step_ms_median_timed"],
+            "peak_minus_14a_bytes": peak - shard_run["peak_memory_bytes"],
+            "launches": got, "launches_reckoned": want,
+            "flash_attention": flash}
+    log({"seq_train_run": line})
+    bad = [r for r in rows if not (math.isfinite(r["loss"])
+                                   and math.isfinite(r["grad_norm"]))]
+    if bad or any(got[k] != want.get(k, 0) for k in got) or \
+            spec != str(PartitionSpec("data", "model")):
+        raise RuntimeError(f"seq train: not finite {bad}, launches {got} "
+                           f"(expected {want} and nothing else), or the "
+                           f"residual laid out {spec}")
+    return line
+
+
+def pf2_vl_run(katt, counters) -> dict:
+    """16d: qwen2_vl_2b (12 query heads, 2 kv heads) at full width, its
+    first layers (PF2_VL), bf16, seed 0, on a (1, 16) ``("data", "model")``
+    mesh of the card: the sharded prefill of one row of seeded embeddings
+    with 16 x 16 patch-grid M-RoPE positions and teacher-forced decode
+    steps against one device (:func:`serve_pair` at LM_BF16_REL); B7
+    launched on the 12 positions that hold a head, once a layer, and not
+    on the other 4; B8 on all 16 positions a layer a step; B7 and B8 at a
+    position's shapes against their plain versions and SDPA."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import MeshRules
+
+    arch, layers, prompt, steps, slots = PF2_VL
+    cfg = family_cfg(arch, layers)
+    total = prompt + steps
+    rng = np.random.default_rng(0)
+    batch = {"embeds": torch.from_numpy(rng.standard_normal(
+        (1, total, cfg.d_model)).astype(np.float32)).to(DEVICE),
+             "positions": torch.from_numpy(
+                 patch_grid(1, total, STUB_GRID)).to(DEVICE)}
+    rules = MeshRules(shard_mesh(PF2_VL_MESH))
+    m = PF2_VL_MESH[1]
+    held = sum(1 for j in range(m)
+               if (j + 1) * cfg.n_heads // m > j * cfg.n_heads // m)
+    seen, undo = grab_first(mattn, "katt", "flash_attention",
+                            when=lambda q, *a: q.shape[1] < cfg.n_heads)
+    try:
+        line = serve_pair(cfg, [tf.init_params(cfg, 0, device=DEVICE)],
+                          batch, prompt, slots, steps, counters,
+                          f"16d {arch}", LM_BF16_REL, grab=True, rules=rules)
+    finally:
+        swap_in(undo)
+    want_pre = {"flash_attention": held * cfg.n_layers}
+    want_dec = {"decode_attention": m * cfg.n_layers * steps}
+    got_pre = line["prefill_launches"]
+    got_dec = {k: line["launches"][k] - got_pre[k] for k in got_pre}
+    line.update({"model_positions": m, "positions_with_a_head": held,
+                 "launches_reckoned": {"prefill": want_pre,
+                                       "decode": want_dec}})
+    args = line.pop("decode_args")
+    line["b8_position_local"] = attention_check(
+        katt, "16d pf2", "decode_attention",
+        f"position 0 of {m}, {args[3].shape[1]} slots", args, cfg.window)
+    line["b7_position_local"] = attention_check(
+        katt, "16d pf2", "flash_attention", "a position's one head",
+        seen[0], cfg.window)
+    del args, seen
+    log({"pf2_serve_run": line})
+    ok = (all(got_pre[k] == want_pre.get(k, 0) for k in got_pre)
+          and all(got_dec[k] == want_dec.get(k, 0) for k in got_dec))
+    if not ok or not line["gate_ok"]:
+        raise RuntimeError(f"pf2 {arch}: launches {got_pre} / {got_dec} "
+                           f"(reckoned {want_pre} / {want_dec}), gate "
+                           f"{line['gate']}")
+    return line
+
+
+def seq_phase(katt, counters, shard_run) -> dict:
+    """16. Sequence sharding and the production meshes' cells (a-d of the
+    module docstring). Returns {sub-phase: its line}."""
+    import torch
+
+    from repro_torch.models import parallel_ssm as pssm
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import MeshRules, place_tree
+    from repro_torch.train import step as tstep
+
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = family_cfg(TRAIN_ARCH)
+    _, p_sh = tstep.param_shardings(cfg, MeshRules(shard_mesh()))
+    # the same placement with or without sequence sharding
+    pd = place_tree(tf.init_params(cfg, 0, device=DEVICE), p_sh)
+    torch.cuda.empty_cache()
+    mark("16b")
+    out["16b"] = seq_serve_check(pd, cfg, counters)
+    mark("16a")
+    out["16a"] = seq_train_run(pd, cfg, counters, shard_run)
+    del pd
+    torch.cuda.empty_cache()
+    mark("16c")
+    for arch in SEQ_EXACT:
+        # B9 at position (0, 0)'s shape: its first call on the mesh
+        seen, undo = grab_first(pssm, "kssd", "ssd_scan")
+        try:
+            out[f"16c {arch}"] = family_exact(
+                arch, counters, "16c",
+                MeshRules(shard_mesh(), seq_sharding=True), serve=False)
+        finally:
+            swap_in(undo)
+        if seen:
+            c = family_cfg(arch)
+            out[f"16c {arch}"]["ssd_scan"] = ssd_training_line(
+                seen[0][:5], min(c.ssd_chunk, FAM_EXACT_SEQ + c.meta_tokens),
+                f"ssd_scan[16c {arch} seq_sharded]")
+        del seen
+        torch.cuda.empty_cache()
+    mark("16d")
+    out["16d qwen2_vl_2b"] = pf2_vl_run(katt, counters)
+    torch.cuda.empty_cache()
+    out["16d qwen3_moe_235b"] = family_exact(
+        "qwen3_moe_235b", counters, "16d",
+        MeshRules(shard_mesh(PF2_POD_MESH, PF2_POD_AXES)))
+    torch.cuda.empty_cache()
+    out["seq_phase_s"] = time.perf_counter() - t_phase
+    log({"seq_phase_s": out["seq_phase_s"]})
+    return out
+
+
+def phase16_entries(k: str, seq16: dict) -> dict:
+    """Phase 16's part of kernel ``k``'s entry in the ``kernels`` line:
+    its launches on each path under ``seq_sharded`` (16a-16c) and ``pf2``
+    (16d), with its lines at those paths' shapes."""
+    keys = ("shape", "max_abs_err", "kernel_ms", "backward_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    seq, pf2 = {}, {}
+    a, b = seq16["16a"], seq16["16b"]
+    if a["launches"].get(k):
+        seq["16a"] = a["launches"][k]
+    if b["prefill_launches"].get(k):
+        seq["16b prefill"] = b["prefill_launches"][k]
+    if b["decode_launches"].get(k):
+        seq["16b decode"] = b["decode_launches"][k]
+    for arch in SEQ_EXACT:
+        if seq16[f"16c {arch}"]["launches"].get(k):
+            seq[f"16c {arch}"] = seq16[f"16c {arch}"]["launches"][k]
+    vl, q3 = seq16["16d qwen2_vl_2b"], seq16["16d qwen3_moe_235b"]
+    n_pre = vl["prefill_launches"].get(k, 0)
+    if n_pre:
+        pf2["16d qwen2_vl_2b prefill"] = n_pre
+    if vl["launches"].get(k, 0) - n_pre:
+        pf2["16d qwen2_vl_2b decode"] = vl["launches"][k] - n_pre
+    if q3["launches"].get(k):
+        pf2["16d qwen3_moe_235b train"] = q3["launches"][k]
+    for when, n in q3["serve_launches"].items():
+        if n.get(k):
+            pf2[f"16d qwen3_moe_235b {when}"] = n[k]
+    out = {}
+    if seq:
+        out["seq_sharded"] = {"launches": seq}
+        if k == "flash_attention":
+            out["seq_sharded"]["16a"] = {
+                "step_ms": a["step_ms_timed"],
+                **{key: a["flash_attention"].get(key) for key in keys}}
+        for arch in SEQ_EXACT:
+            line = seq16[f"16c {arch}"].get(k)
+            if line:                # B9 at a position's fp32 shape
+                out["seq_sharded"][f"16c {arch}"] = {
+                    key: line.get(key) for key in keys}
+    if pf2:
+        out["pf2"] = {"launches": pf2}
+        local = {"flash_attention": "b7_position_local",
+                 "decode_attention": "b8_position_local"}.get(k)
+        if local:
+            out["pf2"]["16d qwen2_vl_2b"] = {
+                key: vl[local].get(key) for key in keys}
     return out
 
 
@@ -6128,8 +6594,13 @@ def main() -> int:
     mark("15")
     fam = families_phase(katt, counters)
 
-    # ------------------------------------------------------------ 16. report
+    # ------------- 16. sequence sharding, the production meshes' refused cells
+    torch.cuda.empty_cache()
     mark("16")
+    seq16 = seq_phase(katt, counters, shard_run)
+
+    # ------------------------------------------------------------ 17. report
+    mark("17")
     entries = []
     for k in counters:
         r_ = results[k]
@@ -6192,6 +6663,7 @@ def main() -> int:
                     **{key: loc.get(key) for key in (
                         "max_abs_err", "lse_max_abs_err", "kernel_ms",
                         "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        entry.update(phase16_entries(k, seq16))
         for label, lines in family_results.items():
             if k in lines:          # the same kernel at a family's shapes
                 f_ = lines[k]

@@ -225,7 +225,8 @@ def _attention_decode(h: Sharded, p: Dict[str, Sharded], cfg, lc, rot,
     norms = [p[k] for k in ("qn", "kn") if cfg.qk_norm]
 
     def proj_q(j, x, w, cos, sin, *qk):
-        q = dense(x, w).view(x.shape[0], 1, -1, dh)
+        # a position past the query heads (12 over 16) projects none
+        q = dense(x, w).view(x.shape[0], 1, w.shape[1] // dh, dh)
         if qk:
             q = rms_norm(q, qk[0])
         return apply_rot(q, cos, sin)
@@ -311,7 +312,7 @@ def _block_decode(x: Sharded, pl, cfg, lc, rot, plan) -> Sharded:
                                           plan))
     if cfg.d_ff > 0:
         h = smap(rms_norm, x, pl["ln2"], out=x.spec)
-        x = par._add(x, par._ffn(h, pl, cfg, plan))
+        x = par._add(x, par._ffn(h, pl, cfg, plan, h))
     return x
 
 

@@ -18,7 +18,8 @@ Position ``j`` of ``model`` owns SSM heads ``[j*H/m, (j+1)*H/m)``:
 * The gated RMSNorm averages over the whole ``d_inner``: each position's
   fp32 sum of squares is summed over ``model`` before the scale.
 * ``out`` holds the position's rows; the partial products are summed over
-  ``model``.
+  ``model`` (reduce-scattered over the sequence under sequence sharding,
+  where the mixer's input is the gathered rows).
 
 A decode step keeps the cache in its layout: ``conv`` split over
 ``model`` at the conv's ``C/m`` channels, ``state`` whole on every
@@ -92,9 +93,11 @@ def _dt(x, wdt, dt_bias, h0, h1):
 
 
 def mixer(h: Sharded, p: Dict[str, Sharded], cfg, plan,
-          collect: bool = False):
-    """The split mixer over a whole sequence: h (B, S, d) -> (output
-    (B, S, d) laid out as ``h``, and where ``collect`` the per-position
+          collect: bool = False, *, like: Sharded):
+    """The split mixer over a whole sequence: h (B, S, d) with whole rows
+    -> (output (B, S, d) laid out as ``like`` (``h``, or each position's
+    rows where ``like``'s split), and where ``collect`` the
+    per-position
     cache pieces {"tail": the conv input's last K-1 rows (B, K-1, the
     position's x channels + 2N), "state": its heads' final state (B, H_j,
     N, P) fp32}, else None)."""
@@ -128,7 +131,7 @@ def mixer(h: Sharded, p: Dict[str, Sharded], cfg, plan,
     g, ss, tail, state = smap(local, h, w["wz"], w["wx"], w["wb"], w["wc"],
                              w["wdt"], p["dt_bias"], p["a_log"],
                              p["skip_d"], conv_w, coord=plan.tp)
-    out = _gated_out(g, ss, w, cfg, plan, h)
+    out = _gated_out(g, ss, w, cfg, plan, like)
     return out, ({"tail": tail, "state": state} if collect else None)
 
 

@@ -367,13 +367,21 @@ def all_gather(s: Sharded, axis, dim: int) -> Sharded:
 
 def reduce_scatter(s: Sharded, axis, dim: int) -> Sharded:
     """:func:`psum` over ``axis``, each position keeping its part of
-    ``dim`` (which becomes split over ``axis``)."""
+    ``dim`` (which becomes split over ``axis``). The sum is made once a
+    group and device, into a new tensor (a group of one is copied), and
+    each position's part is a view of it: no result shares memory with
+    the inputs."""
     axes = _axes(axis)
     if not axes:
         return s
+    totals: Dict[Any, torch.Tensor] = {}
 
     def rs(gb, dev, rank):
-        total = _sum(gb, dev)
+        key = (dev, tuple(id(b) for b in gb))
+        if key not in totals:
+            totals[key] = (_sum(gb, dev) if len(gb) > 1
+                           else gb[0].to(dev, copy=True))
+        total = totals[key]
         n = total.shape[dim] // len(gb)
         return total.narrow(dim, rank * n, n)
     blocks = _collective(s, axes, rs, by_rank=True)
@@ -424,6 +432,8 @@ def split(s: Sharded, axis, dim: int) -> Sharded:
     """A dimension whole over ``axis`` split over it: each position keeps
     its part (a view), no data moves."""
     axes = _axes(axis)
+    if not axes:
+        return s
     spec = _add_suffix(s.spec, dim, axes)
     made: Dict[Any, torch.Tensor] = {}
     blocks = []

@@ -6,8 +6,11 @@ mesh (the reference's ``build_train_step``, ``build_prefill_step`` and
 ``_batch_spec``, ``_cache_shardings``).
 
 The sharded steps cover every family (``models.parallel``,
-``models.parallel_serve``); sequence sharding (``seq_sharding=True``) is
-ROADMAP A10.4 part 3 and raises ``NotImplementedError``.
+``models.parallel_serve``), with or without sequence sharding
+(``MeshRules(seq_sharding=True)``: the train step's and the prefill's
+residual split over ``model`` by rows between blocks; a decode step has
+one row and runs as without it), on the test meshes and the production
+meshes (``launch.mesh.make_production_mesh``).
 """
 from __future__ import annotations
 

@@ -406,18 +406,39 @@ def test_moe_without_expert_parallelism(ref):
                  [v.numpy() for v in leaves(p0)], float(m0["lr"]))
 
 
-# ----------------------------------------------------------- refusals
+# ------------------------------------------------- sequence sharding
 @pytest.mark.parametrize("arch", ARCHS)
 def test_families_refuse_sequence_sharding(arch):
+    """No family refuses ``MeshRules(seq_sharding=True)``: the train step
+    and the prefill run and equal the same steps without it (the step's
+    loss, grad_norm and parameters; the prefill's logits and cache)."""
     cfg = get_arch(arch).reduced()
-    shape = ShapeConfig("t", SEQ, BATCH, "train")
-    with pytest.raises(NotImplementedError, match="A10.4 part 3"):
-        tstep.build_train_step(cfg, shape, MeshRules(
-            cpu_mesh(), seq_sharding=True), microbatches=MICRO)
-    with pytest.raises(NotImplementedError, match="A10.4 part 3"):
-        tstep.build_prefill_step(cfg, ShapeConfig("p", SEQ, BATCH,
-                                                  "prefill"),
-                                 MeshRules(cpu_mesh(), seq_sharding=True))
+    params = tf.init_params(cfg, 0, device="cpu")
+    batch = _batch(cfg)
+    runs = []
+    for seq in (False, True):
+        rules = MeshRules(cpu_mesh(), seq_sharding=seq)
+        step, in_sh, _, _ = tstep.build_train_step(
+            cfg, ShapeConfig("t", SEQ, BATCH, "train"), rules,
+            microbatches=MICRO)
+        pd = place_tree(params, in_sh[0])
+        pf, pin, _, _ = tstep.build_prefill_step(
+            cfg, ShapeConfig("p", SEQ, BATCH, "prefill"), rules)
+        lg, cache = pf(pd, place_tree({"tokens": batch["tokens"]}, pin[1]))
+        new, _, m = step(pd, tstep.sharded_adamw_init(pd),
+                         place_tree(batch, in_sh[2]))
+        runs.append((new, m, gather(lg).numpy(),
+                     {k: gather(v).numpy() for k, v in paths(cache)}))
+    (p0, m0, l0, c0), (p1, m1, l1, c1) = runs
+    for k in ("loss", "grad_norm", "lr"):
+        close_rel(float(gather(m1[k])), float(gather(m0[k])))
+    params_close([gather(v).numpy() for v in leaves(p1)],
+                 [gather(v).numpy() for v in leaves(p0)],
+                 float(gather(m0["lr"])))
+    leaf_close(l1, l0)
+    assert c1.keys() == c0.keys()
+    for k in c0:
+        leaf_close(c1[k], c0[k])
 
 
 def test_moe_refuses_what_it_cannot_split():

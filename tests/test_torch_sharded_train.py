@@ -353,12 +353,32 @@ def _same_replicas(s):
 def test_step_refuses_what_it_cannot_split():
     cfg = get_arch("granite_3_2b").reduced()
     shape = ShapeConfig("t", SEQ, BATCH, "train")
-    with pytest.raises(NotImplementedError, match="A10.4 part 3"):
-        tstep.build_train_step(cfg, shape, MeshRules(
-            _mesh(), seq_sharding=True))
     with pytest.raises(ValueError, match="data positions"):
         tstep.build_train_step(cfg, shape, MeshRules(_mesh()),
                                microbatches=4)
+
+
+def test_step_splits_the_sequence():
+    """``MeshRules(seq_sharding=True)``: the step runs, its residual split
+    over ``model`` by rows, and equals the step without it."""
+    cfg = get_arch("granite_3_2b").reduced()
+    params = tf.init_params(cfg, 0, device="cpu")
+    batch = _batch(cfg)
+    out = []
+    for seq in (False, True):
+        rules = MeshRules(_mesh(), seq_sharding=seq)
+        step, in_sh, _, _ = tstep.build_train_step(
+            cfg, ShapeConfig("t", SEQ, BATCH, "train"), rules,
+            microbatches=MICRO)
+        pd = place_tree(params, in_sh[0])
+        out.append(step(pd, tstep.sharded_adamw_init(pd),
+                        place_tree(batch, in_sh[2])))
+    (p0, _, m0), (p1, _, m1) = out
+    for k in ("loss", "grad_norm", "lr"):
+        _close_rel(float(gather(m1[k])), float(gather(m0[k])))
+    _params_close([gather(v).numpy() for v in leaves(p1)],
+                  [gather(v).numpy() for v in leaves(p0)],
+                  float(gather(m0["lr"])))
 
 
 # ---------------------------------------------- the step, against the ref
