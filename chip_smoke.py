@@ -335,21 +335,47 @@ Phases (any failure raises, and the script exits non-zero):
       "model")`` mesh (experts over ``data``, capacity slots over
       ``pod``), with 15e's gates, its logging of routing ties and its
       launch counts;
-17. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
+17. the dry run and PF3 (``dryrun_phase``):
+   a. PF3's ring laid out by kv heads: ``granite_3_2b`` reduced (4 query
+      and 4 kv heads of 16, 2 layers) on the (4, 2) mesh of the card,
+      8 x 1,024 tokens into 1,025 slots (they do not split over 2 ``model``
+      positions, the kv heads do) and 4 decode steps (the last wraps the
+      ring), against one device: fp32 within SHARD_REL of its largest, bf16
+      within LM_BF16_REL beside the same run on 1,024 slots split by slots
+      (prefill and decode ms); B8 launched 8 positions x 2 layers a step,
+      each on its 2 query heads over its 2 kv heads and every slot, and no
+      merge; B8 at position (0, 0)'s bf16 shape against its plain version
+      and SDPA; then ``granite_3_2b`` at full width (32 query heads over 8
+      kv heads of 64, a GQA group of 4), cut to 2 layers, fp32: 8 x 1,024
+      tokens into 4,097 slots and 4 decode steps within SHARD_REL of one
+      device, B8 on each position's 16 query heads over its 4 kv heads
+      (no merge), and held at position (0, 0)'s (2, 16, 64) over
+      (2, 4, 4,097, 64) against its plain version, in fp32 and (timed,
+      beside SDPA) on the same inputs in bf16;
+   b. the dry run's memory reckoning (``launch.dryrun.reckon``, all 8
+      positions on one device) of 14a's, 15a's and 16a's cells beside the
+      peak each measured in this run, within DRY_MEMORY_REL;
+   c. ``python -m repro_torch.launch.dryrun --arch granite_3_2b --shape
+      train_4k --mesh single``: its exit code, record and ``reckon_s``;
+   b's reckoning and c run in subprocesses with no card, started before
+   phase 16 so that they run beside 16 and a;
+18. one ``{"kernels": [...]}`` line (the three LM kernels' entries carry
    their hymba numbers under ``hymba``, the attention kernels' also each
    phase 11 and 12 model's under its name, B7's and B9's their training
    numbers under ``training``, B7's phase 14a's under
    ``sharded_training``, B7's, B8's and B9's phase 15 launches under
    ``sharded_families``, with B8's position-local line, and their phase
    16 launches under ``seq_sharded`` (16a-16c) and ``pf2`` (16d), with
-   their lines at those shapes), and last the ``{"ok": true, ...}``
-   line.
+   their lines at those shapes, and B7's and B8's 17a launches under
+   ``pf3``, with B8's position-local lines, reduced and full width), and
+   last the ``{"ok": true,
+   ...}`` line.
 
 Launch counters are zeroed just before each of phases 5, 6, 5b, 5c, 6a, 6b,
 6c, 6d (its two paths), 7, 8's, 9's, 10's and 11's serving runs, 12's runs,
 13's two training runs, 14a's sharded run, each run of 15a-15d (15d's
-prefill apart from its decode steps) and each of 16a-16d's sharded runs,
-and read just after (6a's,
+prefill apart from its decode steps), each of 16a-16d's sharded runs and
+each of 17a's, and read just after (6a's,
 6c's and 6d's before the comparisons that check them): every kernel of
 that path must have launched, and a kernel's ``launches`` in the last line
 is its count from its path, summed over phases 5-6d for
@@ -605,6 +631,26 @@ PF2_VL_MESH = (1, 16)
 # ... and 15e's qwen3_moe_235b on a pod mesh: the experts over data, the
 # capacity slots over pod
 PF2_POD_MESH, PF2_POD_AXES = (2, 2, 2), ("pod", "data", "model")
+# 17a: a ring laid out by kv heads (PF3): granite_3_2b reduced (4 heads and
+# 4 kv heads of 16, 2 layers), fp32 and bf16, on the (4, 2) mesh, (arch, batch,
+# prompt, cache slots, decode steps); 1,025 slots do not split over 2
+# model positions and the 4 kv heads do, so the rules lay the ring out by
+# heads; the fourth step writes slot 0 (the ring wraps). Beside it the
+# same run into 1,024 slots, which split by slots.
+PF3 = ("granite_3_2b", 8, 1024, 1025, 4)
+PF3_SPLIT_SLOTS = 1024
+# ... and granite_3_2b at full width (32 query heads over 8 kv heads of 64:
+# a GQA group of 4), cut to 2 layers, fp32: (layers, prompt, cache slots);
+# 4,097 slots do not split over 2 model positions, so each position holds
+# 4 kv heads over every slot and runs its 16 query heads over them
+PF3_FULL = (2, 1024, 4097)
+# 17b: the dry run's memory reckoning of 14a's, 15a's and 16a's cells on
+# the (4, 2) mesh of the card (all 8 positions on one device), within
+# DRY_MEMORY_REL of the peak each phase measured in this run
+DRY_MEMORY_REL = 0.25
+# 17c: one production cell through the dry run's command line
+DRY_CLI = ["--arch", "granite_3_2b", "--shape", "train_4k", "--mesh",
+           "single"]
 _CU = "src/repro_torch/kernels/csrc/"
 CSRC = {"refine_count": _CU + "refine.cu", "refine_compact": _CU + "refine.cu",
         "refine_fused": _CU + "refine.cu", "knn_topk": _CU + "knn.cu",
@@ -5719,6 +5765,235 @@ def phase16_entries(k: str, seq16: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------ 17. the dry run, PF3
+def pf3_run(katt, counters) -> dict:
+    """17a: the sharded prefill and PF3's decode steps on a ring laid out
+    by kv heads (:data:`PF3`) against one device (:func:`serve_pair`):
+    first in fp32 (within SHARD_REL of one device's largest), then in bf16
+    (within LM_BF16_REL, as 15d and 16d) beside the same bf16 run on a
+    ring split by slots, for the step's ms; B8 launched once a position
+    and layer a step, on the position's 2 query heads over its 2 kv heads
+    and every slot, with no merge; B8 at position (0, 0)'s bf16 shape
+    against its plain version and SDPA. Then granite_3_2b at full width
+    (:data:`PF3_FULL`: a GQA group of 4) in fp32 against one device within
+    SHARD_REL, B8 launched on each position's 16 query heads over its 4 kv
+    heads, and held at position (0, 0)'s shape in fp32 and, timed, on the
+    same inputs in bf16."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import parallel_serve as pserve
+    from repro_torch.models import transformer as tf
+
+    arch, b, prompt, slots, steps = PF3
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    merges = []
+    real_merge = pserve.merge_softmax
+
+    def counted_merge(*a):
+        merges.append(1)
+        return real_merge(*a)
+    layers, full_prompt, full_slots = PF3_FULL
+    reduced = get_arch(arch).reduced()
+    full = dataclasses.replace(get_arch(arch), n_layers=layers)
+    out, cfgs = {}, {}
+    for tag, base, dtype, n, p_len, rel in (
+            ("fp32 by_heads", reduced, "float32", slots, prompt, SHARD_REL),
+            ("bf16 by_heads", reduced, "bfloat16", slots, prompt,
+             LM_BF16_REL),
+            ("bf16 by_slots", reduced, "bfloat16", PF3_SPLIT_SLOTS, prompt,
+             LM_BF16_REL),
+            ("fp32 full_width", full, "float32", full_slots, full_prompt,
+             SHARD_REL)):
+        cfg = cfgs[tag] = dataclasses.replace(base, dtype=dtype)
+        toks = torch.randint(0, cfg.vocab, (b, p_len + steps), generator=g,
+                             device=DEVICE, dtype=torch.int32)
+        merges.clear()
+        undo = swap_in([(pserve, "merge_softmax", counted_merge)])
+        try:
+            line = serve_pair(cfg, [tf.init_params(cfg, 0, device=DEVICE)],
+                              toks, p_len, n, steps, counters,
+                              f"17a {tag}", rel,
+                              grab=tag in ("bf16 by_heads",
+                                           "fp32 full_width"))
+        finally:
+            swap_in(undo)
+        pre = line["prefill_launches"]
+        line["decode_launches"] = {k: line["launches"][k] - pre[k]
+                                   for k in pre}
+        line["merges"] = len(merges)
+        out[tag] = line
+    for tag in ("bf16 by_heads", "fp32 full_width"):
+        cfg, line = cfgs[tag], out[tag]
+        hq, hkv = cfg.n_heads // 2, cfg.n_kv_heads // 2   # a position's
+        args = line.pop("decode_args")
+        line["b8_position_local"] = attention_check(
+            katt, f"17a pf3 {tag}", "decode_attention",
+            f"position 0: {hq} query heads over {hkv} of "
+            f"{cfg.n_kv_heads} kv heads, {args[1].shape[2]} slots", args,
+            cfg.window)
+        line["b8_shape_ok"] = (
+            tuple(args[0].shape) == (b // 4, hq, cfg.head_dim)
+            and tuple(args[1].shape) == (b // 4, hkv, line["cache_slots"],
+                                         cfg.head_dim))
+        if cfg.dtype == "float32":      # timed (bf16) at the same shape
+            line["b8_position_local_bf16"] = attention_check(
+                katt, f"17a pf3 {tag}", "decode_attention",
+                f"position 0 in bf16: {hq} query heads over {hkv} kv "
+                f"heads, {args[1].shape[2]} slots",
+                tuple(t.bfloat16() if torch.is_floating_point(t) else t
+                      for t in args), cfg.window)
+        del args
+    heads = out["bf16 by_heads"]
+    want = {t: {"decode_attention": 8 * cfgs[t].n_layers * steps}
+            for t in out}
+    line = {"arch": arch, "layers": reduced.n_layers, "runs": out,
+            "by_heads": heads, "full_width": out["fp32 full_width"],
+            "decode_ms_median": {t: v["decode_ms_median"]
+                                 for t, v in out.items()},
+            "prefill_ms": {t: v["prefill_ms"] for t, v in out.items()},
+            "gates": {t: v["gate"] for t, v in out.items()},
+            "decode_launches_reckoned": want}
+    log({"pf3_serve_run": {k: v for k, v in line.items()
+                           if k not in ("runs", "by_heads", "full_width")}})
+    by_heads = {t: v for t, v in out.items() if "by_slots" not in t}
+    ok = (all(v["gate_ok"] for v in out.values())
+          and all(v.get("b8_shape_ok", True) for v in by_heads.values())
+          and all(v["merges"] == 0 and all(
+              v["decode_launches"][k] == want[t].get(k, 0)
+              for k in v["decode_launches"]) for t, v in by_heads.items()))
+    if not ok:
+        raise RuntimeError(
+            f"17a: gates {line['gates']}, merges "
+            f"{ {t: v['merges'] for t, v in by_heads.items()} }, decode "
+            f"launches { {t: v['decode_launches'] for t, v in by_heads.items()} }"
+            f" (reckoned {want})")
+    return line
+
+
+def dry_reckon(out: str) -> None:
+    """17b's reckoning, run in a subprocess with no card (:class:`DryRuns`):
+    ``launch.dryrun.reckon`` (arguments and outputs from the layouts,
+    temporaries from a count on meta tensors) of 14a's, 15a's and 16a's
+    cells per device, all 8 positions on one device, written to ``out``
+    as {tag: {arch, layers, seq_sharding, memory, reckon_s}}."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh(SHARD_TRAIN_MESH, devices=["cpu"] * 8)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, SHARD_TRAIN_BATCH, "train")
+    cells = {"14a": (family_cfg(TRAIN_ARCH), False),
+             "15a": (family_cfg(FAM_TRAIN[0], FAM_TRAIN_LAYERS), False),
+             "16a": (family_cfg(TRAIN_ARCH), True)}
+    rec = {}
+    for tag, (cfg, seq) in cells.items():
+        t0 = time.perf_counter()
+        r = dryrun.reckon(cfg, shape, mesh, microbatches=1, seq_shard=seq,
+                          devices=[0] * 8)
+        rec[tag] = {"arch": cfg.name, "layers": cfg.n_layers,
+                    "seq_sharding": seq, "memory": r["memory"],
+                    "reckon_s": time.perf_counter() - t0}
+    Path(out).write_text(json.dumps(rec))
+
+
+class DryRuns:
+    """17b's reckoning (:func:`dry_reckon`) and 17c's command line, each
+    in a subprocess with no card (``CUDA_VISIBLE_DEVICES`` empty), started
+    before phase 16 so that they run beside it; :meth:`stop` ends both
+    (the script leaves no process behind)."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUDA_VISIBLE_DEVICES="")
+        self.t0 = time.perf_counter()
+        code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + "
+                "'/src']; import chip_smoke; chip_smoke.dry_reckon("
+                "sys.argv[2])")
+        self.procs = {
+            "17b": subprocess.Popen(
+                [sys.executable, "-c", code, str(ROOT),
+                 str(self.dir / "reckon.json")], cwd=str(ROOT), env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            "17c": subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 *DRY_CLI, "--out", str(self.dir / "cli")], cwd=str(ROOT),
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)}
+
+    def wait(self, key: str) -> tuple:
+        """(returncode, stdout, stderr, seconds from the start) of one."""
+        out, err = self.procs[key].communicate(timeout=600)
+        return (self.procs[key].returncode, out, err,
+                time.perf_counter() - self.t0)
+
+    def stop(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def dry_memory(dry: DryRuns, shard_run, fam, seq16) -> dict:
+    """17b: :func:`dry_reckon`'s reckoned peaks of 14a's, 15a's and 16a's
+    cells per device, which is this one card, beside the peak each phase
+    measured, within DRY_MEMORY_REL."""
+    rc, _, err, wall = dry.wait("17b")
+    path = dry.dir / "reckon.json"
+    if rc != 0 or not path.exists():
+        raise RuntimeError(f"17b: the reckoning failed (rc {rc}): "
+                           f"{err[-2000:]}")
+    rec = json.loads(path.read_text())
+    out = {}
+    for tag, run in (("14a", shard_run), ("15a", fam["15a"]),
+                     ("16a", seq16["16a"])):
+        r = rec[tag]
+        reckoned = r["memory"]["total_bytes_per_device"]
+        measured = run["peak_memory_bytes"]
+        out[tag] = {**r, "reckoned_bytes": reckoned,
+                    "measured_peak_bytes": measured,
+                    "reckoned_over_measured": reckoned / measured}
+    out["wall_s"] = wall
+    log({"dry_memory": out})
+    bad = {t: v["reckoned_over_measured"] for t, v in out.items()
+           if isinstance(v, dict)
+           and abs(v["reckoned_over_measured"] - 1) > DRY_MEMORY_REL}
+    if bad:
+        raise RuntimeError(f"17b: reckoned peaks off the measured ones by "
+                           f"more than {DRY_MEMORY_REL}: {bad}")
+    return out
+
+
+def dryrun_phase(katt, counters, dry: DryRuns, shard_run, fam,
+                 seq16) -> dict:
+    """17. The dry run and PF3 (a-c of the module docstring): 17a here,
+    then 17b's and 17c's subprocesses (:class:`DryRuns`, started before
+    phase 16) are read. Returns {sub-phase: its line}."""
+    t_phase = time.perf_counter()
+    out = {}
+    mark("17a")
+    out["17a"] = pf3_run(katt, counters)
+    mark("17b")
+    out["17b"] = dry_memory(dry, shard_run, fam, seq16)
+    mark("17c")
+    rc, stdout, stderr, wall = dry.wait("17c")
+    recs = list((dry.dir / "cli").glob("*.json"))
+    rec = json.loads(recs[0].read_text()) if recs else {}
+    out["17c"] = {"argv": DRY_CLI, "returncode": rc, "wall_s": wall,
+                  "stdout": stdout[-2000:], "record": rec}
+    log({"dryrun_cli": out["17c"]})
+    if rc != 0 or rec.get("status") != "ok":
+        raise RuntimeError(f"17c: the dry run's command line failed "
+                           f"(rc {rc}): {stderr[-2000:]}")
+    out["dryrun_phase_s"] = time.perf_counter() - t_phase
+    log({"dryrun_phase_s": out["dryrun_phase_s"]})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6597,10 +6872,19 @@ def main() -> int:
     # ------------- 16. sequence sharding, the production meshes' refused cells
     torch.cuda.empty_cache()
     mark("16")
-    seq16 = seq_phase(katt, counters, shard_run)
+    dry = DryRuns()                     # 17b and 17c, beside 16 and 17a
+    try:
+        seq16 = seq_phase(katt, counters, shard_run)
 
-    # ------------------------------------------------------------ 17. report
-    mark("17")
+        # --------------------------------------------- 17. the dry run, PF3
+        torch.cuda.empty_cache()
+        mark("17")
+        dry17 = dryrun_phase(katt, counters, dry, shard_run, fam, seq16)
+    finally:
+        dry.stop()
+
+    # ------------------------------------------------------------ 18. report
+    mark("18")
     entries = []
     for k in counters:
         r_ = results[k]
@@ -6664,6 +6948,26 @@ def main() -> int:
                         "max_abs_err", "lse_max_abs_err", "kernel_ms",
                         "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         entry.update(phase16_entries(k, seq16))
+        pf3 = dry17["17a"]["by_heads"]
+        if pf3["launches"].get(k):  # 17a: the ring laid out by kv heads
+            entry["pf3"] = {"launches": {
+                "17a prefill": pf3["prefill_launches"][k],
+                "17a decode": pf3["decode_launches"][k]}}
+            full = dry17["17a"]["full_width"]
+            entry["pf3"]["launches"].update({
+                "17a full_width prefill": full["prefill_launches"][k],
+                "17a full_width decode": full["decode_launches"][k]})
+            if k == "decode_attention":
+                for name, run, loc in (
+                        ("position_local", pf3, pf3["b8_position_local"]),
+                        ("full_width_position_local", full,
+                         full["b8_position_local_bf16"])):
+                    entry["pf3"][name] = {
+                        "decode_ms_median": run["decode_ms_median"],
+                        **{key: loc.get(key) for key in (
+                            "shape", "live_slots", "max_abs_err",
+                            "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")}}
         for label, lines in family_results.items():
             if k in lines:          # the same kernel at a family's shapes
                 f_ = lines[k]

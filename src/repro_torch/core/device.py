@@ -46,7 +46,7 @@ __all__ = ["GLINSnapshot", "HostCapture", "VertexPods", "pack_pods",
            "batch_query_bounds",
            "batch_query", "batch_query_fused", "DeltaTable",
            "delta_table_from_host", "batch_check_added", "knn_seed_radii",
-           "batch_knn_rank"]
+           "batch_knn_rank", "input_specs_like"]
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -1138,3 +1138,9 @@ def batch_knn_rank(windows: torch.Tensor, pods: VertexPods,
     dk = torch.sqrt(torch.clamp(d2k, min=0.0))
     idk = torch.where(torch.isinf(d2k), -1, idk)
     return idk, dk, counts
+
+
+def input_specs_like(num_queries: int):
+    """{name: (shape, dtype)} of a query batch (the dry run's stand-in; the
+    reference's ``input_specs_like``): its windows (Q, 4) fp32."""
+    return {"windows": ((num_queries, 4), _F32)}

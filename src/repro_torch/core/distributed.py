@@ -46,7 +46,7 @@ __all__ = ["Mesh", "make_mesh", "ShardTable", "ShardedTable",
            "shard_glin_arrays", "shard_arrays_from_capture",
            "shard_walk_arrays", "shard_count", "mesh_positions",
            "place_table", "replicate_model", "build_glin_query_step",
-           "build_glin_knn_step", "TABLE_KEYS"]
+           "build_glin_knn_step", "TABLE_KEYS", "glin_input_specs"]
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -679,3 +679,48 @@ def build_glin_knn_step(mesh: Mesh, relation: str, k: int, cap: int = 512,
         return torch.where(torch.isinf(d2s), -1, idss), dists, counts
 
     return step
+
+
+def glin_input_specs(num_records: int, num_queries: int, mesh: Mesh,
+                     num_leaves: int = 1 << 20, num_nodes: int = 1 << 14,
+                     num_pieces: int = 1 << 12, max_verts: int = 12,
+                     fanout: int = 64, pool_slots: int = 0):
+    """(shape, dtype) stand-ins of a sharded query step's inputs, nothing
+    allocated (the reference's ``glin_input_specs``, its sizes): (a
+    :class:`~.device.GLINSnapshot` of (shape, dtype) pairs with its
+    scalars, the windows, the record table {key: (shape, dtype)} of
+    :data:`TABLE_KEYS`). The defaults size a 2^30-record production index:
+    the model tables are small and replicated (the snapshot's record-level
+    arrays are one element: the records travel in the table, which splits
+    over the data axes); ``pool_slots``, the vertex pool over every shard,
+    defaults to ``num_records * (max_verts + 1) // 2`` (the pool stores the
+    mean ring width, not the widest). ``mesh`` is the reference's argument;
+    the shapes do not depend on it."""
+    i32, f32 = _I32, _F32
+    nl, nn, npc = num_leaves, num_nodes, num_pieces
+    snap = GLINSnapshot(
+        keys_hi=((1,), i32), keys_lo=((1,), i32), recs=((1,), i32),
+        rec_leaf=((1,), i32), slot_lmbr=((1, 4), f32),
+        slot_rmbr=((1, 4), f32),
+        leaf_start=((nl + 1,), i32), leaf_dlo_hi=((nl + 1,), i32),
+        leaf_dlo_lo=((nl + 1,), i32), leaf_mbr=((nl, 4), f32),
+        leaf_k0_hi=((nl,), i32), leaf_k0_lo=((nl,), i32),
+        leaf_slope=((nl,), f32), leaf_icpt=((nl,), f32),
+        node_dlo_hi=((nn,), i32), node_dlo_lo=((nn,), i32),
+        node_scale=((nn,), f32), node_fanout=((nn,), i32),
+        node_child_base=((nn,), i32), child_codes=((nn * fanout,), i32),
+        pw_zmax_hi=((npc,), i32), pw_zmax_lo=((npc,), i32),
+        pw_sufmin_hi=((npc,), i32), pw_sufmin_lo=((npc,), i32),
+        search_steps=8, depth=4, grid_x0=-180.0, grid_y0=-90.0,
+        grid_cell=5e-7)
+    windows = ((num_queries, 4), f32)
+    if not pool_slots:
+        pool_slots = num_records * (max_verts + 1) // 2
+    n = num_records
+    table = {"keys_hi": ((n,), i32), "keys_lo": ((n,), i32),
+             "recs": ((n,), i32), "rec_leaf": ((n,), i32),
+             "lmbrs": ((n, 4), f32), "mbrs": ((n, 4), f32),
+             "vpool": ((pool_slots, 2), f32), "voff": ((n,), i32),
+             "vbucket": ((n,), i32), "nverts": ((n,), i32),
+             "kinds": ((n,), i32)}
+    return snap, windows, table

@@ -9,7 +9,10 @@ for flash; q (B, Hq, D) with k/v (B, Hkv, W, D), ``abs_pos`` (B, W) and
 strides (last dimension contiguous): the model hands in transposed views of
 its (B, S, H, D) activations and (B, W, Hkv, D) cache, never a copy. A CUDA
 tensor takes a kernel, a CPU tensor the plain version; each wrapper counts
-its kernel launches in ``<wrapper>.launches``. :func:`flash_plan` and
+its kernel launches in ``<wrapper>.launches``. Meta tensors under the dry
+run's cost counter (``utils.cost``) take the kernel's route, where the
+counter is charged :func:`flash_work` / :func:`decode_work` and nothing
+launches. :func:`flash_plan` and
 :func:`decode_plan` give each launch's shape (entry point, kernel, grid).
 
 ``flash_attention`` has a gradient: where an input requires one, the kernel
@@ -24,11 +27,13 @@ import math
 
 import torch
 
+from ..utils import cost
 from .refine import _count, _launch, _route
 
 __all__ = ["NEG_INF", "HEAD_DIMS", "BACKWARD_ROWS", "flash_attention",
            "flash_attention_plain", "flash_attention_grad", "decode_attention",
-           "decode_attention_plain", "flash_plan", "decode_plan"]
+           "decode_attention_plain", "flash_plan", "decode_plan",
+           "band_pairs", "flash_work", "decode_work"]
 
 NEG_INF = -1e30          # the reference's mask fill (not -inf)
 HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the kernels are built for
@@ -89,6 +94,35 @@ def decode_attention_plain(q, k, v, abs_pos, pos, window: int = 0,
         return out
     return out, torch.logsumexp(
         torch.where(live, sc, torch.full_like(sc, -math.inf)), dim=-1)
+
+
+def band_pairs(s: int, window: int = 0) -> int:
+    """(query, key) pairs of a causal, optionally windowed, prompt of s."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_work(q, k, window: int = 0) -> tuple:
+    """(operations, bytes) of one flash launch on these shapes: 4 D
+    operations a (query head, key) pair of the causal or windowed band; q,
+    k and v read once and the output written once."""
+    b, hq, s, d = q.shape
+    return (4.0 * b * hq * d * band_pairs(s, window),
+            float(q.element_size() * (2 * q.numel() + 2 * k.numel())))
+
+
+def decode_work(q, k, live: int, lse: bool = False) -> tuple:
+    """(operations, bytes) of one decode launch with ``live`` live (row,
+    slot) pairs: 4 D operations a query head and live slot; the live
+    slots' K and V, q, abs_pos and pos read once, the output (and the
+    log-sum-exp) written once."""
+    b, hq, d = q.shape
+    hkv, w = k.shape[1], k.shape[2]
+    nbytes = (2 * live * hkv * d * k.element_size() + 2 * q.numel()
+              * q.element_size() + b * w * 4 + b * 4
+              + (b * hq * 4 if lse else 0))
+    return 4.0 * live * hq * d, float(nbytes)
 
 
 def _check_strided(name, t, dtype, shape):
@@ -201,13 +235,15 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, window):
         ctx.window = window
+        ctx.charged = cost.charged()     # the dry run's count
         ctx.save_for_backward(q, k, v)
         return _flash_launch(q, k, v, window)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        return (*flash_attention_grad(q, k, v, dout, ctx.window), None)
+        with cost.at(ctx.charged):
+            return (*flash_attention_grad(q, k, v, dout, ctx.window), None)
 
 
 def flash_attention(q, k, v, window: int = 0):
@@ -227,7 +263,7 @@ def flash_attention(q, k, v, window: int = 0):
     :func:`flash_attention_grad` (no graph is recorded where no input
     requires a gradient).
     """
-    if not _route(q, k, v):
+    if not (cost.meta_route(q, k, v) or _route(q, k, v)):
         return flash_attention_plain(q, k, v, window)
     return _Flash.apply(q, k, v, int(window))
 
@@ -244,7 +280,9 @@ def _flash_launch(q, k, v, window: int):
         raise ValueError(f"k and v need one layout: strides {k.stride()} "
                          f"and {v.stride()}")
     out = torch.empty_like(q)         # q's layout where q is a dense view
-    if b and s:
+    if q.device.type == "meta":
+        cost.charge_kernel(*flash_work(q, k, window), q, k, v)
+    elif b and s:
         plan = flash_plan(b, k.shape[1], hq // k.shape[1], s, d, q.dtype)
         _launch(plan["entry"], q.device, q, k, v, out, b, hq, k.shape[1], s,
                 d, int(window), 1.0 / math.sqrt(d), plan["tokens_per_block"],
@@ -271,7 +309,8 @@ def decode_attention(q, k, v, abs_pos, pos, window: int = 0,
     finish (counted on per-stream counters that the kernel leaves at zero)
     merges them, and writes the log-sum-exp where it is asked for.
     """
-    if not _route(q, k, v, abs_pos, pos):
+    if not (cost.meta_route(q, k, v, abs_pos, pos)
+            or _route(q, k, v, abs_pos, pos)):
         return decode_attention_plain(q, k, v, abs_pos, pos, window,
                                       return_lse)
     b, hq, d = q.shape
@@ -293,7 +332,9 @@ def decode_attention(q, k, v, abs_pos, pos, window: int = 0,
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if b and w:
+    if q.device.type == "meta":       # every slot counted live: no data
+        cost.charge_kernel(*decode_work(q, k, b * w, return_lse), q, k, v)
+    elif b and w:
         hkv = k.shape[1]
         split = decode_plan(b, hkv)["split"]
         # each block's partial softmax state: per head (acc[D], m, l), and

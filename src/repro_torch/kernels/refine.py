@@ -47,7 +47,9 @@ from ..core import geometry as geom
 __all__ = ["MAX_COMPACT_BUDGET", "LeafWalk", "refine_count",
            "refine_compact", "refine_fused", "refine_mask",
            "refine_count_plain", "refine_compact_plain", "refine_fused_plain",
-           "refine_mask_plain", "compact_plain", "fused_probe_plain"]
+           "refine_mask_plain", "compact_plain", "fused_probe_plain",
+           "DEFAULT_BQ", "DEFAULT_BN", "COMPACT_BN", "refine_cost",
+           "sharded_refine_cost", "sharded_knn_cost"]
 
 # The reference package's budget bound (there, its TPU scatter block had to
 # fit fast memory). Kept for the fused kernel and the window ladder so both
@@ -59,6 +61,12 @@ PREFILTERS = ("intersects", "contains")
 # query rows x slots per chunk of a whole-table mask (16M elements: ~64 MB
 # per int32 intermediate)
 MASK_CHUNK_ELEMS = 1 << 24
+# The reference kernels' tile sizes (query rows, record slots; the compact
+# kernel's smaller record tile), the defaults of the cost model below. No
+# kernel here tiles by them.
+DEFAULT_BQ = 8
+DEFAULT_BN = 512
+COMPACT_BN = 256
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -498,3 +506,125 @@ def refine_fused(windows, probe_w, qkeys, keys, recs, leaf_i, leaf_f, node_i,
 
 
 refine_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The reference's analytic cost model
+# ---------------------------------------------------------------------------
+def refine_cost(kind: str, q: int, n: int, budget: int = 0,
+                verts: int = 0, bq: int = DEFAULT_BQ,
+                bn: int = DEFAULT_BN) -> dict:
+    """Bytes / flops model of one kernel invocation: the reference's
+    ``refine_cost``, value for value.
+
+    It models the reference's Pallas kernels, which stream every query
+    row-tile of ``bq`` windows over the whole ``(N, 4)`` MBR table(s) in
+    ``bn``-slot tiles. The CUDA kernels here do not: they walk each query's
+    run group -> leaf -> slot and read only the rows the walk reaches
+    (``chip_smoke.py`` counts those for each kernel's bound). So these
+    figures are the reference's, kept for the dry run's GLIN cell and for
+    comparison, not a count of what the card reads.
+
+    ``kind``: "mask" | "count" | "compact" | "exact" | "fused" | "knn".
+    "exact" is the exact-shape stage over the compacted ``(Q, budget)``
+    survivors at gather width ``verts`` (the widest surviving pow2 width
+    bucket); "knn" the top-k stage: exact distances over ``n`` candidate
+    columns at width ``verts`` and the k-round partial selection, with
+    ``budget`` as k; "fused" the one-dispatch probe + compact + exact
+    kernel: the compact and exact terms and the in-kernel probe, minus the
+    ``(Q, budget)`` survivor and ``(Q, 2)`` bounds round trips the staged
+    pipeline pays between dispatches.
+    """
+    tiles_q = -(-q // bq)
+    if kind == "fused":
+        c = refine_cost("compact", q, n, budget, bq=bq, bn=bn)
+        e = refine_cost("exact", q, n, budget, verts=verts, bq=bq, bn=bn)
+        # the staged pipeline's intermediates a single dispatch keeps
+        saved = q * (2.0 * max(budget, 1) + 5.0) * 4.0
+        # the probe: key limbs read once; ~2 searches x ~18 steps x ~12
+        # operations a query
+        probe_bytes = n * 8.0 + q * 32.0
+        probe_flops = q * 2.0 * 18.0 * 12.0
+        return {
+            "flops": c["flops"] + e["flops"] + probe_flops,
+            "bytes_accessed": max(
+                c["bytes_accessed"] + e["bytes_accessed"]
+                + probe_bytes - saved, 0.0),
+            "transcendentals": 0,
+        }
+    if kind == "exact":
+        # (verts, 2) f32 rings plus the 16-byte record header a survivor,
+        # ~40 operations a vertex
+        bytes_accessed = q * budget * (verts * 8 + 16) + q * budget * 4
+        flops = q * budget * verts * 40
+        return {"flops": float(flops), "bytes_accessed": float(bytes_accessed),
+                "transcendentals": 0}
+    if kind == "knn":
+        # the exact distances over n columns, then k rounds over the n-wide
+        # tile (its minimum and the tie mask); budget is k
+        k = max(budget, 1)
+        bytes_accessed = (q * n * (verts * 8 + 16)   # pod gather
+                          + q * n * 8                # (d2, ids) tile
+                          + q * k * 8)               # (Q, k) result
+        flops = q * n * verts * 40 + q * k * n * 3.0
+        return {"flops": float(flops), "bytes_accessed": float(bytes_accessed),
+                "transcendentals": float(q * k)}     # a sqrt per winner
+    # the streaming kernels: each query row-tile streams the MBR table(s)
+    streams = 2 if kind == "compact" else 1
+    bytes_accessed = tiles_q * n * 16 * streams + q * 24
+    flops = q * n * 10.0          # interval and MBR comparisons a pair
+    if kind == "mask":
+        bytes_accessed += q * n   # the int8 mask
+    elif kind == "count":
+        bytes_accessed += tiles_q * bq * 4
+    elif kind == "compact":
+        flops += q * n * 6.0      # prefix sums
+        flops += q * n * float(max(budget, 1)) * 2.0   # one-hot scatter
+        bytes_accessed += q * (max(budget, 1) + 1) * 4
+    else:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    return {"flops": float(flops), "bytes_accessed": float(bytes_accessed),
+            "transcendentals": 0}
+
+
+def sharded_refine_cost(q: int, n: int, budget: int, shards: int,
+                        verts: int = 0, bq: int = DEFAULT_BQ,
+                        bn: int = DEFAULT_BN) -> dict:
+    """Per-device cost of the sharded compact + exact refine (the
+    reference's ``sharded_refine_cost``, value for value, on its model of
+    the Pallas kernels; see :func:`refine_cost`): each of ``shards``
+    devices compacts its ``N / shards`` slots and exact-refines its
+    ``(Q, budget)`` survivors; ``collective_bytes`` is the all-gather of
+    ``(Q, shards, budget + 1)`` int32 every device receives."""
+    n_local = -(-n // max(shards, 1))
+    c = refine_cost("compact", q, n_local, budget, bq=bq, bn=bn)
+    e = refine_cost("exact", q, n_local, budget, verts=verts)
+    return {
+        "flops": c["flops"] + e["flops"],
+        "bytes_accessed": c["bytes_accessed"] + e["bytes_accessed"],
+        "transcendentals": 0,
+        "collective_bytes": float(q * shards * (budget + 1) * 4),
+    }
+
+
+def sharded_knn_cost(q: int, n: int, budget: int, k: int, shards: int,
+                     verts: int = 0, bq: int = DEFAULT_BQ,
+                     bn: int = DEFAULT_BN) -> dict:
+    """Per-device cost of the sharded kNN rung (the reference's
+    ``sharded_knn_cost``, value for value, on its model of the Pallas
+    kernels; see :func:`refine_cost`): the local compact + refine over the
+    shard's ``N / shards`` slots, the local top-k over its ``(Q, budget)``
+    survivors and the k-merge of the gathered ``(Q, shards * k)`` block;
+    ``collective_bytes`` is the all-gather of every shard's ``(Q, k)``
+    (distance, id) block and the ``(Q,)`` within-radius counts."""
+    n_local = -(-n // max(shards, 1))
+    c = refine_cost("compact", q, n_local, budget, bq=bq, bn=bn)
+    r = refine_cost("knn", q, budget, k, verts=verts, bq=bq, bn=bn)
+    merge_flops = q * shards * k * math.log2(max(shards * k, 2)) * 4.0
+    return {
+        "flops": c["flops"] + r["flops"] + merge_flops,
+        "bytes_accessed": (c["bytes_accessed"] + r["bytes_accessed"]
+                           + q * shards * k * 8.0),
+        "transcendentals": r["transcendentals"],
+        "collective_bytes": float(q * shards * (k * 8 + 4)),
+    }

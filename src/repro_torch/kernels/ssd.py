@@ -7,7 +7,9 @@ y (B, S, H, P) in x's dtype and, with ``return_state``, the final state
 (B, H, N, P) fp32. The kernel reads x, dt, b and c through their strides
 (last dimension contiguous): the model hands in views of its convolution's
 output, never a copy. A CUDA tensor takes the kernel, a CPU tensor the plain
-version; ``ssd_scan.launches`` counts the kernel's launches. Where an input
+version (meta tensors under the dry run's cost counter the kernel's route,
+charged :func:`ssd_work`, launching nothing); ``ssd_scan.launches`` counts
+the kernel's launches. Where an input
 requires a gradient, the kernel runs inside a ``torch.autograd.Function``
 whose backward is the derivative of the plain version, recomputed at the
 caller's chunk (no kernel of the reference has a backward either).
@@ -17,11 +19,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import cost
 from .attention import _check_strided as _check
 from .refine import _count, _launch, _route
 
 __all__ = ["MAX_STATE", "TILE", "ssd_scan", "ssd_scan_plain", "ssd_scan_grad",
-           "ssd_scratch"]
+           "ssd_scratch", "ssd_work"]
 
 MAX_STATE = 256          # the largest N the kernel takes (shared memory)
 TILE = 64                # the kernel's chunk (steps)
@@ -91,6 +94,7 @@ class _SSD(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, a, b, c, chunk):
         ctx.chunk = chunk
+        ctx.charged = cost.charged()     # the dry run's count
         ctx.save_for_backward(x, dt, a, b, c)
         y, state = _ssd_launch(x, dt, a, b, c, chunk)
         ctx.mark_non_differentiable(state)
@@ -98,7 +102,8 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dstate):
-        return (*ssd_scan_grad(*ctx.saved_tensors, dy, ctx.chunk), None)
+        with cost.at(ctx.charged):
+            return (*ssd_scan_grad(*ctx.saved_tensors, dy, ctx.chunk), None)
 
 
 def ssd_scan(x, dt, a, b, c, chunk: int = 128, return_state: bool = False):
@@ -117,7 +122,7 @@ def ssd_scan(x, dt, a, b, c, chunk: int = 128, return_state: bool = False):
     any chunk). Any S. The launch runs inside :class:`_SSD` (no graph is
     recorded where no input requires a gradient).
     """
-    if not _route(x, dt, a, b, c):
+    if not (cost.meta_route(x, dt, a, b, c) or _route(x, dt, a, b, c)):
         return ssd_scan_plain(x, dt, a, b, c, chunk, return_state)
     y, state = _SSD.apply(x, dt, a, b, c, chunk)
     return (y, state) if return_state else y
@@ -140,7 +145,12 @@ def _ssd_launch(x, dt, a, b, c, chunk: int):
     _check("c", c, x.dtype, (bsz, s, n))
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
-    if not s:
+    if x.device.type == "meta":
+        for shape in ssd_scratch(bsz, s, h, p, n).values():
+            torch.empty(shape, dtype=torch.float32, device=x.device)
+        nbytes, ops_cb, ops_rest = ssd_work(x, dt, b)
+        cost.charge_kernel(ops_cb + ops_rest, nbytes, x, dt, a, b, c)
+    elif not s:
         state.zero_()                 # the state of an empty sequence
     elif bsz and h and p:             # the kernels write every element
         scratch = ssd_scratch(bsz, s, h, p, n)
@@ -152,6 +162,24 @@ def _ssd_launch(x, dt, a, b, c, chunk: int):
                 *c.stride()[:2])
         _count(ssd_scan)
     return y, state
+
+
+def ssd_work(x, dt, b, chunk: int = TILE) -> tuple:
+    """(bytes, C B^T operations, the other operations) of one scan at
+    ``chunk`` (the kernel's own by default): C B^T once a chunk (shared by
+    the heads), and per head and chunk W X, C state and the state update;
+    x, dt, a, B and C read once, y and the fp32 final state written once.
+    The causal mask leaves C B^T and W X their lower triangle, ch (ch + 1)
+    / 2 of the ch^2 pairs."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    ch = min(chunk, s)
+    nc = -(-s // ch)
+    tri = ch * (ch + 1) // 2
+    nbytes = (2 * x.numel() * x.element_size() + bsz * h * n * p * 4
+              + dt.numel() * 4 + h * 4 + 2 * b.numel() * b.element_size())
+    return (nbytes, bsz * nc * 2 * tri * n,
+            bsz * h * nc * (2 * tri * p + 4 * ch * n * p))
 
 
 def ssd_scratch(bsz: int, s: int, h: int, p: int, n: int) -> dict:

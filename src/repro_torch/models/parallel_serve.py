@@ -5,7 +5,10 @@ written out per position. Their caches take the reference's layout
 
 * The attention ring ``k`` / ``v`` (L, B, W, Hkv, Dh) splits its slots
   over ``model`` (``kv_seq`` resolves before ``kv``, which then finds
-  ``model`` taken); ``abs_pos`` and ``pos`` are whole over ``model``.
+  ``model`` taken). Where the slots do not divide over ``model`` and the
+  kv heads do, the rules lay it out by kv heads instead: each position
+  holds its kv heads over every slot. ``abs_pos`` and ``pos`` are whole
+  over ``model``.
 * The SSM ``conv`` (L, B, K-1, C) splits its channels over ``model``;
   ``state`` (L, B, H, N, P) is whole.
 
@@ -14,7 +17,8 @@ collects each position's pieces: k and v of its own kv heads, its heads'
 SSM state and conv input rows. The ring is built per position (the
 one-device ``transformer._ring`` on its heads), then laid out by slots
 with an ``all_to_all`` over ``model`` (a kv head that GQA gave several
-positions is taken from the first); the states are gathered over
+positions is taken from the first), or by kv heads: gathered over
+``model`` and cut at the kv-head split; the states are gathered over
 ``model``, and the conv rows are gathered and cut at the conv's channel
 split. The last token's logits come laid out ``("batch", "vocab")``.
 
@@ -30,6 +34,13 @@ values). Per layer and data row:
   returns its output and log-sum-exp; the partial softmaxes merge in fp32
   (:func:`merge_softmax`), and each position's rows of the merged output
   go through its ``wo`` rows, summed over ``model``.
+* Attention on a ring laid out by kv heads: each position projects its
+  query heads and its kv heads' new k / v, writes them into its block at
+  the new token's slot, and runs B8 on its query heads over its kv heads
+  across the whole ring (no merge: the heads are whole). Its output goes
+  through its heads' ``wo`` rows, summed over ``model``. A position's
+  query heads must read only its kv heads (GQA); they always do where the
+  kv heads divide over ``model``, and a cell where they would not raises.
 * SSM: :func:`.parallel_ssm.mixer_decode`.
 * MoE: :func:`.parallel_moe.moe_ffn` at the step's token count.
 """
@@ -42,8 +53,8 @@ import torch
 from ..kernels import attention as katt
 from ..sharding import constrain, use_rules
 from ..sharding.placement import (Sharded, all_gather, all_to_all,
-                                  relayout, smap, unique_blocks)
-from ..sharding.rules import logical_to_spec, spec_tree
+                                  relayout, smap, split, unique_blocks)
+from ..sharding.rules import PartitionSpec, logical_to_spec, spec_tree
 from . import attention as attn
 from . import parallel as par
 from . import parallel_ssm as pssm
@@ -55,16 +66,24 @@ __all__ = ["cache_specs", "prefill", "decode_step", "merge_softmax"]
 
 def cache_specs(cfg, rules, batch: int, seq_len: int):
     """The cache's PartitionSpecs (the reference's ``_cache_shardings``)
-    for ``batch`` rows of a ``seq_len`` context. Raises
-    ``NotImplementedError`` for a ring laid out by heads (the steps split
-    its slots, or keep it whole)."""
-    shapes = tf.cache_shapes(cfg, batch, seq_len)
-    specs = spec_tree(rules, tf.cache_logical(cfg), shapes)
-    if cfg.has_attention and specs["attn"]["k"].axes(3):
+    for ``batch`` rows of a ``seq_len`` context: the ring's slots over
+    ``model``, or its kv heads where the slots do not divide."""
+    return spec_tree(rules, tf.cache_logical(cfg),
+                     tf.cache_shapes(cfg, batch, seq_len))
+
+
+def _check_kv_heads(cfg, plan) -> None:
+    """On a ring laid out by kv heads, each ``model`` position's query
+    heads (``parallel._heads``) must read exactly its own kv heads; else
+    ``NotImplementedError`` names the cell."""
+    n = cfg.n_kv_heads // plan.m
+    own = [list(range(j * n, (j + 1) * n)) for j in range(plan.m)]
+    reads = par._heads(cfg, plan)[3]
+    if own != [list(ids) for ids in reads]:
         raise NotImplementedError(
-            f"{cfg.name}: a {shapes['attn']['k'][0]} ring laid out by kv "
-            "heads; the sharded steps split its slots")
-    return specs
+            f"{cfg.name}: {cfg.n_heads} query heads over {cfg.n_kv_heads} "
+            f"kv heads on {plan.m} model positions read kv heads {reads}, "
+            f"not each position's own {own}")
 
 
 def _first(ids_per_position: List[List[int]], n: int):
@@ -102,7 +121,7 @@ def _attn_cache(kvs, rows: Sharded, cfg, plan, specs, seq_len_cache):
     kspec = specs["k"]
     if plan.tp and kspec.axes(2) == plan.tp:
         k, v = (all_to_all(t, plan.tp, 2, 3) for t in (k, v))
-    elif plan.m > 1:                                    # whole over model
+    elif plan.m > 1:                     # whole over model, or by kv heads
         k, v = (all_gather(t, plan.tp, 3) for t in (k, v))
     else:
         uniq = [uniq[0]]
@@ -112,6 +131,12 @@ def _attn_cache(kvs, rows: Sharded, cfg, plan, specs, seq_len_cache):
     nl, w = len(kvs), k.blocks[0].shape[2]
     shape = (nl, rows.shape[0], w * (plan.m if kspec.axes(2) else 1),
              cfg.n_kv_heads, cfg.head_dim)
+    if plan.tp and kspec.axes(3) == plan.tp:
+        # each position keeps its kv heads (a copy: the gathered ring goes)
+        whole = PartitionSpec(*kspec[:3])
+        k, v = (smap(torch.Tensor.contiguous, split(
+            Sharded(shape, whole, t.mesh, t.blocks), plan.tp, 3))
+            for t in (k, v))
     out = {"k": Sharded(shape, kspec, k.mesh, k.blocks),
            "v": Sharded(shape, kspec, v.mesh, v.blocks)}
     s_tot = kvs[0][0].blocks[0].shape[1]
@@ -216,12 +241,22 @@ def merge_softmax(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
 
 def _attention_decode(h: Sharded, p: Dict[str, Sharded], cfg, lc, rot,
                       plan) -> Sharded:
-    """One token's attention against the layer's ring (slots over
-    ``model``), updating the ring in place."""
-    q_cols, _, _, _ = par._heads(cfg, plan)
+    """One token's attention against the layer's ring (its slots over
+    ``model``, or its kv heads over ``model``), updating the ring in
+    place."""
+    q_cols, kv_cols, _, _ = par._heads(cfg, plan)
     hq, dh = cfg.n_heads, cfg.head_dim
+    ring = lc["attn"]
+    kc, vc, ap, pos = ring["k"], ring["v"], ring["abs_pos"], ring["pos"]
+    heads = bool(plan.tp) and kc.spec.axes(2) == plan.tp
+    if heads:
+        _check_kv_heads(cfg, plan)
     wq = par._take(par._fsdp(p["wq"], 0), 1, q_cols, plan)
-    wk, wv = relayout(p["wk"], ()), relayout(p["wv"], ())    # every kv head
+    if heads:                                 # each position's kv heads
+        wk, wv = (par._take(par._fsdp(p[n], 0), 1, kv_cols, plan)
+                  for n in ("wk", "wv"))
+    else:                                     # every kv head
+        wk, wv = relayout(p["wk"], ()), relayout(p["wv"], ())
     norms = [p[k] for k in ("qn", "kn") if cfg.qk_norm]
 
     def proj_q(j, x, w, cos, sin, *qk):
@@ -237,20 +272,17 @@ def _attention_decode(h: Sharded, p: Dict[str, Sharded], cfg, lc, rot,
             k = rms_norm(k, qk[1])
         return apply_rot(k, cos, sin)[:, 0], dense(x, wv).view(
             x.shape[0], -1, dh)
-    q = all_gather(smap(proj_q, h, wq, *rot, *norms, coord=plan.tp),
-                   plan.tp, 2)                          # (B, 1, Hq, Dh)
+    q = smap(proj_q, h, wq, *rot, *norms, coord=plan.tp)   # (B, 1, Hq_j, Dh)
     kn, vn = smap(proj_kv, h, wk, wv, *rot, *norms)
-    ring = lc["attn"]
-    kc, vc, ap, pos = ring["k"], ring["v"], ring["abs_pos"], ring["pos"]
-    split = bool(plan.tp) and kc.spec.axes(1) == plan.tp
+    by_slots = bool(plan.tp) and kc.spec.axes(1) == plan.tp
     w = kc.shape[1]
-    wl = w // plan.m if split else w
+    wl = w // plan.m if by_slots else w
 
     def slot_rows(j, kb, vb, kn, vn, p):
         """The local slot of the new token (clamped) and the rows to
         write there: the new k / v where this position holds the slot,
         else what it holds."""
-        s = (p.long() % w) - (j * wl if split else 0)
+        s = (p.long() % w) - (j * wl if by_slots else 0)
         here = ((s >= 0) & (s < wl))[:, None, None]
         s = s.clamp(0, wl - 1)
         b = torch.arange(kb.shape[0], device=kb.device)
@@ -266,20 +298,35 @@ def _attention_decode(h: Sharded, p: Dict[str, Sharded], cfg, lc, rot,
         b = torch.arange(ab.shape[0], device=ab.device)
         ab.index_put_((b, (pb.long() % w)), pb)
 
-    def local(j, q, kb, vb, ab, p):
-        lo = j * wl if split else 0
-        return katt.decode_attention(q[:, 0], kb.transpose(1, 2),
-                                     vb.transpose(1, 2), ab[:, lo:lo + wl],
-                                     p, cfg.window, return_lse=True)
-    o, lse = smap(local, q, kc, vc, ap, pos, coord=plan.tp)
-    o = all_gather(smap(lambda t: t[None], o), plan.tp, 0)
-    lse = all_gather(smap(lambda t: t[None], lse), plan.tp, 0)
-    merged = smap(lambda o, lse: merge_softmax(o, lse).to(o.dtype).reshape(
-        o.shape[1], 1, hq * dh), o, lse)
-    rows = par._ranges(hq * dh, plan.m)
-    wo = par._take(par._fsdp(p["wo"], 1), 0, rows, plan)
-    part = smap(lambda j, m, w: dense(m[..., rows[j][0]:rows[j][1]], w),
-                merged, wo, coord=plan.tp)
+    if heads:
+        # the position's query heads over its kv heads, every slot: whole
+        # softmaxes, no merge
+        def local_heads(q, kb, vb, ab, p):
+            return katt.decode_attention(q[:, 0], kb.transpose(1, 2),
+                                         vb.transpose(1, 2), ab, p,
+                                         cfg.window)
+        o = smap(local_heads, q, kc, vc, ap, pos)         # (B, Hq_j, Dh)
+        wo = par._take(par._fsdp(p["wo"], 1), 0, q_cols, plan)
+        part = smap(lambda o, w: dense(o.reshape(o.shape[0], 1, -1), w),
+                    o, wo)
+    else:
+        q = all_gather(q, plan.tp, 2)                     # (B, 1, Hq, Dh)
+
+        def local(j, q, kb, vb, ab, p):
+            lo = j * wl if by_slots else 0
+            return katt.decode_attention(q[:, 0], kb.transpose(1, 2),
+                                         vb.transpose(1, 2),
+                                         ab[:, lo:lo + wl], p, cfg.window,
+                                         return_lse=True)
+        o, lse = smap(local, q, kc, vc, ap, pos, coord=plan.tp)
+        o = all_gather(smap(lambda t: t[None], o), plan.tp, 0)
+        lse = all_gather(smap(lambda t: t[None], lse), plan.tp, 0)
+        merged = smap(lambda o, lse: merge_softmax(o, lse).to(
+            o.dtype).reshape(o.shape[1], 1, hq * dh), o, lse)
+        rows = par._ranges(hq * dh, plan.m)
+        wo = par._take(par._fsdp(p["wo"], 1), 0, rows, plan)
+        part = smap(lambda j, m, w: dense(m[..., rows[j][0]:rows[j][1]], w),
+                    merged, wo, coord=plan.tp)
     for p_, pb in unique_blocks(pos):
         pb.add_(1)
     return par._reduced(part, h, plan)
@@ -324,9 +371,6 @@ def decode_step(params, cfg, batch, cache, rules):
     ``("batch", "vocab")``, the same cache, updated in place)."""
     par.check_sharded(cfg, rules)
     plan = par.Plan.of(rules)
-    if cfg.has_attention and cache["attn"]["k"].spec.axes(3):
-        raise NotImplementedError(f"{cfg.name}: a ring laid out by kv "
-                                  "heads; the sharded steps split its slots")
     with use_rules(rules):
         emb = None
         if cfg.frontend == "embed_stub":

@@ -26,6 +26,10 @@ sharded backend, ``core.distributed``):
   summed.
 * :func:`smap` runs a function on every position's blocks; positions whose
   blocks are the same tensors (and device) share one call.
+* Under a cost counter (``utils.cost``), :func:`smap` charges each call to
+  the positions that share it, each collective charges the positions that
+  receive a block its bytes, and :func:`sum_replicas` charges the
+  all-reduce a mesh of separate devices would make.
 
 A per-position value with no global layout (a partial sum before its
 ``psum``, a pipeline stage's state) is a :class:`Sharded` whose ``spec``
@@ -41,13 +45,15 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import cost as _cost
 from ..utils.tree import tree_map
 from .rules import PartitionSpec, shape_of
 
 __all__ = ["Sharded", "NamedSharding", "place", "gather", "place_tree",
            "gather_tree", "smap", "psum", "pmax", "all_gather",
            "reduce_scatter", "ppermute", "all_to_all", "relayout", "split",
-           "sum_replicas", "canonical_blocks", "unique_blocks", "block_slices",
+           "sum_replicas", "canonical_blocks", "canonical_groups",
+           "unique_blocks", "block_slices",
            "shape_dtype"]
 
 
@@ -254,16 +260,26 @@ def smap(fn: Callable, *args, out=None, coord=None):
     for a in args:
         if isinstance(a, Sharded) and a.mesh is not mesh and a.mesh != mesh:
             raise ValueError("placed arguments on different meshes")
-    made: Dict[Any, Any] = {}
-    results = []
+    keys, calls = [], {}
     for p, dev in enumerate(mesh.flat):
         lead = () if coord is None else (_index(mesh, p, _axes(coord))[0],)
         key = (dev,) + lead + tuple(id(a.blocks[p]) for a in args
                                     if isinstance(a, Sharded))
-        if key not in made:
-            made[key] = fn(*lead, *(a.blocks[p] if isinstance(a, Sharded)
-                                    else a for a in args))
-        results.append(made[key])
+        keys.append(key)
+        if key in calls:
+            calls[key][2] |= 1 << p
+        else:
+            calls[key] = [p, lead, 1 << p]
+    counter = _cost.active()
+    made: Dict[Any, Any] = {}
+    for key, (p, lead, mask) in calls.items():
+        blocks = [a.blocks[p] if isinstance(a, Sharded) else a for a in args]
+        if counter is None:
+            made[key] = fn(*lead, *blocks)
+        else:
+            with counter.at(mask):
+                made[key] = fn(*lead, *blocks)
+    results = [made[k] for k in keys]
     if isinstance(results[0], tuple):
         specs = out if out is not None else (None,) * len(results[0])
         return tuple(_wrap(mesh, [r[i] for r in results], specs[i])
@@ -280,13 +296,20 @@ def _wrap(mesh, blocks, spec) -> Sharded:
 
 
 # ------------------------------------------------------------ collectives
-def _collective(s: Sharded, axes, combine, by_rank: bool = False):
+def _collective(s: Sharded, axes, combine, kind: str,
+                by_rank: bool = False):
     """Blocks from ``combine(group blocks, device, rank)`` for every
     position; positions with the same group blocks and device (and, where
-    ``by_rank``, rank) share one result."""
+    ``by_rank``, rank) share one result. Under a cost counter each
+    position of a group of several is charged the block it receives as a
+    ``kind`` collective."""
     mesh = s.mesh
+    counter = _cost.active()
+    if counter is not None and counter.interchangeable(s.blocks):
+        by_rank = False              # every rank's block has one shape
     blocks: List[Any] = [None] * len(mesh.flat)
     made: Dict[Any, torch.Tensor] = {}
+    owners: Dict[Any, list] = {}
     for g in _groups(mesh, axes):
         gb = [s.blocks[q] for q in g]
         ids = tuple(id(b) for b in gb)
@@ -294,8 +317,17 @@ def _collective(s: Sharded, axes, combine, by_rank: bool = False):
             dev = mesh.flat[p]
             key = (dev, ids, rank if by_rank else None)
             if key not in made:
-                made[key] = combine(gb, dev, rank)
+                if counter is None or len(g) == 1:
+                    made[key] = combine(gb, dev, rank)
+                else:
+                    made[key], cell = counter.collective(kind, combine, gb,
+                                                         dev, rank)
+                    owners[key] = [gb[rank], cell, 0]
             blocks[p] = made[key]
+            if key in owners:
+                owners[key][2] |= 1 << p
+    for key, (inp, cell, mask) in owners.items():
+        counter.received(kind, made[key], inp, cell, mask)
     return blocks
 
 
@@ -312,7 +344,8 @@ def psum(s: Sharded, axis) -> Sharded:
     axes = _axes(axis)
     if not axes:
         return s
-    return Sharded(s.shape, s.spec, s.mesh, _collective(s, axes, _sum))
+    return Sharded(s.shape, s.spec, s.mesh,
+                   _collective(s, axes, _sum, "all-reduce"))
 
 
 def pmax(s: Sharded, axis) -> Sharded:
@@ -326,7 +359,8 @@ def pmax(s: Sharded, axis) -> Sharded:
         for b in gb[1:]:
             acc = torch.maximum(acc, b.to(dev))
         return acc
-    return Sharded(s.shape, s.spec, s.mesh, _collective(s, axes, mx))
+    return Sharded(s.shape, s.spec, s.mesh,
+                   _collective(s, axes, mx, "all-reduce"))
 
 
 def _drop_suffix(spec: PartitionSpec, dim: int, axes) -> PartitionSpec:
@@ -359,7 +393,7 @@ def all_gather(s: Sharded, axis, dim: int) -> Sharded:
 
     def cat(gb, dev, rank):
         return torch.cat([b.to(dev) for b in gb], dim)
-    blocks = _collective(s, axes, cat)
+    blocks = _collective(s, axes, cat, "all-gather")
     if s.spec is None:
         return Sharded(None, None, s.mesh, blocks)
     return Sharded(s.shape, _drop_suffix(s.spec, dim, axes), s.mesh, blocks)
@@ -384,7 +418,7 @@ def reduce_scatter(s: Sharded, axis, dim: int) -> Sharded:
         total = totals[key]
         n = total.shape[dim] // len(gb)
         return total.narrow(dim, rank * n, n)
-    blocks = _collective(s, axes, rs, by_rank=True)
+    blocks = _collective(s, axes, rs, "reduce-scatter", by_rank=True)
     if s.spec is None:
         return Sharded(None, None, s.mesh, blocks)
     return Sharded(s.shape, _add_suffix(s.spec, dim, axes), s.mesh, blocks)
@@ -402,7 +436,8 @@ def ppermute(s: Sharded, axis: str, perm: Sequence[Tuple[int, int]]
             return gb[dst[rank]].to(dev)
         return torch.zeros_like(gb[rank], device=dev)
     return Sharded(None, None, s.mesh,
-                   _collective(s, (axis,), send, by_rank=True))
+                   _collective(s, (axis,), send, "collective-permute",
+                               by_rank=True))
 
 
 def all_to_all(s: Sharded, axis, split_dim: int, concat_dim: int
@@ -425,7 +460,8 @@ def all_to_all(s: Sharded, axis, split_dim: int, concat_dim: int
         return torch.cat([b.chunk(n, split_dim)[rank].to(dev) for b in gb],
                          concat_dim)
     return Sharded(None, None, s.mesh,
-                   _collective(s, axes, exchange, by_rank=True))
+                   _collective(s, axes, exchange, "all-to-all",
+                               by_rank=True))
 
 
 def split(s: Sharded, axis, dim: int) -> Sharded:
@@ -435,11 +471,13 @@ def split(s: Sharded, axis, dim: int) -> Sharded:
     if not axes:
         return s
     spec = _add_suffix(s.spec, dim, axes)
+    counter = _cost.active()
+    shared = counter is not None and counter.interchangeable(s.blocks)
     made: Dict[Any, torch.Tensor] = {}
     blocks = []
     for p, b in enumerate(s.blocks):
         idx, ext = _index(s.mesh, p, axes)
-        key = (id(b), s.mesh.flat[p], idx)
+        key = (id(b), s.mesh.flat[p], 0 if shared else idx)
         if key not in made:
             if b.shape[dim] % ext:
                 raise ValueError(f"dimension {dim} of {s.shape} does not "
@@ -481,7 +519,13 @@ def _block_groups(s: Sharded) -> Dict[Any, List[int]]:
 def canonical_blocks(s: Sharded) -> List[torch.Tensor]:
     """Each block of ``s`` once (the first position's that holds it): the
     elements of the global value, each counted once."""
-    return [s.blocks[ps[0]] for ps in _block_groups(s).values()]
+    return [b for _, b in canonical_groups(s)]
+
+
+def canonical_groups(s: Sharded) -> List[Tuple[List[int], torch.Tensor]]:
+    """(the positions holding it, the first one's tensor) of each block of
+    ``s``."""
+    return [(ps, s.blocks[ps[0]]) for ps in _block_groups(s).values()]
 
 
 def unique_blocks(s: Sharded) -> List[Tuple[int, torch.Tensor]]:
@@ -500,9 +544,14 @@ def sum_replicas(s: Sharded) -> Sharded:
     parameter is the sum over its replicas' gradients, and autograd has
     already summed the uses of each tensor, so this changes only blocks
     held on several devices; on one device it returns ``s``."""
+    groups = _block_groups(s)
+    counter = _cost.active()
+    if counter is not None:
+        b = s.blocks[0]
+        counter.replicas(groups.values(), b.numel() * b.element_size())
     blocks = list(s.blocks)
     changed = False
-    for ps in _block_groups(s).values():
+    for ps in groups.values():
         reps: Dict[int, torch.Tensor] = {}
         for p in ps:
             reps.setdefault(id(s.blocks[p]), s.blocks[p])

@@ -23,9 +23,10 @@ from ..models import parallel
 from ..models import parallel_serve as pserve
 from ..models import transformer as tf
 from ..sharding.placement import (NamedSharding, Sharded, all_gather,
-                                  canonical_blocks, place, smap, split,
+                                  canonical_groups, place, smap, split,
                                   sum_replicas, unique_blocks)
 from ..sharding.rules import MeshRules, PartitionSpec, logical_to_spec
+from ..utils import cost
 from ..utils.tree import leaves, paths, tree_map, unflatten
 from . import optimizer as topt
 from .optimizer import AdamWConfig, adamw_update
@@ -180,13 +181,16 @@ def _distinct(tree):
     return list(out.values())
 
 
+@cost.repeatable
 def sharded_value_and_grad(params, cfg, batch, rules: MeshRules,
                            remat: bool = True) -> Tuple[Sharded, Any]:
     """(the sharded :func:`~..models.parallel.loss_fn`, its gradient as a
     tree of placed values laid out as ``params``). One autograd graph
     spans every position; a parameter block held on several devices gets
     the sum of its replicas' gradients
-    (:func:`~..sharding.placement.sum_replicas`)."""
+    (:func:`~..sharding.placement.sum_replicas`). Under the dry run's
+    counter a later microbatch of the same shapes is counted, not run
+    (``utils.cost.repeatable``)."""
     ts = _distinct(params)
     for t in ts:
         t.requires_grad_(True)
@@ -217,8 +221,9 @@ def _sharded_adamw(grads, opt_state, params, cfg: AdamWConfig):
     mesh = step.mesh
     total = torch.zeros((), dtype=torch.float32, device=mesh.merge_device)
     for g in leaves(grads):
-        for b in canonical_blocks(g):
-            total = topt.add_squares(total, b)
+        for ps, b in canonical_groups(g):
+            with cost.at(ps):           # the dry run's count: b's holders
+                total = topt.add_squares(total, b)
     gnorm = torch.sqrt(total)
     gn = smap(lambda t: gnorm.to(t.device), step, out=())
     lr = smap(lambda t: topt.cosine_schedule(cfg, t), step, out=())

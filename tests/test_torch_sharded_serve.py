@@ -10,11 +10,17 @@ with their shardings on the ``reduced()`` granite_3_2b (a 40-token prompt
 into a 48-slot cache, whose slots split 24 | 24 over ``model``, and an
 8-token prompt, whose valid slots all lie on the first position),
 mixtral_8x22b (window 32: the 40-token prompt wraps the ring),
-mamba2_2p7b and hymba_1p5b (8 meta tokens, window 32: both caches), each
+mamba2_2p7b and hymba_1p5b (8 meta tokens, window 32: both caches), and
+granite_3_2b with a 44-token prompt into a 47-slot ring, whose slots do
+not split over 2 ``model`` positions and whose 4 kv heads do (the rules
+lay it out by kv heads; the fourth decode step wraps it), also with 2
+kv heads (a GQA group of 2: each position's 2 query heads read its one kv
+head), each
 prefill followed by 4 teacher-forced decode steps. fp32 throughout: the
 logits and every cache leaf within 1e-5 of the largest magnitude (integer
 leaves exactly), the layouts leaf for leaf.
 """
+import dataclasses
 import json
 import math
 
@@ -34,14 +40,17 @@ from repro_torch.train import step as tstep
 from repro_torch.utils.tree import paths
 
 B, STEPS = 8, 4
-CASES = {"granite": ("granite_3_2b", 40, 48),
-         "granite_one_side": ("granite_3_2b", 8, 48),
-         "mixtral_wraps": ("mixtral_8x22b", 40, 48),
-         "mamba2": ("mamba2_2p7b", 40, 48),
-         "hymba": ("hymba_1p5b", 40, 48)}
+# tag: (arch, prompt, cache slots, fields of the reduced config replaced)
+CASES = {"granite": ("granite_3_2b", 40, 48, {}),
+         "granite_one_side": ("granite_3_2b", 8, 48, {}),
+         "mixtral_wraps": ("mixtral_8x22b", 40, 48, {}),
+         "mamba2": ("mamba2_2p7b", 40, 48, {}),
+         "hymba": ("hymba_1p5b", 40, 48, {}),
+         "granite_by_heads": ("granite_3_2b", 44, 47, {}),
+         "granite_gqa_by_heads": ("granite_3_2b", 44, 47, {"n_kv_heads": 2})}
 
 _REF = r'''
-import json, sys
+import dataclasses, json, sys
 import numpy as np, jax
 from repro.utils.compat import make_auto_mesh
 from repro.configs.base import get_arch, ShapeConfig
@@ -64,8 +73,8 @@ def spec_of(tree):
 
 mesh = make_auto_mesh((4, 2), ("data", "model"))
 rules = MeshRules(mesh=mesh)
-for tag, (arch, prompt, seq) in {CASES!r}.items():
-    cfg = get_arch(arch).reduced()
+for tag, (arch, prompt, seq, over) in {CASES!r}.items():
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
     params = tf.init_params(cfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab, ({B}, prompt + {STEPS})
@@ -186,8 +195,12 @@ def test_merge_over_slot_ranges_equals_the_whole(parts):
 
 
 # ------------------------------------------------------------- layouts
-def _builders(arch, seq):
-    cfg = get_arch(arch).reduced()
+def _cfg(tag):
+    arch, _, _, over = CASES[tag]
+    return dataclasses.replace(get_arch(arch).reduced(), **over)
+
+
+def _builders(cfg, seq):
     rules = MeshRules(cpu_mesh())
     pre = tstep.build_prefill_step(cfg, ShapeConfig("p", seq, B, "prefill"),
                                    rules)
@@ -216,10 +229,10 @@ def _flat(t, prefix=""):
 
 
 @pytest.mark.parametrize("tag", ["granite", "mixtral_wraps", "mamba2",
-                                 "hymba"])
+                                 "hymba", "granite_by_heads",
+                                 "granite_gqa_by_heads"])
 def test_layouts_match_the_reference(ref, tag):
-    arch, _, seq = CASES[tag]
-    _, _, pre, dec = _builders(arch, seq)
+    _, _, pre, dec = _builders(_cfg(tag), CASES[tag][2])
     want = ref["specs"][tag]
     got = {"prefill_in": pre[1], "prefill_out": pre[2],
            "decode_in": dec[1], "decode_out": dec[2]}
@@ -232,8 +245,9 @@ def _run(ref, tag):
     """The port's sharded prefill + STEPS decode steps on the reference's
     weights and tokens: (logits per step, the cache after prefill and at
     the end, gathered), and the same on one device."""
-    arch, prompt, seq = CASES[tag]
-    cfg, rules, (pf, pin, pout, _), (df, din, _, _) = _builders(arch, seq)
+    _, prompt, seq, _ = CASES[tag]
+    cfg, rules, (pf, pin, pout, _), (df, din, _, _) = _builders(_cfg(tag),
+                                                                 seq)
     params = convert.params_from_reference(cfg, tree(ref, tag + "/params"),
                                            device="cpu")
     tokens = torch.from_numpy(ref[tag + "/tokens"])
@@ -313,7 +327,7 @@ def test_other_families_serve_as_one_device(arch):
     positions), one kv head and QK-norm with the MoE: a 40-step prefill
     into a 48-slot ring and 4 decode steps equal one device's."""
     cfg = get_arch(arch).reduced()
-    _, rules, (pf, pin, _, _), (df, din, _, _) = _builders(arch, 48)
+    _, rules, (pf, pin, _, _), (df, din, _, _) = _builders(cfg, 48)
     params = tf.init_params(cfg, 0, device="cpu")
     g = torch.Generator().manual_seed(0)
     if cfg.frontend == "embed_stub":
@@ -341,13 +355,33 @@ def test_other_families_serve_as_one_device(arch):
         _close(gather(a).numpy(), b.numpy())
 
 
-def test_builders_refuse_a_ring_laid_out_by_heads():
-    """A 47-slot ring does not split over 2 ``model`` positions, and its 4
-    kv heads would: the rules lay it out by heads, which the steps do not
-    take."""
-    cfg = get_arch("granite_3_2b").reduced()
-    rules = MeshRules(cpu_mesh())
-    for build, kind in ((tstep.build_prefill_step, "prefill"),
-                        (tstep.build_decode_step, "decode")):
-        with pytest.raises(NotImplementedError, match="laid out by kv"):
-            build(cfg, ShapeConfig("x", 47, B, kind), rules)
+@pytest.mark.parametrize("tag", ["granite_by_heads", "granite_gqa_by_heads"])
+def test_by_heads_decode_runs_each_position_over_its_heads(ref, tag,
+                                                           monkeypatch):
+    """On the ring laid out by kv heads, B8 runs once a position and layer
+    a step, on the position's 2 query heads over its own kv heads (2 of 4,
+    or 1 of 2: a GQA group of 2) and every one of the 47 slots, without a
+    log-sum-exp and without the merge; the logits still equal one
+    device's."""
+    seen, merged = [], []
+    real = katt.decode_attention
+
+    def spy(q, k, v, ap, pos, window=0, return_lse=False):
+        seen.append((tuple(q.shape), tuple(k.shape), tuple(ap.shape),
+                     return_lse))
+        return real(q, k, v, ap, pos, window, return_lse)
+    monkeypatch.setattr(katt, "decode_attention", spy)
+    monkeypatch.setattr(pserve, "merge_softmax",
+                        lambda *a: merged.append(1))
+    (logits, _, _), (one, _, _) = _run(ref, tag)
+    cfg = _cfg(tag)
+    hkv = cfg.n_kv_heads // 2
+    # the one-device run's calls take every row and head
+    sharded = [c for c in seen if c[0][0] == B // 4]
+    assert len(seen) - len(sharded) == STEPS * cfg.n_layers
+    assert len(sharded) == STEPS * cfg.n_layers * 8
+    assert set(sharded) == {((B // 4, 2, 16), (B // 4, hkv, 47, 16),
+                             (B // 4, 47), False)}
+    assert not merged
+    for a, b in zip(logits, one):
+        _close(a, b)
